@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure (exit code 1):
   1. device: the card's name and power limit, the TF32 settings (both off);
-  2. build: both CUDA kernels from diffusion_torch/csrc with nvcc;
-  3. kernels: each kernel against its plain PyTorch version in bf16 at the
-     serving path's shapes, with the max-abs error beside its bound, and
-     each one's time beside the plain version's (CUDA events);
+  2. build: the CUDA kernels from diffusion_torch/csrc with one nvcc call;
+  3. kernels: each of the five kernels (GroupNorm forward and backward,
+     flash-attention forward, dQ and dK/dV) against its plain PyTorch
+     version in bf16 at the main paths' shapes, with the max-abs error
+     beside its bound, and each one's time beside the plain version's, the
+     library call's for the same function (timed only, never used by the
+     port) and the card's bound for the work (CUDA events);
   4. serve: the full-width SD-2-base endpoint (random weights from a seed).
      Its UNet and VAE decoder first run against an fp32 CPU copy of
      themselves on a small input. Then, at 512px behind the port's HTTP
      server on localhost: two concurrent, mergeable requests and a third
      with another step count; HTTP 200, decodable 512x512 PNGs, finite
-     latents before the decode, and both kernels' launch counters above
-     zero for that run;
-  5. times: one UNet CFG step and each request's latency.
+     latents before the decode, and both forward kernels' launch counters
+     above zero for that run;
+  5. times: one UNet CFG step and each request's latency;
+  6. gradient reference: the full-width training UNet's loss and gradient
+     at 256px, batch 2, on the card (bf16, kernels) against the same
+     weights in fp32 on the CPU (plain versions);
+  7. train: `Trainer.fit()` for 6 steps of the SD-2-base-256 recipe on
+     precomputed latents (AdamW 1e-4, weight decay 0.01, 10000-batch
+     warmup, global batch 32 in two microbatches of 16) with the 512
+     recipe's EMA (0.9999, from batch 0): finite losses and grad norms,
+     changed params and EMA, all five kernels' launch counters above zero
+     for the fit; step time, samples/s, peak memory, launches per step;
+     then two more steps under torch.profiler for the device's busy time,
+     idle share and time by kernel category.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -26,8 +40,10 @@ Exits with code 2, printing no result, when no CUDA device is present.
 from __future__ import annotations
 
 import base64
+import gc
 import io
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -36,6 +52,14 @@ import time
 SIZE = 512          # the server's default size (JAX serve.py:206)
 STEPS = 20          # the two merged requests
 STEPS_THIRD = 10    # the third request, which cannot merge with them
+TRAIN_SIZE = 256    # yamls/SD-2-base-256.yaml
+TRAIN_BATCH = 32    # global batch: two microbatches of 16
+TRAIN_MICRO = 16    # device_train_microbatch_size (SD-2-base-256.yaml)
+TRAIN_STEPS = 6
+DEVICE = "cuda:0"
+# NVIDIA H100 SXM peaks (data sheet; dense bf16 tensor cores, HBM3)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def _card_line() -> str:
@@ -64,8 +88,37 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(flops: float, nbytes: float):
+    """(ms, what bounds it): the larger of the work over the card's bf16
+    peak and the bytes (each input read once, each output written once)
+    over its memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _gn_library(x, scale, bias, act):
+    """F.group_norm (+ F.silu) on the NCHW channels_last view of the NHWC
+    slab, weights in x's dtype: the library's GroupNorm, timed only."""
+    import torch.nn.functional as F
+    b, l, c = x.shape
+    side = int(round(l ** 0.5))
+    y = F.group_norm(x.view(b, side, side, c).permute(0, 3, 1, 2), 32,
+                     scale.to(x.dtype), bias.to(x.dtype), 1e-5)
+    return F.silu(y) if act else y
+
+
 def _kernel_phase(card: str):
+    """Each kernel against its plain version at the main paths' shapes;
+    returns {kernel: [case, ...]}, a case being a dict of err, ms,
+    plain_ms, library_ms, bound_ms, bound_by."""
     import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
 
     from diffusion_torch.ops import flash_attention as fa
     from diffusion_torch.ops import groupnorm as gn
@@ -76,9 +129,19 @@ def _kernel_phase(card: str):
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    results = {"group_norm": [], "flash_attention": []}
+    def report(name, shape, case, err_text, extra=""):
+        print(f"kernel {name} {shape} bf16{extra}: {err_text}; "
+              f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms, "
+              f"library {case['library_ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]")
+
+    results = {name: [] for name in (
+        "group_norm", "group_norm_bwd", "flash_attention",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+
+    # GroupNorm forward: the serving shapes, then the 256px training ones
     for shape, act in (((2, 4096, 320), "silu"), ((2, 1024, 640), None),
-                       ((1, 262144, 128), "silu")):
+                       ((1, 262144, 128), "silu"), ((16, 1024, 320), "silu")):
         x = randn(*shape)
         c = shape[-1]
         scale, bias = randn(c, dtype=torch.float32), randn(c, dtype=torch.float32)
@@ -91,32 +154,136 @@ def _kernel_phase(card: str):
         bound = 2.0 ** -6 * ref.float().abs().max().item()
         stat_err = max((mean - ref_mean).abs().max().item(),
                        ((rstd - ref_rstd).abs() / ref_rstd).max().item())
-        ms = _time_ms(lambda: gn.group_norm_cuda(x, scale, bias, 32, 1e-5, act))
-        plain = _time_ms(lambda: gn.group_norm_reference(x, scale, bias, 32,
-                                                         1e-5, act))
-        print(f"kernel group_norm x{shape} bf16 act={act}: max_abs_err "
-              f"{err:.3e} (bound {bound:.3e}), stats err {stat_err:.3e} "
-              f"(bound 1e-4); {ms:.4f} ms vs plain {plain:.4f} ms [{card}]")
+        bms, by = _bound(10 * x.numel(), 2 * _nbytes(x) + 3 * c * 4)
+        case = {"err": err, "bound_ms": bms, "bound_by": by,
+                "ms": _time_ms(lambda: gn.group_norm_cuda(
+                    x, scale, bias, 32, 1e-5, act)),
+                "plain_ms": _time_ms(lambda: gn.group_norm_reference(
+                    x, scale, bias, 32, 1e-5, act)),
+                "library_ms": _time_ms(lambda: _gn_library(x, scale, bias,
+                                                           act))}
+        report("group_norm", shape, case,
+               f"max_abs_err {err:.3e} (bound {bound:.3e}), stats err "
+               f"{stat_err:.3e} (bound 1e-4)", f" act={act}")
         _check(err <= bound and stat_err <= 1e-4,
                f"group_norm disagrees with its plain version at {shape}")
-        results["group_norm"].append((err, ms, plain))
+        results["group_norm"].append(case)
 
-    for shape in ((2, 4096, 5, 64), (2, 1024, 10, 64)):
+    # GroupNorm backward at the 256px training shapes (batch 16)
+    for shape, act in (((16, 1024, 320), "silu"), ((16, 256, 640), None),
+                       ((16, 1024, 960), "silu")):
+        x, g = randn(*shape), randn(*shape)
+        c = shape[-1]
+        scale, bias = randn(c, dtype=torch.float32), randn(c, dtype=torch.float32)
+        _, mean, rstd = gn.group_norm_cuda(x, scale, bias, 32, 1e-5, act)
+        dx, dscale, dbias = gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd,
+                                                   g, 32, act)
+        want = gn.group_norm_bwd_reference(x, scale, bias, mean, rstd, g, 32,
+                                           act)
+        err = (dx.float() - want[0].float()).abs().max().item()
+        # both compute dx in fp32 from the same inputs and round once to
+        # bf16: at most one ulp of the largest |dx|, doubled
+        bound = 2.0 ** -6 * want[0].float().abs().max().item()
+        p_err = max(((a - w).abs().max() / w.abs().max()).item()
+                    for a, w in zip((dscale, dbias), want[1:]))
+        xl = x.detach().requires_grad_()
+        sl = scale.to(x.dtype).requires_grad_()
+        bl = bias.to(x.dtype).requires_grad_()
+        lib_out = _gn_library(xl, sl, bl, act)
+        g_nchw = g.view(lib_out.shape[0], lib_out.shape[2], lib_out.shape[3],
+                        c).permute(0, 3, 1, 2)
+        bms, by = _bound(20 * x.numel(), 3 * _nbytes(x) + 7 * c * 4)
+        case = {"err": err, "bound_ms": bms, "bound_by": by,
+                "ms": _time_ms(lambda: gn.group_norm_bwd_cuda(
+                    x, scale, bias, mean, rstd, g, 32, act)),
+                "plain_ms": _time_ms(lambda: gn.group_norm_bwd_reference(
+                    x, scale, bias, mean, rstd, g, 32, act)),
+                "library_ms": _time_ms(lambda: torch.autograd.grad(
+                    lib_out, (xl, sl, bl), g_nchw, retain_graph=True))}
+        report("group_norm_bwd", shape, case,
+               f"dx max_abs_err {err:.3e} (bound {bound:.3e}), "
+               f"dscale/dbias relative err {p_err:.3e} (bound 1e-4)",
+               f" act={act}")
+        _check(err <= bound and p_err <= 1e-4,
+               f"group_norm_bwd disagrees with its plain version at {shape}")
+        results["group_norm_bwd"].append(case)
+
+    # flash forward: the serving shapes, then the 256px training one; the
+    # library call is SDPA's flash backend on the (B, H, S, D) views
+    for shape in ((2, 4096, 5, 64), (2, 1024, 10, 64), (16, 1024, 5, 64)):
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         out, lse = fa.flash_attention_cuda(q, k, v)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
+        b, s, h, d = shape
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bms, by = _bound(4 * b * h * s * s * d, 4 * _nbytes(q) + _nbytes(lse))
+        case = {"err": err, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                "ms": _time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+                "plain_ms": _time_ms(
+                    lambda: fa.flash_attention_reference(q, k, v), 5, 1)}
         # p is cast to bf16 against the running max in the kernel, against
         # the final lse in the plain version: ~2**-8 relative on each term
-        ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v))
-        plain = _time_ms(lambda: fa.flash_attention_reference(q, k, v), 5, 1)
-        print(f"kernel flash_attention q/k/v{shape} bf16: out max_abs_err "
-              f"{err:.3e} (bound 2e-2), lse max_abs_err {lse_err:.3e} "
-              f"(bound 1e-3); {ms:.4f} ms vs plain {plain:.4f} ms [{card}]")
+        report("flash_attention", shape, case,
+               f"out max_abs_err {err:.3e} (bound 2e-2), lse max_abs_err "
+               f"{lse_err:.3e} (bound 1e-3)")
         _check(err <= 2e-2 and lse_err <= 1e-3,
                f"flash_attention disagrees with its plain version at {shape}")
-        results["flash_attention"].append((err, ms, plain))
+        results["flash_attention"].append(case)
+
+    # flash backward: 256px training (first stage, batch 16), then 512px
+    for shape in ((16, 1024, 5, 64), (4, 4096, 5, 64)):
+        q, k, v, do = (randn(*shape) for _ in range(4))
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+        # both round p and ds to bf16 before their products and the outputs
+        # once more: one bf16 ulp of the largest element, doubled
+        errs = [((a.float() - w.float()).abs().max().item(),
+                 2.0 ** -6 * w.float().abs().max().item())
+                for a, w in zip((dq, dk, dv), want)]
+        b, s, h, d = shape
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        do_t = do.transpose(1, 2)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+            lib_bwd = _time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), do_t, retain_graph=True))
+            lib_both = _time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt),
+                do_t))
+        plain = _time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do), 5, 1)
+        flops = 2 * b * h * s * s * d             # one S x S x d product
+        small = _nbytes(lse) + _nbytes(delta)
+        for name, n_mm, nbytes, fn, (err, bound) in (
+                ("flash_attention_bwd_dq", 3, 6 * _nbytes(q) + small,
+                 lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do),
+                 errs[0]),
+                ("flash_attention_bwd_dkv", 4, 6 * _nbytes(q) + small,
+                 lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse,
+                                                         delta),
+                 max(errs[1:]))):
+            bms, by = _bound(n_mm * flops, nbytes)
+            case = {"err": err, "bound_ms": bms, "bound_by": by,
+                    "ms": _time_ms(fn), "plain_ms": plain,
+                    "library_ms": lib_bwd}
+            report(name, shape, case,
+                   f"max_abs_err {err:.3e} (bound {bound:.3e}); plain and "
+                   f"library times are the whole backward")
+            _check(err <= bound,
+                   f"{name} disagrees with its plain version at {shape}")
+            results[name].append(case)
+        ours = _time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, *fa.flash_attention_cuda(q, k, v), do))
+        print(f"kernel flash_attention forward+backward {shape} bf16: "
+              f"{ours:.4f} ms vs library (SDPA flash) {lib_both:.4f} ms "
+              f"[{card}]")
     return results
 
 
@@ -159,6 +326,274 @@ def _reference_phase(model, card: str) -> None:
                f"{name} disagrees with its fp32 CPU reference")
 
 
+def _grad_reference_phase(model, card: str) -> None:
+    """The full-width training UNet's loss and gradient on the card (bf16,
+    kernels) against the same weights in fp32 on the CPU (plain versions),
+    at 256px with batch 2 (the flash kernels run at S=1024), with the same
+    explicit timesteps and noise on both sides."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+
+    gen = torch.Generator().manual_seed(2)
+    side = TRAIN_SIZE // 8
+    ctx = model.unet.config.cross_attention_dim
+    batch = {"image_latents": torch.randn((2, side, side, 4), generator=gen),
+             "caption_latents": torch.randn((2, 77, ctx), generator=gen)}
+    noise = torch.randn((2, side, side, 4), generator=gen)
+    t = torch.tensor([741, 58])
+    named = ("down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q."
+             "weight", "down_blocks.0.resnets.0.norm1.weight")
+
+    def loss_and_grads(sd, dev):
+        sd.unet.zero_grad(set_to_none=True)
+        loss = sd.loss_fn({k: v.to(dev) for k, v in batch.items()},
+                          noise=noise.to(dev), timesteps=t.to(dev))
+        loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in sd.unet.named_parameters()}
+        sd.unet.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    fa.launches_bwd_dkv.reset()
+    gn.launches_bwd.reset()
+    got_loss, got = loss_and_grads(model, DEVICE)
+    torch.cuda.synchronize()
+    kernel_bwd = (fa.launches_bwd_dkv.value, gn.launches_bwd.value)
+    ref_unet = copy.deepcopy(model.unet).to("cpu")
+    ref_unet.dtype = torch.float32
+    want_loss, want = loss_and_grads(
+        dataclasses.replace(model, unet=ref_unet), "cpu")
+    del ref_unet
+
+    def rel(names):
+        num = sum((got[n] - want[n]).square().sum().item() for n in names)
+        den = sum(want[n].square().sum().item() for n in names)
+        return (num / den) ** 0.5
+
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    whole, parts = rel(want), [rel([n]) for n in named]
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    # bf16 keeps 8 significant bits (2**-8 relative per rounding); the
+    # forward's ~100 layers reach a few percent of the output (the serving
+    # reference), the backward twice as many layers again, and a weight
+    # gradient sums products of two bf16 tensors: 1e-1 for the whole
+    # gradient, 2e-1 for one tensor, 3e-2 for the loss (a mean)
+    print(f"grad reference: full-width UNet, {TRAIN_SIZE}px batch 2, bf16 "
+          f"on the card vs fp32 on the CPU: loss {got_loss:.6f} vs "
+          f"{want_loss:.6f} (relative difference {loss_err:.3e}, bound "
+          f"3e-2); whole gradient relative L2 error {whole:.3e} (bound "
+          f"1e-1); {named[0]} {parts[0]:.3e}, {named[1]} {parts[1]:.3e} "
+          f"(bound 2e-1 each); finite {finite}; backward kernel launches "
+          f"(flash dK/dV, GroupNorm) {kernel_bwd} [{card}]")
+    _check(finite and loss_err <= 3e-2 and whole <= 1e-1
+           and max(parts) <= 2e-1 and min(kernel_bwd) > 0,
+           "the full-width gradient disagrees with its fp32 CPU reference")
+
+
+def _train_phase(model, card: str):
+    """`Trainer.fit()` over the SD-2-base-256 recipe; returns the five
+    kernels' launch counts during the fit."""
+    import torch
+
+    from diffusion_torch.algorithms.ema import EMA
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+    from diffusion_torch.train.events import Callback
+    from diffusion_torch.train.optim import adamw, multi_step_with_warmup
+    from diffusion_torch.train.trainer import Trainer
+
+    class Record(Callback):
+        """Syncs on each step's metrics; keeps them and the host time."""
+
+        def __init__(self):
+            self.steps = []
+
+        def batch_end(self, state, logger):
+            m = {k: float(v) for k, v in state.metrics.items()}
+            self.steps.append((m, time.perf_counter(), state.lr))
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    side = TRAIN_SIZE // 8
+    ctx = model.unet.config.cross_attention_dim
+    batches = [{"image_latents": torch.randn((TRAIN_BATCH, side, side, 4),
+                                             generator=gen, device=dev),
+                "caption_latents": torch.randn((TRAIN_BATCH, 77, ctx),
+                                               generator=gen, device=dev)}
+               for _ in range(TRAIN_STEPS)]
+    initial = {n: p.detach().to("cpu", copy=True)
+               for n, p in model.unet.named_parameters()}
+    record = Record()
+    trainer = Trainer(
+        model=model, train_dataloader=batches,
+        optimizers=adamw(lr=1e-4, weight_decay=0.01),
+        schedulers=multi_step_with_warmup(t_warmup="10000ba",
+                                          milestones=["200ep"]),
+        algorithms=[EMA(smoothing=0.9999, ema_start="0ba")],
+        callbacks=[record], max_duration=f"{TRAIN_STEPS}ba",
+        device_train_microbatch_size=TRAIN_MICRO, seed=17, device=dev)
+    counters = {"group_norm": gn.launches, "group_norm_bwd": gn.launches_bwd,
+                "flash_attention": fa.launches,
+                "flash_attention_bwd_dq": fa.launches_bwd_dq,
+                "flash_attention_bwd_dkv": fa.launches_bwd_dkv}
+    for c in (*counters.values(), gn.contiguity_copies):
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    launches = {name: c.value for name, c in counters.items()}
+    copies = gn.contiguity_copies.value
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    ts = trainer.train_state
+    for i, (m, _, lr) in enumerate(record.steps):
+        print(f"train: step {i}: loss {m['loss/train/total']:.6f}, grad norm "
+              f"{m['grad/global_norm']:.6f}, lr {lr:.3e}")
+    _check(len(record.steps) == TRAIN_STEPS, "the fit ran too few steps")
+    _check(all(math.isfinite(v) for m, _, _ in record.steps
+               for v in m.values()), "a loss or grad norm is not finite")
+    changed = {n: (p.detach().cpu() != initial[n]) for n, p in ts.params.items()}
+    n_changed = sum(int(c.sum()) for c in changed.values())
+    n_total = sum(c.numel() for c in changed.values())
+    tensors_changed = sum(bool(c.any()) for c in changed.values())
+    ema_vs_init = sum(int((ts.ema_params[n].cpu() != initial[n]).sum())
+                      for n in initial)
+    ema_vs_params = sum(int((ts.ema_params[n] != p.detach()).sum())
+                        for n, p in ts.params.items())
+    print(f"train: {n_changed} of {n_total} UNet parameters "
+          f"({tensors_changed} of {len(changed)} tensors) differ from their "
+          f"initial values; EMA differs from the initial values in "
+          f"{ema_vs_init} and from the params in {ema_vs_params} elements")
+    _check(n_changed > 0 and ema_vs_init > 0 and ema_vs_params > 0,
+           "params or EMA did not change")
+    times = [b - a for (_, a, _), (_, b, _) in zip(record.steps,
+                                                   record.steps[1:])]
+    step_s = sum(times) / len(times)
+    print(f"train: SD-2-base {TRAIN_SIZE}px, global batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // TRAIN_MICRO} microbatches of {TRAIN_MICRO}), "
+          f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s: step "
+          f"time after the first {step_s * 1e3:.1f} ms (steps: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms), "
+          f"{TRAIN_BATCH / step_s:.2f} samples/s, peak device memory "
+          f"{peak:.2f} GiB [{card}]")
+    print(f"train: kernel launches during the fit {json.dumps(launches)}; "
+          f"per step " + json.dumps(
+              {k: v / TRAIN_STEPS for k, v in launches.items()})
+          + f"; GroupNorm cotangents copied to contiguous: {copies} "
+          f"({copies / TRAIN_STEPS:.1f} per step)")
+    for name, n in launches.items():
+        _check(n > 0, f"{name} kernel was not launched during the fit")
+    del trainer
+    _profile_phase(model, batches, card)
+    return launches
+
+
+_CATEGORIES = (   # kernel-name patterns, first match wins
+    ("GroupNorm kernels", ("gn_partial", "gn_merge", "gn_apply", "gn_bwd")),
+    ("flash kernels", ("flash_",)),
+    ("optimizer/EMA foreach", ("multi_tensor_apply", "foreach")),
+    ("cuDNN convs", ("conv", "cudnn", "implicit", "dgrad", "wgrad",
+                     "winograd", "xmma_fprop", "nhwc")),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas",
+                      "nvjet")),
+    ("copies and casts", ("copy", "cat", "Copy")),
+    ("reductions", ("reduce", "Reduce", "norm")),
+)
+
+
+def _profile_phase(model, batches, card: str) -> None:
+    """Two more steps of the recipe under torch.profiler (CUDA activity):
+    device busy time (the union of kernel intervals), the idle share of
+    the first-to-last kernel span, and device time by kernel category, for
+    the second step. Informational: prints "not measured" where the
+    profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_torch.algorithms.ema import EMA
+    from diffusion_torch.train.events import Callback
+    from diffusion_torch.train.optim import adamw, multi_step_with_warmup
+    from diffusion_torch.train.trainer import Trainer
+
+    class Mark(Callback):
+        """Brackets each step, synchronized, in a named profiler range."""
+
+        def __init__(self):
+            self.step, self.range = 0, None
+
+        def batch_start(self, state, logger):
+            torch.cuda.synchronize()
+            self.range = torch.profiler.record_function(
+                f"chip_smoke_step_{self.step}")
+            self.range.__enter__()
+
+        def batch_end(self, state, logger):
+            torch.cuda.synchronize()
+            self.range.__exit__(None, None, None)
+            self.step += 1
+
+    trainer = Trainer(
+        model=model, train_dataloader=batches[:2],
+        optimizers=adamw(lr=1e-4, weight_decay=0.01),
+        schedulers=multi_step_with_warmup(t_warmup="10000ba",
+                                          milestones=["200ep"]),
+        algorithms=[EMA(smoothing=0.9999, ema_start="0ba")],
+        callbacks=[Mark()], max_duration="2ba",
+        device_train_microbatch_size=TRAIN_MICRO, seed=18, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.fit()
+        torch.cuda.synchronize()
+    events = prof.events()
+    steps = [e.time_range for e in events if e.name == "chip_smoke_step_1"]
+    # device activity: kernels, copies, memsets; not the GPU-side copies of
+    # the profiler's own ranges (user annotations)
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("chip_smoke_step_")]
+    # the second step's kernels: the step is bracketed by synchronizations,
+    # so its kernels run inside its range
+    lo, hi = (steps[0].start, steps[0].end) if steps else (0, -1)
+    second = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in kernels
+                    if lo <= e.time_range.start and e.time_range.end <= hi)
+    if not second:
+        print(f"profile: not measured (the profiler recorded no device "
+              f"events) [{card}]")
+        return
+    step_wall = hi - lo
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, s1, _ in second:
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s0, s1
+        else:
+            cur_e = max(cur_e, s1)
+    busy += cur_e - cur_s
+    span = second[-1][1] - second[0][0]
+    cats = {}
+    for s0, s1, name in second:
+        cat = next((c for c, pats in _CATEGORIES
+                    if any(p in name for p in pats)), "other elementwise")
+        t, k = cats.get(cat, (0.0, 0))
+        cats[cat] = (t + (s1 - s0), k + 1)
+    print(f"profile: training step (second of two, profiler on): "
+          f"{len(second)} kernels, device busy {busy / 1e3:.2f} ms, "
+          f"first-to-last kernel span {span / 1e3:.2f} ms, idle share "
+          f"{1 - busy / span:.3f}; host wall time of the step "
+          f"{step_wall / 1e3:.2f} ms [{card}]")
+    print("profile: device time by category (ms, kernels): " + "; ".join(
+        f"{c} {t / 1e3:.2f} ({k})"
+        for c, (t, k) in sorted(cats.items(), key=lambda x: -x[1][0])))
+
+
 def _post(port: int, payload: dict, out: dict, key: str) -> None:
     from http.client import HTTPConnection
     t0 = time.perf_counter()
@@ -183,6 +618,7 @@ def main() -> int:
 
     from diffusion_torch.inference.inference_model import \
         StableDiffusionInference
+    from diffusion_torch.models.models import stable_diffusion_2
     from diffusion_torch.inference.serve import make_server
     from diffusion_torch.ops import _build
     from diffusion_torch.ops import flash_attention as fa
@@ -301,19 +737,46 @@ def main() -> int:
     print(f"times: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
 
+    # 6-7. the training slice, on a model of its own: free the endpoint
+    del endpoint, model, unet, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_model = stable_diffusion_2(precomputed_latents=True, device=DEVICE,
+                                     seed=0)
+    _check(train_model.vae is None and train_model.unet.training,
+           "the training builder built the frozen towers or froze the UNet")
+    print(f"train: SD-2-base training model built in "
+          f"{time.perf_counter() - t0:.1f} s (UNet only, trainable)")
+    _grad_reference_phase(train_model, card)
+    train_launches = _train_phase(train_model, card)
+
     summary = []
     for name, source, replaces in (
             ("group_norm", "diffusion_torch/csrc/group_norm.cu",
              "diffusion_tpu/ops/groupnorm.py:119"),
+            ("group_norm_bwd", "diffusion_torch/csrc/group_norm.cu",
+             "diffusion_tpu/ops/groupnorm.py:183"),
             ("flash_attention", "diffusion_torch/csrc/flash_attention.cu",
-             "diffusion_tpu/ops/flash_attention.py:201")):
+             "diffusion_tpu/ops/flash_attention.py:201"),
+            ("flash_attention_bwd_dq",
+             "diffusion_torch/csrc/flash_attention_bwd.cu",
+             "diffusion_tpu/ops/flash_attention.py:243"),
+            ("flash_attention_bwd_dkv",
+             "diffusion_torch/csrc/flash_attention_bwd.cu",
+             "diffusion_tpu/ops/flash_attention.py:268")):
         cases = kernels[name]
+        # the first case is the main path's most frequent shape: serving's
+        # for the forward kernels, 256px training's for the backward ones
+        first = cases[0]
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(c[0] for c in cases),
-            # the first case is the serving path's most frequent shape
-            "ms": cases[0][1], "plain_ms": cases[0][2]})
+            "replaces": replaces,
+            "launches": launches.get(name, 0) + train_launches[name],
+            "max_abs_err": max(c["err"] for c in cases),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"]})
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,61 +28,15 @@
 // each tile are synchronous and latency is hidden only by other resident
 // blocks.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;           // head dim
-constexpr int kBQ = 64;          // q rows per block
-constexpr int kBK = 64;          // keys per K/V tile
-constexpr int kWarps = kBQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = kD + 8;      // padded smem row (bf16 elements)
-
-struct Strides {                 // element strides of a (B, S, H, D) view
-  long long b, s, h;
-};
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// copy a 64 x 64 bf16 tile (rows `row0..row0+63` of a strided view) to smem
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLd],
-                                         const __nv_bfloat16* src,
-                                         long long row_stride, int row0) {
-  for (int i = threadIdx.x; i < 64 * kD / 8; i += kThreads) {
-    int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][c]) = *reinterpret_cast<const uint4*>(
-        src + (long long)(row0 + r) * row_stride + c);
-  }
-}
+using namespace flash;
+constexpr int kBQ = kTile;       // q rows per block
+constexpr int kBK = kTile;       // keys per K/V tile
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -109,18 +63,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   load_tile(sQ, qb, qs.s, q0);
   __syncthreads();
   uint32_t qa[4][4];                        // A fragments of Q, 4 k-chunks
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    qa[kc][0] = lds32(&sQ[wr + g][kc * 16 + t4 * 2]);
-    qa[kc][1] = lds32(&sQ[wr + g + 8][kc * 16 + t4 * 2]);
-    qa[kc][2] = lds32(&sQ[wr + g][kc * 16 + 8 + t4 * 2]);
-    qa[kc][3] = lds32(&sQ[wr + g + 8][kc * 16 + 8 + t4 * 2]);
-  }
+  load_a_frags(qa, sQ, wr, g, t4);
 
   float acc[8][4];                          // O rows (g, g+8) x 64 dims
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  zero(acc);
   float m0 = -INFINITY, m1 = -INFINITY;     // running max, log2 units
   float l0 = 0.f, l1 = 0.f;                 // this thread's share of the sum
 
@@ -131,16 +77,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     float s[8][4];                          // scores: rows (g, g+8) x 64 keys
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t b0 = lds32(&sK[nt * 8 + g][kc * 16 + t4 * 2]);
-        uint32_t b1 = lds32(&sK[nt * 8 + g][kc * 16 + 8 + t4 * 2]);
-        mma_16816(s[nt], qa[kc], b0, b1);
-      }
-    }
+    zero(s);
+    mma_abt(s, qa, sK, g, t4);
 
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -180,25 +118,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     // acc += P V; P (fp32 -> bf16, as the TPU kernel casts p to v's dtype)
     // is used in place as the A operand, 16 keys per k-chunk
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < 8; dt += 2) {
-        // four 8x8 blocks of V: keys kc*16+{0,8}, dims (dt, dt+1)*8
-        const int mi = lane >> 3;
-        const int row = kc * 16 + (mi & 1) * 8 + (lane & 7);
-        const int col = (dt + (mi >> 1)) * 8;
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, &sV[row][col]);
-        mma_16816(acc[dt], pa, vb4[0], vb4[1]);
-        mma_16816(acc[dt + 1], pa, vb4[2], vb4[3]);
-      }
-    }
+    mma_ab(acc, s, sV, lane);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -209,16 +129,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   // out is a fresh contiguous (B, Sq, H, D) tensor
   const int r0 = q0 + wr + g, r1 = r0 + 8;
-  __nv_bfloat16* o0 = o + (((long long)b * Sq + r0) * H + h) * kD;
-  __nv_bfloat16* o1 = o + (((long long)b * Sq + r1) * H + h) * kD;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
-        __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(o1 + c) =
-        __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
+  store_rows(o, acc, b, Sq, H, h, r0, t4, inv0, inv1);
   if (t4 == 0) {
     // natural-log lse of the scaled scores: (m + log2 l) * ln 2
     const float ln2 = 0.6931471805599453f;
@@ -238,13 +149,12 @@ extern "C" int dt_flash_attention_fwd(
     int H, int Sq, int Skv, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, float scale, void* stream) {
-  const float log2e = 1.4426950408889634f;
   dim3 grid(Sq / kBQ, B * H);
   flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), H, Sq, Skv, Strides{q_sb, q_ss, q_sh},
-      Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh}, scale * log2e);
+      Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh}, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

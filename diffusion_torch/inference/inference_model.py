@@ -47,10 +47,12 @@ class StableDiffusionInference:
                  **model_kwargs: Any):
         if checkpoint_path:
             raise NotImplementedError(
-                "checkpoint loading comes with ROADMAP.md queue 1 item 3 "
+                "checkpoint loading comes with ROADMAP.md queue 1 item 4 "
                 "(checkpoints and pretrained weights)")
         builder = builder or stable_diffusion_2
+        # device None means CUDA; the builder raises where it is missing
         self.model = builder(device=device, seed=seed, **model_kwargs)
+        self.model.unet.eval().requires_grad_(False)     # served, not trained
         if jax_params is not None:
             params, frozen = jax_params
             self.model.unet.load_state_dict(unet_from_jax(params))
@@ -78,16 +80,16 @@ class StableDiffusionInference:
                 f"guidance_rescale must be in [0, 1], got {g_rescale}")
         if g_rescale > 0.0:
             raise NotImplementedError(
-                "guidance_rescale comes with ROADMAP.md queue 1 item 5 "
+                "guidance_rescale comes with ROADMAP.md queue 1 item 7 "
                 "(DPM++/Euler samplers and guidance rescale)")
         sched = inputs.get("scheduler")
         if sched and str(sched).lower() != "ddim":
             raise NotImplementedError(
-                f"sampler {sched!r} comes with ROADMAP.md queue 1 item 5 "
+                f"sampler {sched!r} comes with ROADMAP.md queue 1 item 7 "
                 f"(DPM++/Euler samplers and guidance rescale)")
         if inputs.get("image") or inputs.get("mask") or "strength" in inputs:
             raise NotImplementedError(
-                "img2img and inpainting come with ROADMAP.md queue 1 item 4 "
+                "img2img and inpainting come with ROADMAP.md queue 1 item 6 "
                 "(VAE encoder, img2img and inpainting)")
         key = (int(inputs.get("num_inference_steps", 50)),
                int(inputs.get("height", self.default_size)),

@@ -9,10 +9,11 @@ NHWC, the JAX package's layout, so the GroupNorm kernel reads a contiguous
 (B, H*W, C) slab with no copy.
 
 Precision, as in the JAX package: parameters are fp32 and the compute dtype
-is the dtype of the activations (bf16 when serving). `Linear` and `Conv2d`
-cast their weights to the input's dtype; norms compute their statistics in
-fp32 and return the input's dtype. LoRA and dropout wait for the training
-slice.
+is the dtype of the activations (bf16 at full width). `Linear` and
+`Conv2d` cast their weights to the input's dtype on every call (a
+differentiable cast, so gradients land on the fp32 parameters); norms
+compute their statistics in fp32 and return the input's dtype. LoRA and
+dropout > 0 are not ported (ROADMAP.md queue 1 items 11 and 5).
 """
 
 from __future__ import annotations
@@ -124,8 +125,9 @@ class ResnetBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int], groups: int = 32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = GroupNorm(groups, in_channels, eps, act="silu")
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_channels:
@@ -137,6 +139,10 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training and self.dropout > 0:
+            raise NotImplementedError(
+                "ResnetBlock dropout > 0 in training comes with ROADMAP.md "
+                "queue 1 item 5 (remat and dropout)")
         h = self.conv1(self.norm1(x))
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]

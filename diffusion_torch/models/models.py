@@ -1,20 +1,30 @@
 """Model builders: full-width SD-2-base and the tiny test geometry.
 
 Counterparts of `stable_diffusion_2` and `stable_diffusion_tiny` in
-`diffusion_tpu/models/models.py`. A builder makes the modules on `device`
+`diffusion_tpu/models/models.py`, with their training arguments
+(`precomputed_latents`, `prediction_type`, `min_snr_gamma`,
+`rescale_betas_zero_snr`, `init_frozen_towers`). A builder makes the
+modules on `device` (CUDA unless the caller asks for the CPU; it raises
+where CUDA is missing)
 and draws their weights as flax's defaults would (`init_like_flax_`) from a
 `torch.Generator` seeded with `seed`; load real weights over them with
 `load_state_dict` (see `models/port_jax.py`).
 
+The UNet is trainable (fp32 parameters, `.train()` mode). The frozen VAE
+and CLIP towers are `.eval()` without gradients, and are not built when
+`init_frozen_towers` resolves False: by the JAX rule, precomputed latents
+and no generation eval (the port has no eval loop yet, so precomputed
+latents alone).
+
 SD-2-base computes in bf16 over fp32 parameters, as the JAX package's
 `encode_latents_in_fp16=True` sets it; the tiny geometry computes in fp32.
-Only the DDIM sampler (epsilon prediction) is ported.
+Only the DDIM sampler is ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
@@ -24,41 +34,69 @@ from diffusion_torch.models.layers import init_like_flax_
 from diffusion_torch.models.stable_diffusion import StableDiffusion
 from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition, UNetConfig
 from diffusion_torch.models.vae import SD2_VAE, AutoencoderKL, VAEConfig
-from diffusion_torch.schedulers import DDIMScheduler
+from diffusion_torch.schedulers import DDIMScheduler, DDPMScheduler
 from diffusion_torch.text.tokenizer import CLIPTokenizer, tiny_tokenizer
+from diffusion_torch.utils.device import Device, resolve_device
 
 __all__ = ["stable_diffusion_2", "stable_diffusion_tiny"]
-
-Device = Union[str, torch.device, None]
 
 
 def _check_ported(inference_scheduler: str) -> None:
     if inference_scheduler.lower() != "ddim":
         raise NotImplementedError(
             f"sampler {inference_scheduler!r} comes with ROADMAP.md queue 1 "
-            f"item 5 (DPM++/Euler samplers and guidance rescale)")
+            f"item 7 (DPM++/Euler samplers and guidance rescale)")
 
 
 def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
            text_cfg: CLIPTextConfig, tokenizer, dtype: torch.dtype,
-           device: Device, seed: int) -> StableDiffusion:
-    device = torch.device(device or "cpu")
+           device: Device, seed: int, *, precomputed_latents: bool,
+           prediction_type: str, min_snr_gamma: Optional[float],
+           rescale_betas_zero_snr: bool,
+           init_frozen_towers: Optional[bool]) -> StableDiffusion:
+    device = resolve_device(device)
+    if init_frozen_towers is None:
+        init_frozen_towers = not precomputed_latents
+    # the zero-terminal-SNR recipe's two halves ship together
+    # (arXiv:2305.08891): rescaled schedule + trailing spacing
+    spacing = "trailing" if rescale_betas_zero_snr else "leading"
+    noise_scheduler = DDPMScheduler(
+        prediction_type=prediction_type,
+        rescale_betas_zero_snr=rescale_betas_zero_snr,
+        timestep_spacing=spacing)
+    inference_scheduler = DDIMScheduler(
+        prediction_type=prediction_type,
+        rescale_betas_zero_snr=rescale_betas_zero_snr,
+        timestep_spacing=spacing)
     with torch.device(device):
         unet = UNet2DCondition(unet_cfg, dtype=dtype)
-        vae = AutoencoderKL(vae_cfg, dtype=dtype)
-        text = CLIPTextModel(text_cfg, dtype=dtype)
+        towers = ((AutoencoderKL(vae_cfg, dtype=dtype),
+                   CLIPTextModel(text_cfg, dtype=dtype))
+                  if init_frozen_towers else (None, None))
     gen = torch.Generator(device=device).manual_seed(seed)
-    for module in (unet, vae, text):
-        init_like_flax_(module, gen)
-        module.eval().requires_grad_(False)
-    return StableDiffusion(unet=unet, vae=vae, text_encoder=text,
+    init_like_flax_(unet, gen)
+    unet.train()
+    for module in towers:
+        if module is not None:
+            init_like_flax_(module, gen)
+            module.eval().requires_grad_(False)
+    return StableDiffusion(unet=unet, vae=towers[0], text_encoder=towers[1],
                            tokenizer=tokenizer,
-                           inference_scheduler=DDIMScheduler())
+                           inference_scheduler=inference_scheduler,
+                           noise_scheduler=noise_scheduler,
+                           prediction_type=prediction_type,
+                           min_snr_gamma=min_snr_gamma,
+                           precomputed_latents=precomputed_latents)
 
 
 def stable_diffusion_2(model_name: Optional[str] = None,
                        inference_scheduler: str = "ddim",
-                       device: Device = None, seed: int = 0
+                       device: Device = None, seed: int = 0,
+                       precomputed_latents: bool = False,
+                       prediction_type: str = "epsilon",
+                       min_snr_gamma: Optional[float] = None,
+                       rescale_betas_zero_snr: bool = False,
+                       init_frozen_towers: Optional[bool] = None
                        ) -> StableDiffusion:
     """SD-2-base at full width: 866M-parameter UNet, SD2 VAE, 23-layer
     CLIP text tower. `model_name` is a local HF tokenizer directory; without
@@ -68,11 +106,20 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                  if model_name and os.path.exists(model_name)
                  else tiny_tokenizer())
     return _build(SD2_BASE_UNET, SD2_VAE, SD2_TEXT_CONFIG, tokenizer,
-                  torch.bfloat16, device, seed)
+                  torch.bfloat16, device, seed,
+                  precomputed_latents=precomputed_latents,
+                  prediction_type=prediction_type, min_snr_gamma=min_snr_gamma,
+                  rescale_betas_zero_snr=rescale_betas_zero_snr,
+                  init_frozen_towers=init_frozen_towers)
 
 
 def stable_diffusion_tiny(inference_scheduler: str = "ddim",
-                          device: Device = None, seed: int = 0
+                          device: Device = None, seed: int = 0,
+                          precomputed_latents: bool = False,
+                          prediction_type: str = "epsilon",
+                          min_snr_gamma: Optional[float] = None,
+                          rescale_betas_zero_snr: bool = False,
+                          init_frozen_towers: Optional[bool] = None
                           ) -> StableDiffusion:
     """The JAX package's tiny geometry (fp32): real architecture, small
     channels, for tests and CPU runs."""
@@ -86,4 +133,8 @@ def stable_diffusion_tiny(inference_scheduler: str = "ddim",
                   norm_num_groups=4),
         CLIPTextConfig(vocab_size=514, hidden_size=32, intermediate_size=64,
                        num_hidden_layers=2, num_attention_heads=2),
-        tiny_tokenizer(), torch.float32, device, seed)
+        tiny_tokenizer(), torch.float32, device, seed,
+        precomputed_latents=precomputed_latents,
+        prediction_type=prediction_type, min_snr_gamma=min_snr_gamma,
+        rescale_betas_zero_snr=rescale_betas_zero_snr,
+        init_frozen_towers=init_frozen_towers)

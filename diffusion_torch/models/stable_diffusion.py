@@ -1,48 +1,63 @@
-"""StableDiffusion text-to-image generation: CLIP text -> CFG DDIM loop over
-the UNet -> VAE decode.
+"""StableDiffusion: the training forward and loss on precomputed latents,
+and text-to-image generation (CLIP text -> CFG DDIM loop over the UNet ->
+VAE decode).
 
-Counterpart of the generation half of
-`diffusion_tpu/models/stable_diffusion.py`. The modules own their weights,
-so no param trees are passed around; the denoise loop is a Python loop in
-place of `lax.scan`; noise comes from an explicit `torch.Generator`.
+Counterpart of `diffusion_tpu/models/stable_diffusion.py`. The modules own
+their weights, so no param trees are passed around; the denoise loop is a
+Python loop in place of `lax.scan`; timesteps and noise come from an
+explicit `torch.Generator`, or are passed in (`forward(noise=,
+timesteps=)`), so a test can hand both packages the same draws.
 
-Public layouts match JAX: `latents` in and out are (B, H/8, W/8, 4) and
-`generate` returns images (B, H, W, 3) in [0, 1]. Inside, latents are NCHW
-views of that same memory (channels_last).
+Public layouts match JAX: the batch's `image_latents` are (B, H/8, W/8, 4)
+and `caption_latents` (B, 77, D); `forward` returns the prediction and
+target in that NHWC layout; `generate` takes latents (B, H/8, W/8, 4) and
+returns images (B, H, W, 3) in [0, 1]. Inside, latents are NCHW views of
+the same memory (channels_last).
 
-Not ported yet: img2img and inpainting and guidance rescale (each raises
-NotImplementedError naming its ROADMAP.md item), precomputed prompt
-embeddings, latent output, and the training forward.
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+item): raw-image training batches (the VAE encoder), img2img and
+inpainting, guidance rescale.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from diffusion_torch.models.clip import CLIPTextModel
 from diffusion_torch.models.unet import UNet2DCondition
 from diffusion_torch.models.vae import AutoencoderKL
-from diffusion_torch.schedulers import DDIMScheduler
+from diffusion_torch.schedulers import DDIMScheduler, DDPMScheduler
 
 __all__ = ["StableDiffusion"]
 
-_IMG2IMG = ("img2img and inpainting come with ROADMAP.md queue 1 item 4 "
+# the JAX batch contract's keys for precomputed VAE and CLIP latents
+_LATENTS, _CAPTIONS = "image_latents", "caption_latents"
+_ENCODER = ("VAE encoding of raw-image batches comes with ROADMAP.md queue 1 "
+            "item 6 (VAE encoder, img2img and inpainting)")
+_IMG2IMG = ("img2img and inpainting come with ROADMAP.md queue 1 item 6 "
             "(VAE encoder, img2img and inpainting)")
-_RESCALE = ("guidance_rescale > 0 comes with ROADMAP.md queue 1 item 5 "
+_RESCALE = ("guidance_rescale > 0 comes with ROADMAP.md queue 1 item 7 "
             "(DPM++/Euler samplers and guidance rescale)")
 
 
 @dataclasses.dataclass
 class StableDiffusion:
     unet: UNet2DCondition
-    vae: AutoencoderKL
-    text_encoder: CLIPTextModel
+    # None when the builder skipped the frozen towers (init_frozen_towers)
+    vae: Optional[AutoencoderKL]
+    text_encoder: Optional[CLIPTextModel]
     tokenizer: Any
     inference_scheduler: DDIMScheduler
+    noise_scheduler: DDPMScheduler = dataclasses.field(
+        default_factory=DDPMScheduler)
+    prediction_type: str = "epsilon"
+    # min-SNR loss weighting (arXiv:2303.09556); None = plain MSE
+    min_snr_gamma: Optional[float] = None
     latent_scale: float = 0.18215
+    precomputed_latents: bool = False
     val_seed: int = 1138
 
     @property
@@ -61,7 +76,87 @@ class StableDiffusion:
         ids[:, 1] = eos
         return ids
 
+    # ---------------- training ----------------
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None,
+                timesteps: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Diffusion forward pass -> (prediction, target, timesteps), the
+        first two fp32 (B, H/8, W/8, 4). Timesteps, then noise, are drawn
+        from `generator` unless given."""
+        if not (self.precomputed_latents and _LATENTS in batch):
+            raise NotImplementedError(_ENCODER)
+        device = self.device
+        latents = batch[_LATENTS].to(device, torch.float32)
+        conditioning = batch[_CAPTIONS].to(device, torch.float32)
+        bsz = latents.shape[0]
+        if timesteps is None:
+            timesteps = torch.randint(
+                0, self.noise_scheduler.num_train_timesteps, (bsz,),
+                generator=generator, device=device)
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=device, dtype=torch.float32)
+        timesteps = timesteps.to(device)
+        noise = noise.to(device, torch.float32)
+        noised = self.noise_scheduler.add_noise(latents, noise, timesteps)
+        # NHWC memory viewed as NCHW: channels_last, no copy
+        pred = self.unet(noised.permute(0, 3, 1, 2), timesteps,
+                         conditioning).permute(0, 2, 3, 1)
+        if self.prediction_type == "epsilon":
+            target = noise
+        elif self.prediction_type == "sample":
+            target = latents
+        elif self.prediction_type == "v_prediction":
+            target = self.noise_scheduler.get_velocity(latents, noise,
+                                                       timesteps)
+        else:
+            raise ValueError(
+                f"unknown prediction_type {self.prediction_type!r}")
+        return pred, target, timesteps
+
+    def loss(self, outputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """MSE(pred, target) in fp32, optionally min-SNR weighted per
+        sample: epsilon min(SNR, g)/SNR, v min(SNR, g)/(SNR+1), sample
+        min(SNR, g)."""
+        pred, target = outputs[0], outputs[1]
+        se = torch.square(pred.float() - target.float())
+        if self.min_snr_gamma is None:
+            return se.mean()
+        t = outputs[2]
+        abar = self.noise_scheduler.alphas_cumprod.to(t.device)[t]
+        snr = abar / torch.clamp(1.0 - abar, min=1e-12)
+        g = float(self.min_snr_gamma)
+        if self.prediction_type == "epsilon":
+            w = torch.clamp(snr, max=g) / snr
+        elif self.prediction_type == "v_prediction":
+            w = torch.clamp(snr, max=g) / (snr + 1.0)
+        elif self.prediction_type == "sample":
+            w = torch.clamp(snr, max=g)
+        else:
+            raise ValueError(
+                f"unknown prediction_type {self.prediction_type!r}")
+        per_sample = se.mean(dim=tuple(range(1, se.ndim)))
+        return (w * per_sample).mean()
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None,
+                timesteps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Scalar training loss; the function the trainer backpropagates."""
+        return self.loss(self.forward(batch, generator, noise, timesteps))
+
+    # ---------------- generation ----------------
+    def _towers(self) -> None:
+        if self.vae is None or self.text_encoder is None:
+            raise RuntimeError(
+                "generation needs the VAE and CLIP towers, which this model "
+                "was built without (init_frozen_towers resolved False: "
+                "precomputed_latents=True)")
+
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
+        self._towers()
         return self.text_encoder(input_ids.to(self.device))[0]
 
     def embed_prompts(self, prompt_ids: torch.Tensor,
@@ -108,6 +203,7 @@ class StableDiffusion:
             raise NotImplementedError(_IMG2IMG)
         if guidance_rescale > 0.0:
             raise NotImplementedError(_RESCALE)
+        self._towers()
         device = self.device
         bsz = prompt_ids.shape[0]
         embeddings = self.embed_prompts(prompt_ids, negative_ids)

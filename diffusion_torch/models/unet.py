@@ -1,10 +1,12 @@
-"""UNet2DCondition, the denoising network (forward only).
+"""UNet2DCondition, the denoising network.
 
 Counterpart of `diffusion_tpu/models/unet.py` with diffusers' module names
 (`down_blocks.i.resnets.j`, `mid_block`, `up_blocks`, ...), so a diffusers
 UNet2DConditionModel state_dict loads as it is. NCHW in and out (the JAX
 module is NHWC); the activations are kept in channels_last memory, whose
-layout is the JAX one. No remat: that is a training concern.
+layout is the JAX one. Trains with autograd through the GroupNorm and flash
+kernels' backward halves; `remat` and dropout > 0 raise (ROADMAP.md queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
     norm_num_groups: int = 32
+    dropout: float = 0.0
 
 
 SD2_BASE_UNET = UNetConfig()
@@ -46,7 +49,11 @@ SD2_BASE_UNET = UNetConfig()
 
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig = SD2_BASE_UNET,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        if remat:
+            raise NotImplementedError(
+                "UNet remat comes with ROADMAP.md queue 1 item 5 (remat and "
+                "dropout)")
         super().__init__()
         self.config, self.dtype = config, dtype
         chans = config.block_out_channels
@@ -54,6 +61,10 @@ class UNet2DCondition(nn.Module):
         groups = config.norm_num_groups
         cross = config.cross_attention_dim
         temb_dim = chans[0] * 4
+
+        def resnet(cin, cout):
+            return ResnetBlock(cin, cout, temb_dim, groups,
+                               dropout=config.dropout)
 
         def transformer(ch, n_heads):
             return Transformer2D(ch, n_heads, cross, groups,
@@ -73,7 +84,7 @@ class UNet2DCondition(nn.Module):
             if config.block_has_attention[i]:
                 block.attentions = nn.ModuleList()
             for _ in range(config.layers_per_block):
-                block.resnets.append(ResnetBlock(cur, out_ch, temb_dim, groups))
+                block.resnets.append(resnet(cur, out_ch))
                 if config.block_has_attention[i]:
                     block.attentions.append(transformer(out_ch, heads[i]))
                 cur = out_ch
@@ -84,9 +95,8 @@ class UNet2DCondition(nn.Module):
             self.down_blocks.append(block)
 
         self.mid_block = Container()
-        self.mid_block.resnets = nn.ModuleList([
-            ResnetBlock(cur, cur, temb_dim, groups),
-            ResnetBlock(cur, cur, temb_dim, groups)])
+        self.mid_block.resnets = nn.ModuleList([resnet(cur, cur),
+                                                resnet(cur, cur)])
         self.mid_block.attentions = nn.ModuleList([transformer(cur, heads[-1])])
 
         self.up_blocks = nn.ModuleList()
@@ -97,8 +107,7 @@ class UNet2DCondition(nn.Module):
             if has_attn:
                 block.attentions = nn.ModuleList()
             for _ in range(config.layers_per_block + 1):
-                block.resnets.append(
-                    ResnetBlock(cur + skips.pop(), out_ch, temb_dim, groups))
+                block.resnets.append(resnet(cur + skips.pop(), out_ch))
                 if has_attn:
                     block.attentions.append(transformer(out_ch, heads[n - 1 - i]))
                 cur = out_ch
@@ -143,7 +152,9 @@ class UNet2DCondition(nn.Module):
             attns = getattr(block, "attentions", None)
             for j, resnet in enumerate(block.resnets):
                 # the channel concat of NCHW tensors is not channels_last
-                # any more; the next GroupNorm needs it back
+                # any more; the next GroupNorm needs it back (a copy that
+                # autograd carries: the gradient of the concat's halves is a
+                # slice of a channels_last cotangent)
                 h = torch.cat([h, residuals.pop()], dim=1).contiguous(
                     memory_format=CHANNELS_LAST)
                 h = resnet(h, temb)

@@ -27,7 +27,8 @@ __all__ = ["LaunchCounter", "library", "build_log", "BUILD_DIR"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "diffusion_torch")
-_SOURCES = ("flash_attention.cu", "group_norm.cu")
+_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu")
+_HEADERS = ("flash_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,8 +37,14 @@ _SIGNATURES = {
     "dt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                                _F, _P],
+    "dt_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, *[_LL] * 15, _F, _P],
+    "dt_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, *[_LL] * 12, _F, _P],
     "dt_group_norm_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _I, _I, _I, _P],
+    "dt_group_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -75,7 +82,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

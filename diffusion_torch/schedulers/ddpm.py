@@ -1,11 +1,12 @@
-"""DDPM noise schedule: the numpy tables every sampler derives from.
+"""DDPM noise schedule: the numpy tables every sampler derives from, and
+the training-time forward diffusion.
 
 Counterpart of `diffusion_tpu/schedulers/ddpm.py`. `make_beta_schedule`,
 `alphas_cumprod_np` and `uniform_timestep_grid` are copies of the JAX
 module's numpy helpers (that module imports jax.numpy at top level, so it
 cannot be imported here); ROADMAP.md lists lifting them into a shared
-framework-free module. The training half of the scheduler (`add_noise`,
-`get_velocity`) comes with the training slice.
+framework-free module. `add_noise` and `get_velocity` compute in fp32 and
+return the sample's dtype, as the JAX scheduler does.
 """
 
 from __future__ import annotations
@@ -75,15 +76,33 @@ def uniform_timestep_grid(num_train_timesteps: int, num_inference_steps: int,
     return ts.astype(np.int32), t_prev.astype(np.int32)
 
 
+def _expand(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(B,) -> (B, 1, ..., 1) of rank `ndim`."""
+    return t.reshape(t.shape[0], *([1] * (ndim - 1)))
+
+
 @dataclasses.dataclass(frozen=True)
 class DDPMScheduler:
-    """The training noise schedule's configuration and alpha-bar table."""
+    """The training noise schedule: ``add_noise(x, eps, t) = sqrt(abar_t) x +
+    sqrt(1 - abar_t) eps`` and ``get_velocity(x, eps, t) = sqrt(abar_t) eps -
+    sqrt(1 - abar_t) x`` over the fp32 alpha-bar table (diffusers' math)."""
 
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
     beta_schedule: str = "scaled_linear"
+    prediction_type: str = "epsilon"
+    variance_type: str = "fixed_small"
     rescale_betas_zero_snr: bool = False
+    # carried into samplers built like this schedule; training ignores it
+    timestep_spacing: str = "leading"
+
+    @property
+    def betas(self) -> torch.Tensor:
+        return torch.from_numpy(
+            make_beta_schedule(self.beta_schedule, self.num_train_timesteps,
+                               self.beta_start, self.beta_end
+                               ).astype(np.float32))
 
     @property
     def alphas_cumprod(self) -> torch.Tensor:
@@ -91,3 +110,30 @@ class DDPMScheduler:
             alphas_cumprod_np(self.beta_schedule, self.num_train_timesteps,
                               self.beta_start, self.beta_end,
                               self.rescale_betas_zero_snr).astype(np.float32))
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return 1.0
+
+    def __len__(self) -> int:
+        return self.num_train_timesteps
+
+    def _sqrt_coefficients(self, timesteps: torch.Tensor, ndim: int):
+        abar = self.alphas_cumprod.to(timesteps.device)[timesteps]
+        return (_expand(torch.sqrt(abar), ndim),
+                _expand(torch.sqrt(1.0 - abar), ndim))
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        sqrt_abar, sqrt_1m = self._sqrt_coefficients(timesteps, original.ndim)
+        return (sqrt_abar * original.float()
+                + sqrt_1m * noise.float()).to(original.dtype)
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        sqrt_abar, sqrt_1m = self._sqrt_coefficients(timesteps, sample.ndim)
+        return (sqrt_abar * noise.float()
+                - sqrt_1m * sample.float()).to(sample.dtype)
+
+    def scale_model_input(self, sample: torch.Tensor, t) -> torch.Tensor:
+        return sample

@@ -1,0 +1,110 @@
+"""Logger destinations: console and JSON-lines file.
+
+A copy of the Logger, ConsoleLogger, FileLogger and LoggerCollection part
+of `diffusion_tpu/utils/logging.py`, which imports no jax: the port imports
+nothing of the JAX package. The WandB logger is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from typing import Any, Dict, Iterable, List, Optional
+
+__all__ = ["Logger", "ConsoleLogger", "FileLogger", "LoggerCollection"]
+
+
+class Logger:
+    def log_metrics(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        pass
+
+    def log_hyperparameters(self, params: Dict[str, Any]) -> None:
+        pass
+
+    def log_images(self, images, name: str = "image",
+                   step: Optional[int] = None, **kwargs) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _scalarize(v: Any) -> Any:
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return str(v)
+
+
+class ConsoleLogger(Logger):
+    def __init__(self, log_interval: int = 1, stream=None):
+        self.log_interval = max(int(log_interval), 1)
+        self.stream = stream or sys.stderr
+
+    def log_metrics(self, metrics, step=None):
+        if step is not None and step % self.log_interval:
+            return
+        vals = {k: _scalarize(v) for k, v in metrics.items()}
+        parts = " ".join(f"{k}={s:.6g}" if isinstance(s, float)
+                         else f"{k}={s}" for k, s in vals.items())
+        print(f"[step {step}] {parts}", file=self.stream, flush=True)
+
+
+class FileLogger(Logger):
+    """JSON-lines metrics file: one {'step':…, …} record per call."""
+
+    def __init__(self, filename: str = "metrics.jsonl", flush_interval: int = 50):
+        os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+        self._f = open(filename, "a")
+        self._n = 0
+        self.flush_interval = max(int(flush_interval), 1)
+
+    def log_metrics(self, metrics, step=None):
+        rec = {"step": step, "time": time.time()}
+        rec.update({k: _scalarize(v) for k, v in metrics.items()})
+        self._f.write(json.dumps(rec) + "\n")
+        self._n += 1
+        if self._n % self.flush_interval == 0:
+            self._f.flush()
+
+    def log_hyperparameters(self, params):
+        self._f.write(json.dumps({"hparams": {k: _scalarize(v)
+                                              for k, v in params.items()}}) + "\n")
+        self._f.flush()
+
+    def flush(self):
+        self._f.flush()
+
+    def close(self):
+        if not self._f.closed:
+            self._f.close()
+
+
+class LoggerCollection(Logger):
+    def __init__(self, loggers: Iterable[Logger] = ()):
+        self.loggers: List[Logger] = list(loggers)
+
+    def log_metrics(self, metrics, step=None):
+        for lg in self.loggers:
+            lg.log_metrics(metrics, step=step)
+
+    def log_hyperparameters(self, params):
+        for lg in self.loggers:
+            lg.log_hyperparameters(params)
+
+    def log_images(self, images, name="image", step=None, **kwargs):
+        for lg in self.loggers:
+            lg.log_images(images, name=name, step=step, **kwargs)
+
+    def flush(self):
+        for lg in self.loggers:
+            lg.flush()
+
+    def close(self):
+        for lg in self.loggers:
+            lg.close()

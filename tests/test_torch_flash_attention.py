@@ -1,6 +1,8 @@
-"""The port's flash attention (plain version, what the CPU runs) and its
-dispatch rule against the JAX package: `flash_attention_with_lse` with the
-Pallas `_fwd_kernel` in interpret mode, and `_flash_eligible`."""
+"""The port's flash attention, forward and backward (plain versions, what
+the CPU runs), and its dispatch rule against the JAX package:
+`flash_attention_with_lse` and `flash_attention_bwd_with_lse` with the
+Pallas kernels in interpret mode, `jax.vjp` of `_xla_attention`, and
+`_flash_eligible`."""
 
 import types
 
@@ -101,3 +103,72 @@ def test_dispatch_by_device():
         tfa.flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tfa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---------------------------------------------------------------- backward
+
+
+@pytest.mark.parametrize("s,block_kv", [(128, None), (256, "128")])
+def test_bwd_matches_pallas_kernels(monkeypatch, s, block_kv):
+    """The plain backward against `flash_attention_bwd_with_lse` with the
+    Pallas dQ and dK/dV kernels in interpret mode, both given the Pallas
+    forward's out and lse; with a 128-key block the TPU kernels stream two
+    KV blocks (dQ) and two Q blocks (dK/dV)."""
+    monkeypatch.setenv(_INTERPRET, "1")
+    monkeypatch.delenv("DIFFUSION_TPU_FLASH_BQ", raising=False)
+    if block_kv:
+        monkeypatch.setenv("DIFFUSION_TPU_FLASH_BK", block_kv)
+        monkeypatch.setenv("DIFFUSION_TPU_FLASH_BQ", block_kv)
+    else:
+        monkeypatch.delenv("DIFFUSION_TPU_FLASH_BK", raising=False)
+    q, k, v = _qkv(2, s, s, 2, 64, seed=s + 1)
+    do = np.random.default_rng(s).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    assert jfa._kernel_usable(jq, jk)
+    out, lse = jfa.flash_attention_with_lse(jq, jk, jv)
+    want = jfa.flash_attention_bwd_with_lse(jq, jk, jv, out, lse,
+                                            jnp.asarray(do))
+    got = tfa.flash_attention_bwd_reference(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, out, lse, do)))
+    # fp32 throughout; blockwise sums against one einsum per product
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [64, 128])
+def test_grad_matches_xla_vjp(s):
+    """`flash_attention` (the autograd function, plain versions on the CPU)
+    backpropagates what `jax.vjp` of JAX's `_xla_attention` gives."""
+    q, k, v = _qkv(2, s, s, 2, 64, seed=7 * s)
+    do = np.random.default_rng(s + 3).standard_normal(q.shape).astype(
+        np.float32)
+    out, vjp = jax.vjp(lambda a, b, c: jattn._xla_attention(a, b, c, None),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got_out, _ = tfa.flash_attention(*leaves)
+    got_out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out),
+                               atol=2e-5, rtol=1e-5)
+    # fp32: the lse-based VJP against XLA's softmax VJP
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=2e-5, rtol=1e-4)
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 64, 2, 64, seed=2))
+    out, lse = tfa.flash_attention_reference(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_cuda(q, k, v, out, lse, out)
+
+
+def test_multi_head_attention_is_differentiable():
+    """The plain branch (a matmul, a softmax and a matmul) carries
+    gradients; on the CPU no shape takes the kernel."""
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(1, 32, 16, 2, 8, seed=4))
+    tattn.multi_head_attention(q, k, v).square().sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))

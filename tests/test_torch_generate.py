@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def endpoint():
     return StableDiffusionInference(builder=stable_diffusion_tiny,
-                                    default_size=32, seed=0)
+                                    default_size=32, seed=0, device="cpu")
 
 
 def _png(b64: str) -> np.ndarray:
@@ -52,6 +52,7 @@ def test_generate_matches_jax(monkeypatch, negative):
                                        jnp.float32))
 
     port = StableDiffusionInference(builder=stable_diffusion_tiny,
+                                    device="cpu",
                                     jax_params=(params, frozen),
                                     default_size=64)
     got = port.model.generate(
@@ -84,7 +85,7 @@ def test_generate_seeded_and_unsupported(endpoint):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             endpoint.predict(prompt="x", num_inference_steps=1, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stable_diffusion_tiny(inference_scheduler="euler")
+        stable_diffusion_tiny(inference_scheduler="euler", device="cpu")
 
 
 def test_predict_many_merges_and_slices(endpoint):

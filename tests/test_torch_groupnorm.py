@@ -1,12 +1,13 @@
-"""The port's GroupNorm (plain PyTorch version, what the CPU runs) against
-the JAX package: its Pallas `_fwd_kernel` in interpret mode and its
-two-pass XLA path. The kernel on the card is held to this same plain
+"""The port's GroupNorm, forward and backward (plain PyTorch versions, what
+the CPU runs) against the JAX package: its Pallas `_fwd_kernel` and
+`_bwd_kernel` in interpret mode and its two-pass XLA path. The kernel on the card is held to this same plain
 version by tests/test_torch_kernels_gpu.py."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import jax.numpy as jnp
 
 from diffusion_tpu.ops import groupnorm as jgn
 from diffusion_torch.ops import groupnorm as tgn
@@ -117,3 +118,93 @@ def test_dispatch_by_device():
         tgn.group_norm(x.to("meta"), scale, bias, 8)
     with pytest.raises(ValueError, match="activation"):
         tgn.group_norm(x, scale, bias, 8, act="gelu")
+
+
+# ---------------------------------------------------------------- backward
+
+
+def _bwd_inputs(c, groups, seed):
+    x, scale, bias = _inputs((2, 64, c), seed=seed)
+    g = np.random.default_rng(seed + 1).standard_normal(x.shape).astype(
+        np.float32)
+    return x, scale, bias, g
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.array(a)) for a in arrays)   # copies
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("c,groups", [(64, 8), (64, 32), (96, 8), (96, 32)])
+def test_bwd_matches_pallas_kernel(monkeypatch, c, groups, act):
+    """The plain backward against the Pallas `_bwd_kernel` in interpret
+    mode, both given the Pallas forward's (mean, rstd); the kernel's
+    per-image dscale/dbias partials are summed here."""
+    monkeypatch.setenv(_INTERPRET, "1")
+    x, scale, bias, g = _bwd_inputs(c, groups, seed=c * groups)
+    jx, js, jb = jnp.asarray(x), jnp.asarray(scale)[None], jnp.asarray(bias)[None]
+    _, mean, rstd = jgn._fwd(jx, js, jb, groups, 1e-5, act == "silu")
+    dx, ds_p, db_p = jgn._bwd(jx, js, jb, mean, rstd, jnp.asarray(g), groups,
+                              act == "silu")
+    got_dx, got_ds, got_db = tgn.group_norm_bwd_reference(
+        *_t(x, scale, bias, np.asarray(mean)[:, 0], np.asarray(rstd)[:, 0], g),
+        groups, act)
+    assert got_ds.shape == got_db.shape == (c,)
+    # fp32 both ways, same statistics; sums over 64 rows (dx's m1/m2) and
+    # 128 rows (dscale/dbias) in another order
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(dx),
+                               atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_ds.numpy(), np.asarray(ds_p).sum((0, 1)),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(got_db.numpy(), np.asarray(db_p).sum((0, 1)),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("c,groups", [(64, 8), (96, 32)])
+def test_grad_matches_xla_vjp(monkeypatch, c, groups, act):
+    """`group_norm`'s gradient (the autograd function with the plain
+    backward) against `jax.grad` of the two-pass `_xla_group_norm`."""
+    monkeypatch.setenv(_INTERPRET, "0")
+    x, scale, bias, w = _bwd_inputs(c, groups, seed=c + 7 * groups)
+
+    def loss(x_, s_, b_):
+        y = jgn._xla_group_norm(x_, s_, b_, groups, 1e-5, act == "silu")
+        return jnp.sum(y * jnp.asarray(w))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    leaves = [t.requires_grad_() for t in _t(x, scale, bias)]
+    (tgn.group_norm(*leaves, groups, 1e-5, act) * torch.from_numpy(w)
+     ).sum().backward()
+    # fp32; the statistics and the VJP sum in another order
+    for got, ref in zip(leaves, want):
+        assert got.grad.shape == ref.shape
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_autograd_function_matches_autograd_of_reference(act):
+    x, scale, bias, w = _bwd_inputs(96, 8, seed=11)
+    grads = []
+    for fn in (tgn.group_norm, tgn.group_norm_reference):
+        leaves = [t.requires_grad_() for t in _t(x, scale, bias)]
+        # a non-contiguous cotangent, as the NCHW side can hand it back
+        (fn(*leaves, 8, 1e-5, act).transpose(1, 2)
+         * torch.from_numpy(w).transpose(1, 2)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got.shape == want.shape
+        # fp32: the analytic VJP against autograd's chain of the two-pass
+        # statistics, ~1e-6 apart
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    x, scale, bias, g = _t(*_bwd_inputs(64, 8, seed=2))
+    mean, rstd = tgn.group_norm_stats_reference(x, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g, 8)
+    with pytest.raises(ValueError, match="groups"):
+        tgn.group_norm_bwd_reference(x, scale, bias, mean, rstd, g, 7)

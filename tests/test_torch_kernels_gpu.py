@@ -121,3 +121,228 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     small = torch.zeros((1, 128, 2, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="B, S, H, 64"):
         fa.flash_attention(small, small, small)
+
+
+# GroupNorm backward. dx: both sides compute in fp32 from the same inputs and
+# round once to x's dtype; sums run in another order, so at most one bf16 ulp
+# (2**-7 relative) of the largest |dx| separates them. dscale/dbias are fp32
+# sums over B*L rows in another order.
+def _gn_bwd_case(shape, groups, act, dtype, device):
+    x = _randn(shape, 0, dtype, device, shift=3.0)
+    g = _randn(shape, 3, dtype, device)
+    c = shape[-1]
+    scale = _randn((c,), 1, torch.float32, device)
+    bias = _randn((c,), 2, torch.float32, device)
+    _, mean, rstd = gn.group_norm_cuda(x, scale, bias, groups, 1e-5, act)
+    return x, g, scale, bias, mean, rstd
+
+
+def _assert_close_rel(got, want, rel, rtol):
+    atol = rel * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups,act", [
+    ((16, 1024, 320), 32, "silu"),
+    ((16, 256, 640), 32, None),
+    ((16, 1024, 960), 32, "silu"),   # the up-block concat
+    ((16, 16, 2560), 32, "silu"),
+    ((3, 777, 96), 32, "silu"),      # ragged last chunk, C/G = 3
+    ((2, 50, 36), 4, None),          # C % 8 != 0: scalar apply path
+])
+def test_group_norm_bwd_kernel_matches_plain(cuda, dtype, shape, groups, act):
+    x, g, scale, bias, mean, rstd = _gn_bwd_case(shape, groups, act, dtype,
+                                                 cuda)
+    before = gn.launches_bwd.value
+    dx, dscale, dbias = gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g,
+                                               groups, act)
+    torch.cuda.synchronize()
+    assert gn.launches_bwd.value == before + 1
+    want_dx, want_ds, want_db = gn.group_norm_bwd_reference(
+        x, scale, bias, mean, rstd, g, groups, act)
+    assert dscale.shape == dbias.shape == (shape[-1],)
+    if dtype == torch.bfloat16:
+        _assert_close_rel(dx, want_dx, 2 ** -7, 8e-3)
+    else:
+        _assert_close_rel(dx, want_dx, 1e-5, 1e-4)
+    _assert_close_rel(dscale, want_ds, 1e-5, 1e-4)
+    _assert_close_rel(dbias, want_db, 1e-5, 1e-4)
+
+
+def test_group_norm_autograd_on_card(cuda):
+    """`group_norm` on CUDA is differentiable through the kernels: fp32
+    gradients match autograd of the plain version; a non-contiguous
+    cotangent is copied once (counted), never sent to the plain version."""
+    x0, _, scale0, bias0, _, _ = _gn_bwd_case((2, 64, 96), 32, "silu",
+                                              torch.float32, cuda)
+    w = _randn((2, 96, 64), 4, torch.float32, cuda)
+    grads = []
+    for fn in (gn.group_norm, gn.group_norm_reference):
+        x, scale, bias = (t.clone().requires_grad_() for t in (x0, scale0,
+                                                              bias0))
+        y = fn(x, scale, bias, 32, 1e-5, "silu")
+        (y.transpose(1, 2) * w).sum().backward()
+        grads.append((x.grad, scale.grad, bias.grad))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        _assert_close_rel(got, want, 1e-5, 1e-4)
+    before = (gn.launches_bwd.value, gn.contiguity_copies.value)
+    x = x0.clone().requires_grad_()
+    (gn.group_norm(x, scale0, bias0, 32).transpose(1, 2) * w).sum().backward()
+    assert gn.launches_bwd.value == before[0] + 1
+    assert gn.contiguity_copies.value == before[1] + 1
+
+
+def test_group_norm_bwd_raises_on_what_it_does_not_take(cuda):
+    x, g, scale, bias, mean, rstd = _gn_bwd_case((2, 64, 96), 32, None,
+                                                 torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd,
+                               g.transpose(1, 2).contiguous().transpose(1, 2),
+                               32)
+    with pytest.raises(ValueError, match="cotangent"):
+        gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g.float(), 32)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g, 64 + 1)
+    with pytest.raises(ValueError, match="mean"):
+        gn.group_norm_bwd_cuda(x, scale, bias, mean[:, :8], rstd, g, 32)
+
+
+# Flash backward. Both sides recompute p from the same lse in fp32, round p
+# and ds to bf16 before their products and accumulate in fp32; the outputs
+# are one bf16 rounding apart (2**-7 relative of the largest element), plus
+# the rare p whose bf16 rounding flips between exp2f and torch.exp.
+_FA_BWD_REL, _FA_BWD_RTOL = 2 ** -6, 2e-2
+
+
+def _flash_bwd_case(b, sq, skv, h, device):
+    q = _randn((b, sq, h, 64), 0, torch.bfloat16, device)
+    k = _randn((b, skv, h, 64), 1, torch.bfloat16, device)
+    v = _randn((b, skv, h, 64), 2, torch.bfloat16, device)
+    do = _randn((b, sq, h, 64), 5, torch.bfloat16, device)
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (16, 1024, 1024, 5),              # 256px training, first stage
+    (4, 4096, 4096, 5),               # 512px, first stage
+    (1, 128, 320, 3),                 # cross lengths, several tiles
+])
+def test_flash_bwd_kernel_matches_plain(cuda, b, sq, skv, h):
+    q, k, v, out, lse, do = _flash_bwd_case(b, sq, skv, h, cuda)
+    before = (fa.launches_bwd_dq.value, fa.launches_bwd_dkv.value)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq.value, fa.launches_bwd_dkv.value) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == torch.bfloat16, name
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for a, w in zip(got, again):                      # no atomics
+        assert torch.equal(a, w)
+
+
+def test_flash_bwd_kernel_reads_strided_views(cuda):
+    qkv = _randn((2, 256, 4, 192), 3, torch.bfloat16, cuda)
+    q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    do = _randn((2, 256, 4, 128), 6, torch.bfloat16, cuda)[..., 32:96]
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(
+        q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
+        do.contiguous())
+    for a, w in zip(got, want):
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
+
+
+def test_flash_autograd_on_card(cuda):
+    """`flash_attention` on CUDA backpropagates through the two kernels and
+    gives what the backward wrapper gives."""
+    q, k, v, out, lse, do = _flash_bwd_case(2, 1024, 1024, 5, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.launches_bwd_dkv.value
+    got_out, got_lse = fa.flash_attention(*leaves)
+    got_out.backward(do)
+    assert fa.launches_bwd_dkv.value == before + 1
+    assert torch.equal(got_out, out) and torch.equal(got_lse, lse)
+    want = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_flash_bwd_kernel_raises_on_what_it_does_not_take(cuda):
+    q, k, v, out, lse, do = _flash_bwd_case(1, 128, 128, 2, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, do.float())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse.double(), do)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse[:, :, :64], do)
+    with pytest.raises(ValueError, match="must match"):
+        fa.flash_attention_bwd_cuda(q, k, v, out[:, :64], lse, do[:, :64])
+
+
+def test_tiny_trainer_on_card_matches_cpu(cuda):
+    """Two steps of the port's Trainer on the tiny model (fp32: every
+    GroupNorm forward and backward runs the kernels inside autograd) on the
+    card, against the same run on the CPU with the plain versions: same
+    weights, batches and draws."""
+    from diffusion_torch.models.models import stable_diffusion_tiny
+    from diffusion_torch.train.optim import adamw
+    from diffusion_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    batches = [{"image_latents": rng.standard_normal((4, 8, 8, 4)).astype(
+                    np.float32),
+                "caption_latents": rng.standard_normal((4, 8, 32)).astype(
+                    np.float32)} for _ in range(2)]
+    draws = {(s, i): (rng.standard_normal((2, 8, 8, 4)).astype(np.float32),
+                      rng.integers(0, 1000, 2))
+             for s in range(2) for i in range(2)}
+
+    def hook(step, micro, n_accum, mb):
+        noise, t = draws[(step, micro)]
+        return torch.from_numpy(noise), torch.from_numpy(t)
+
+    from diffusion_torch.train.events import Callback
+
+    class Record(Callback):
+        def __init__(self):
+            self.metrics = []
+
+        def batch_end(self, state, logger):
+            self.metrics.append({k: float(v) for k, v in state.metrics.items()})
+
+    params, metrics = [], []
+    for device in ("cpu", cuda):
+        model = stable_diffusion_tiny(device=device, precomputed_latents=True)
+        if params:     # CPU and CUDA generators draw different weights
+            model.unet.load_state_dict(initial)
+        else:
+            initial = {k: v.clone() for k, v in model.unet.state_dict().items()}
+        before = gn.launches_bwd.value
+        record = Record()
+        # eps=1: an update smooth in g (Adam's first step with eps=1e-8 is
+        # ~sign(g), which flips where g is at the summation-order noise)
+        Trainer(model=model, train_dataloader=batches,
+                optimizers=adamw(lr=1e-3, eps=1.0), callbacks=[record],
+                max_duration="2ba", device_train_microbatch_size=2,
+                device=device, noise_hook=hook).fit()
+        torch.cuda.synchronize()
+        if device == cuda:
+            assert gn.launches_bwd.value > before
+        metrics.append(record.metrics)
+        params.append({n: p.detach().cpu()
+                       for n, p in model.unet.named_parameters()})
+    # fp32 on both (TF32 off): the kernels and cuDNN/cuBLAS sum in another
+    # order than the CPU
+    for got, want in zip(*metrics[::-1]):
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for name, want in params[0].items():
+        torch.testing.assert_close(params[1][name], want, atol=1e-6,
+                                   rtol=1e-5)

@@ -64,3 +64,39 @@ def test_ddim_rejects_what_jax_rejects():
     with pytest.raises(ValueError, match="trailing"):
         DDIMScheduler(rescale_betas_zero_snr=True,
                       prediction_type="v_prediction")
+
+
+def test_ddpm_fields_and_betas_match():
+    """The training scheduler carries the JAX dataclass's fields (all but
+    `clip_sample`, which no sampler of the port reads) and defaults, and the
+    same fp32 betas."""
+    want, got = jddpm.DDPMScheduler(), tddpm.DDPMScheduler()
+    fields = set(tddpm.DDPMScheduler.__dataclass_fields__)
+    assert fields == set(jddpm.DDPMScheduler.__dataclass_fields__) - {
+        "clip_sample"}
+    assert all(getattr(got, f) == getattr(want, f) for f in fields)
+    np.testing.assert_array_equal(got.betas.numpy(), np.asarray(want.betas))
+    assert len(got) == len(want) and got.init_noise_sigma == 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rescale", [False, True])
+def test_add_noise_and_velocity_match(dtype, rescale):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 4, 4, 4)).astype(np.float32)
+    eps = rng.standard_normal(x.shape).astype(np.float32)
+    t = np.array([0, 517, 999], np.int64)
+    jsched = jddpm.DDPMScheduler(rescale_betas_zero_snr=rescale)
+    tsched = tddpm.DDPMScheduler(rescale_betas_zero_snr=rescale)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    for name in ("add_noise", "get_velocity"):
+        want = getattr(jsched, name)(jx, jnp.asarray(eps), jnp.asarray(t))
+        got = getattr(tsched, name)(tx, torch.from_numpy(eps),
+                                    torch.from_numpy(t))
+        assert got.dtype == tx.dtype
+        # fp32 arithmetic on both sides, then one cast to the sample's dtype
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want).astype(np.float32),
+                                   atol=1e-6 if dtype == "float32" else 1e-2,
+                                   rtol=1e-6 if dtype == "float32" else 1e-2)
