@@ -6,12 +6,16 @@
 Phases, each raising on failure (exit code 1):
   1. device: the card's name and power limit, the TF32 settings (both off);
   2. build: the CUDA kernels from diffusion_torch/csrc with one nvcc call;
+     each kernel's ptxas registers, shared memory and spills, with no
+     spills allowed in the wgmma kernels (flash forward and dK/dV);
   3. kernels: each of the five kernels (GroupNorm forward and backward,
      flash-attention forward, dQ and dK/dV) against its plain PyTorch
      version in bf16 at the main paths' shapes, with the max-abs error
      beside its bound, and each one's time beside the plain version's, the
      library call's for the same function (timed only, never used by the
-     port) and the card's bound for the work (CUDA events);
+     port) and the card's bound for the work (CUDA events); for the flash
+     kernels also TFLOP/s, the device time alone (launches replayed from a
+     CUDA graph) and the wrapper's host time per call;
   4. serve: the full-width SD-2-base endpoint (random weights from a seed).
      Its UNet and VAE decoder first run against an fp32 CPU copy of
      themselves on a small input. Then, at 512px behind the port's HTTP
@@ -19,7 +23,10 @@ Phases, each raising on failure (exit code 1):
      with another step count; HTTP 200, decodable 512x512 PNGs, finite
      latents before the decode, and both forward kernels' launch counters
      above zero for that run;
-  5. times: one UNet CFG step and each request's latency;
+  5. times: one UNet CFG step and each request's latency (one more CFG
+     step at batch 4 runs under torch.profiler for the device's busy time,
+     idle share and time by kernel category at the very end, after every
+     timed phase);
   6. gradient reference: the full-width training UNet's loss and gradient
      at 256px, batch 2, on the card (bf16, kernels) against the same
      weights in fp32 on the CPU (plain versions);
@@ -44,6 +51,7 @@ import gc
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -101,6 +109,68 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# kernels whose ptxas report must show no spills (the wgmma kernels, whose
+# accumulators and register A operands must stay in registers)
+_NO_SPILL = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+
+
+def _ptxas_usage(log: str) -> dict:
+    """{kernel: ptxas figures} from nvcc's -Xptxas -v log; a kernel's name
+    is its mangled identifier (plus template arguments, still mangled)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN(\d+)(\w+)'", line)
+        if m:
+            rest = m.group(2)[int(m.group(1)):]     # past the namespace
+            n = re.match(r"(\d+)", rest)
+            ident = rest[len(n.group(1)):len(n.group(1)) + int(n.group(1))]
+            tail = rest[len(n.group(1)) + int(n.group(1)):]
+            tmpl = tail[:tail.index("EE") + 2] if tail.startswith("I") else ""
+            name = ident + tmpl
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            usage[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line:
+            usage[name]["registers"] = int(re.search(
+                r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return usage
+
+
+def _host_us(fn, iters: int = 20) -> float:
+    """The host's time per call of a wrapper (checks, allocation, tensor
+    maps, launch), launches queued without waiting for the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _graph_ms(fn, launches: int = 10) -> float:
+    """A kernel's device time alone: `launches` calls of its wrapper
+    captured in one CUDA graph, replayed, per launch. Where the wrapper's
+    host time exceeds the kernel's, back-to-back launches (`_time_ms`)
+    time the host instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _time_ms(graph.replay, iters=10, warmup=2) / launches
+
+
 def _gn_library(x, scale, bias, act):
     """F.group_norm (+ F.silu) on the NCHW channels_last view of the NHWC
     slab, weights in x's dtype: the library's GroupNorm, timed only."""
@@ -130,10 +200,17 @@ def _kernel_phase(card: str):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def report(name, shape, case, err_text, extra=""):
+        rate = (f", {case['tflops']:.1f} TFLOP/s; in a CUDA graph "
+                f"{case['graph_ms']:.4f} ms" + (
+                    f" (library {case['library_graph_ms']:.4f} ms)"
+                    if "library_graph_ms" in case else "")
+                + f"; wrapper host time {case['host_us']:.1f} us per call"
+                if "tflops" in case else "")
         print(f"kernel {name} {shape} bf16{extra}: {err_text}; "
               f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms, "
               f"library {case['library_ms']:.4f} ms, bound "
-              f"{case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]")
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}){rate} "
+              f"[{card}]")
 
     results = {name: [] for name in (
         "group_norm", "group_norm_bwd", "flash_attention",
@@ -215,22 +292,38 @@ def _kernel_phase(card: str):
         out, lse = fa.flash_attention_cuda(q, k, v)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
         err = (out.float() - ref_out.float()).abs().max().item()
+        ref_max = ref_out.float().abs().max().item()
+        rel_l2 = ((out.float() - ref_out.float()).norm()
+                  / ref_out.float().norm()).item()
         lse_err = (lse - ref_lse).abs().max().item()
         b, s, h, d = shape
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            lib = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bms, by = _bound(4 * b * h * s * s * d, 4 * _nbytes(q) + _nbytes(lse))
-        case = {"err": err, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        flops = 4 * b * h * s * s * d
+        bms, by = _bound(flops, 4 * _nbytes(q) + _nbytes(lse))
+        # the kernel's times first, before any CUDA graph is captured
+        case = {"err": err, "bound_ms": bms, "bound_by": by,
                 "ms": _time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+                "host_us": _host_us(lambda: fa.flash_attention_cuda(q, k, v)),
+                "graph_ms": _graph_ms(lambda: fa.flash_attention_cuda(q, k, v)),
                 "plain_ms": _time_ms(
                     lambda: fa.flash_attention_reference(q, k, v), 5, 1)}
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            case["library_ms"] = _time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            case["library_graph_ms"] = _graph_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        case["tflops"] = flops / case["ms"] / 1e9
         # p is cast to bf16 against the running max in the kernel, against
-        # the final lse in the plain version: ~2**-8 relative on each term
+        # the final lse in the plain version (2**-9 relative on each term,
+        # each side), and the output is rounded to bf16 once: a few outputs
+        # one bf16 ulp apart (two allowed at the largest |out|), 3e-3
+        # relative L2 in all; p rounded to fp8 e4m3 (2**-4) gives ~2.4e-2
+        out_bound = min(2e-2, 2.0 ** -6 * ref_max)
         report("flash_attention", shape, case,
-               f"out max_abs_err {err:.3e} (bound 2e-2), lse max_abs_err "
-               f"{lse_err:.3e} (bound 1e-3)")
-        _check(err <= 2e-2 and lse_err <= 1e-3,
+               f"out max_abs_err {err:.3e} (bound {out_bound:.3e}), relative "
+               f"L2 error {rel_l2:.3e} (bound {2.0 ** -7:.3e}), lse "
+               f"max_abs_err {lse_err:.3e} (bound 1e-3)")
+        _check(err <= out_bound and rel_l2 <= 2.0 ** -7 and lse_err <= 1e-3,
                f"flash_attention disagrees with its plain version at {shape}")
         results["flash_attention"].append(case)
 
@@ -272,7 +365,9 @@ def _kernel_phase(card: str):
             bms, by = _bound(n_mm * flops, nbytes)
             case = {"err": err, "bound_ms": bms, "bound_by": by,
                     "ms": _time_ms(fn), "plain_ms": plain,
-                    "library_ms": lib_bwd}
+                    "library_ms": lib_bwd, "host_us": _host_us(fn),
+                    "graph_ms": _graph_ms(fn)}
+            case["tflops"] = n_mm * flops / case["ms"] / 1e9
             report(name, shape, case,
                    f"max_abs_err {err:.3e} (bound {bound:.3e}); plain and "
                    f"library times are the whole backward")
@@ -506,12 +601,56 @@ _CATEGORIES = (   # kernel-name patterns, first match wins
 )
 
 
+def _device_profile(events, window: str, what: str, card: str) -> None:
+    """Print the device's busy time (the union of kernel intervals), the
+    idle share of the first-to-last kernel span, and device time by kernel
+    category, for the kernels inside the profiler range named `window`
+    (bracketed by synchronizations, so its kernels run inside it). Prints
+    "not measured" where the profiler recorded no device events."""
+    import torch
+    steps = [e.time_range for e in events if e.name == window]
+    # device activity: kernels, copies, memsets; not the GPU-side copies of
+    # the profiler's own ranges (user annotations)
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("chip_smoke_")]
+    lo, hi = (steps[0].start, steps[0].end) if steps else (0, -1)
+    inside = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in kernels
+                    if lo <= e.time_range.start and e.time_range.end <= hi)
+    if not inside:
+        print(f"profile: {what}: not measured (the profiler recorded no "
+              f"device events) [{card}]")
+        return
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, s1, _ in inside:
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s0, s1
+        else:
+            cur_e = max(cur_e, s1)
+    busy += cur_e - cur_s
+    span = inside[-1][1] - inside[0][0]
+    cats = {}
+    for s0, s1, name in inside:
+        cat = next((c for c, pats in _CATEGORIES
+                    if any(p in name for p in pats)), "other elementwise")
+        t, k = cats.get(cat, (0.0, 0))
+        cats[cat] = (t + (s1 - s0), k + 1)
+    print(f"profile: {what}: {len(inside)} kernels, device busy "
+          f"{busy / 1e3:.2f} ms, first-to-last kernel span "
+          f"{span / 1e3:.2f} ms, idle share {1 - busy / span:.3f}; host wall "
+          f"time {(hi - lo) / 1e3:.2f} ms [{card}]")
+    print(f"profile: {what}: device time by category (ms, kernels): "
+          + "; ".join(f"{c} {t / 1e3:.2f} ({k})" for c, (t, k) in
+                      sorted(cats.items(), key=lambda x: -x[1][0])))
+
+
 def _profile_phase(model, batches, card: str) -> None:
-    """Two more steps of the recipe under torch.profiler (CUDA activity):
-    device busy time (the union of kernel intervals), the idle share of
-    the first-to-last kernel span, and device time by kernel category, for
-    the second step. Informational: prints "not measured" where the
-    profiler records no device events."""
+    """Two more steps of the recipe under torch.profiler (CUDA activity);
+    the device profile of the second step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -549,49 +688,25 @@ def _profile_phase(model, batches, card: str) -> None:
                              ProfilerActivity.CUDA]) as prof:
         trainer.fit()
         torch.cuda.synchronize()
-    events = prof.events()
-    steps = [e.time_range for e in events if e.name == "chip_smoke_step_1"]
-    # device activity: kernels, copies, memsets; not the GPU-side copies of
-    # the profiler's own ranges (user annotations)
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("chip_smoke_step_")]
-    # the second step's kernels: the step is bracketed by synchronizations,
-    # so its kernels run inside its range
-    lo, hi = (steps[0].start, steps[0].end) if steps else (0, -1)
-    second = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in kernels
-                    if lo <= e.time_range.start and e.time_range.end <= hi)
-    if not second:
-        print(f"profile: not measured (the profiler recorded no device "
-              f"events) [{card}]")
-        return
-    step_wall = hi - lo
-    busy, cur_s, cur_e = 0.0, None, None
-    for s0, s1, _ in second:
-        if cur_e is None or s0 > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s0, s1
-        else:
-            cur_e = max(cur_e, s1)
-    busy += cur_e - cur_s
-    span = second[-1][1] - second[0][0]
-    cats = {}
-    for s0, s1, name in second:
-        cat = next((c for c, pats in _CATEGORIES
-                    if any(p in name for p in pats)), "other elementwise")
-        t, k = cats.get(cat, (0.0, 0))
-        cats[cat] = (t + (s1 - s0), k + 1)
-    print(f"profile: training step (second of two, profiler on): "
-          f"{len(second)} kernels, device busy {busy / 1e3:.2f} ms, "
-          f"first-to-last kernel span {span / 1e3:.2f} ms, idle share "
-          f"{1 - busy / span:.3f}; host wall time of the step "
-          f"{step_wall / 1e3:.2f} ms [{card}]")
-    print("profile: device time by category (ms, kernels): " + "; ".join(
-        f"{c} {t / 1e3:.2f} ({k})"
-        for c, (t, k) in sorted(cats.items(), key=lambda x: -x[1][0])))
+    _device_profile(prof.events(), "chip_smoke_step_1",
+                    "training step (second of two, profiler on)", card)
+
+
+def _profile_serving_step(unet, lat, t, ctx, card: str) -> None:
+    """One more UNet CFG step under torch.profiler (CUDA activity),
+    synchronized on both sides: its device profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function("chip_smoke_unet_step"):
+                unet(lat, t, ctx)
+                torch.cuda.synchronize()
+    _device_profile(prof.events(), "chip_smoke_unet_step",
+                    f"serving UNet CFG step (batch {lat.shape[0]}, {SIZE}px, "
+                    f"profiler on)", card)
 
 
 def _post(port: int, payload: dict, out: dict, key: str) -> None:
@@ -639,8 +754,16 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     with open(_build.build_log()) as f:
-        usage = [line.strip() for line in f if "Used" in line or "spill" in line]
-    print("ptxas: " + " | ".join(usage))
+        usage = _ptxas_usage(f.read())
+    for name, u in usage.items():
+        print(f"ptxas: {name}: {u.get('registers')} registers, "
+              f"{u.get('static_smem')} bytes static smem, spill stores "
+              f"{u.get('spill_stores')} / loads {u.get('spill_loads')} bytes")
+    for name in _NO_SPILL:
+        u = usage.get(name)
+        _check(u is not None and u.get("spill_stores") == 0
+               and u.get("spill_loads") == 0,
+               f"ptxas reports spills (or no entry) for {name}: {u}")
 
     # 3. kernels against their plain versions
     kernels = _kernel_phase(card)
@@ -734,10 +857,15 @@ def main() -> int:
             ms = _time_ms(lambda: unet(lat, t, ctx[:batch]), iters=5, warmup=2)
         print(f"times: UNet CFG step, batch {batch} ({batch // 2} prompt(s) "
               f"x 2), {SIZE}px: {ms:.2f} ms [{card}]")
+        if batch == 4:       # profiled at the end, after every timed phase
+            serve_inputs = (lat, t, ctx)
     print(f"times: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
 
-    # 6-7. the training slice, on a model of its own: free the endpoint
+    # 6-7. the training slice, on a model of its own: free the endpoint;
+    # its UNet, whose CFG step is profiled last, waits on the CPU so the
+    # training phase's peak memory is its own
+    serve_unet = unet.to("cpu")
     del endpoint, model, unet, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -750,6 +878,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (UNet only, trainable)")
     _grad_reference_phase(train_model, card)
     train_launches = _train_phase(train_model, card)
+    del train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
     for name, source, replaces in (

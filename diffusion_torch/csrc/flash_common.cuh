@@ -1,7 +1,8 @@
 // Shared pieces of the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): tile geometry, strided (B, S, H, D) views, and
-// the mma.sync m16n8k16 bf16 -> fp32 building blocks with their fragment
-// layouts.
+// flash_attention_bwd.cu): the head dim and log2(e), and, for the dQ
+// kernel, tile geometry, strided (B, S, H, D) views, and the mma.sync
+// m16n8k16 bf16 -> fp32 building blocks with their fragment layouts (which
+// the wgmma kernels' register layouts share, hopper_common.cuh).
 //
 // Fragment layouts (lane = 4 * g + t4):
 //  * A, 16 x 16 row-major: a0 = (row g, cols 2*t4, 2*t4+1), a1 = (row g+8,
@@ -139,21 +140,25 @@ __device__ __forceinline__ void zero(float c[8][4]) {
   for (int i = 0; i < 8; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 }
 
-// store a warp's 16 x 64 fp32 block, times `mul`, as bf16 rows r0 and r0+8
-// of a contiguous (B, S, H, 64) tensor
+// store a warp's 16 x 64 fp32 block (an mma.sync C block or a wgmma
+// accumulator: the same registers), times (mul0, mul1), as bf16 rows r0 and
+// r0+8 of a contiguous (B, S, H, 64) tensor; rows at or past S are not
+// written
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            const float c[8][4], int b, int S,
                                            int H, int h, int r0, int t4,
                                            float mul0, float mul1) {
-  __nv_bfloat16* o0 = out + (((long long)b * S + r0) * H + h) * kD;
-  __nv_bfloat16* o1 = out + (((long long)b * S + r0 + 8) * H + h) * kD;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
-        __floats2bfloat162_rn(c[dt][0] * mul0, c[dt][1] * mul0);
-    *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
-        __floats2bfloat162_rn(c[dt][2] * mul1, c[dt][3] * mul1);
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= S) continue;
+    const float mul = half ? mul1 : mul0;
+    __nv_bfloat16* row = out + (((long long)b * S + r) * H + h) * kD;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8 + t4 * 2) =
+          __floats2bfloat162_rn(c[dt][2 * half] * mul,
+                                c[dt][2 * half + 1] * mul);
   }
 }
 

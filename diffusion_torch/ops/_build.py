@@ -28,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "diffusion_torch")
 _SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu")
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -81,12 +81,52 @@ def test_group_norm_kernel_raises_on_what_it_does_not_take(cuda):
 # (~2**-8 relative); the output itself is one bf16 rounding. lse is fp32.
 _FA_OUT_TOL = dict(atol=1e-2, rtol=2e-2)
 _FA_LSE_TOL = dict(atol=1e-3, rtol=1e-4)
+# Beside that: at most two bf16 ulps of the largest |out| anywhere, and a
+# relative L2 error of 2**-7. P rounded to bf16 on both sides gives ~3e-3;
+# P rounded any coarser fails (fp8 e4m3, 2**-4 a term: ~2.4e-2), which
+# test_flash_out_bound_rejects_p_below_bf16 shows.
+_FA_OUT_REL_MAX, _FA_OUT_REL_L2 = 2 ** -6, 2 ** -7
+
+
+def _flash_out_errors(out, want):
+    """(max-abs error / max |want|, relative L2 error)."""
+    diff = out.float() - want.float()
+    return ((diff.abs().max() / want.float().abs().max()).item(),
+            (diff.norm() / want.float().norm()).item())
+
+
+def _assert_flash_out_close(out, want):
+    torch.testing.assert_close(out.float(), want.float(), **_FA_OUT_TOL)
+    rel_max, rel_l2 = _flash_out_errors(out, want)
+    assert rel_max <= _FA_OUT_REL_MAX and rel_l2 <= _FA_OUT_REL_L2, (
+        rel_max, rel_l2)
+
+
+def _online_attention(q, k, v, p_dtype, tile=128):
+    """The forward kernel's math in plain PyTorch: an online softmax over
+    `tile`-key tiles, P rounded to `p_dtype` against the running max, fp32
+    accumulation, the output rounded to q's dtype."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 64 ** -0.5
+    m = torch.full(s.shape[:-1], -float("inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*s.shape[:-1], 64), device=q.device)
+    for t in range(0, s.shape[-1], tile):
+        m_new = torch.maximum(m, s[..., t:t + tile].amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s[..., t:t + tile] - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(p_dtype).float(), v[:, t:t + tile].float())
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).to(q.dtype)
 
 
 @pytest.mark.parametrize("b,sq,skv,h", [
-    (2, 1024, 1024, 10),
+    (2, 1024, 1024, 10),              # 512px serving, second stage
     (1, 4096, 4096, 5),
-    (1, 128, 320, 3),                 # cross lengths, several KV tiles
+    (4, 4096, 4096, 5),               # 512px serving, first stage, CFG batch 4
+    (1, 128, 320, 3),                 # cross lengths, a ragged last KV tile
+    (1, 192, 320, 3),                 # neither length a multiple of 128
 ])
 def test_flash_kernel_matches_plain(cuda, b, sq, skv, h):
     q = _randn((b, sq, h, 64), 0, torch.bfloat16, cuda)
@@ -97,8 +137,27 @@ def test_flash_kernel_matches_plain(cuda, b, sq, skv, h):
     torch.cuda.synchronize()
     assert fa.launches.value == before + 1
     want_out, want_lse = fa.flash_attention_reference(q, k, v)
-    torch.testing.assert_close(out.float(), want_out.float(), **_FA_OUT_TOL)
+    _assert_flash_out_close(out, want_out)
     torch.testing.assert_close(lse, want_lse, **_FA_LSE_TOL)
+    again = fa.flash_attention_cuda(q, k, v)          # no atomics
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float8_e4m3fn, torch.float8_e5m2])
+def test_flash_out_bound_rejects_p_below_bf16(cuda, p_dtype):
+    """The forward's bound tells P in bf16 from P rounded any coarser: the
+    kernel's math in plain PyTorch passes it with P in bf16 and fails it
+    with P in fp8 (a fault planted here, not in the kernel)."""
+    q, k, v = (_randn((2, 1024, 10, 64), i, torch.bfloat16, cuda)
+               for i in range(3))
+    want_out, _ = fa.flash_attention_reference(q, k, v)
+    good = _flash_out_errors(_online_attention(q, k, v, torch.bfloat16),
+                             want_out)
+    bad = _flash_out_errors(_online_attention(q, k, v, p_dtype), want_out)
+    print(f"P in bf16: {good}; P in {p_dtype}: {bad} (max-abs / max |out| "
+          f"bound {_FA_OUT_REL_MAX}, relative L2 bound {_FA_OUT_REL_L2})")
+    assert good[0] <= _FA_OUT_REL_MAX and good[1] <= _FA_OUT_REL_L2, good
+    assert bad[1] > _FA_OUT_REL_L2, bad
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -108,7 +167,7 @@ def test_flash_kernel_reads_strided_views(cuda):
     out, lse = fa.flash_attention(q, k, v)
     want_out, want_lse = fa.flash_attention_reference(
         q.contiguous(), k.contiguous(), v.contiguous())
-    torch.testing.assert_close(out.float(), want_out.float(), **_FA_OUT_TOL)
+    _assert_flash_out_close(out, want_out)
     torch.testing.assert_close(lse, want_lse, **_FA_LSE_TOL)
 
 
@@ -229,6 +288,7 @@ def _flash_bwd_case(b, sq, skv, h, device):
     (16, 1024, 1024, 5),              # 256px training, first stage
     (4, 4096, 4096, 5),               # 512px, first stage
     (1, 128, 320, 3),                 # cross lengths, several tiles
+    (1, 192, 320, 3),                 # a ragged last key block
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, b, sq, skv, h):
     q, k, v, out, lse, do = _flash_bwd_case(b, sq, skv, h, cuda)
