@@ -7,15 +7,20 @@ Phases, each raising on failure (exit code 1):
   1. device: the card's name and power limit, the TF32 settings (both off);
   2. build: the CUDA kernels from diffusion_torch/csrc with one nvcc call;
      each kernel's ptxas registers, shared memory and spills, with no
-     spills allowed in the wgmma kernels (flash forward and dK/dV);
+     spills allowed in the wgmma kernels (flash forward and dK/dV); with
+     --parent DIR, also the parent tree's GroupNorm kernels, alongside;
   3. kernels: each of the five kernels (GroupNorm forward and backward,
      flash-attention forward, dQ and dK/dV) against its plain PyTorch
      version in bf16 at the main paths' shapes, with the max-abs error
      beside its bound, and each one's time beside the plain version's, the
      library call's for the same function (timed only, never used by the
-     port) and the card's bound for the work (CUDA events); for the flash
-     kernels also TFLOP/s, the device time alone (launches replayed from a
-     CUDA graph) and the wrapper's host time per call;
+     port) and the card's bound for the work (CUDA events), the device
+     time alone (launches replayed from a CUDA graph; with --parent, the
+     parent's GroupNorm kernels in turns) and the wrapper's host time per
+     call; for the flash kernels also TFLOP/s. Then all 61 GroupNorm calls
+     of one UNet forward (256px batch 16, 512px batch 4) and backward
+     (256px batch 16), each set replayed from one CUDA graph, beside its
+     summed byte bound;
   4. serve: the full-width SD-2-base endpoint (random weights from a seed).
      Its UNet and VAE decoder first run against an fp32 CPU copy of
      themselves on a small input. Then, at 512px behind the port's HTTP
@@ -42,15 +47,23 @@ Phases, each raising on failure (exit code 1):
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
 Exits with code 2, printing no result, when no CUDA device is present.
+
+    python3 chip_smoke.py --parent build/parent
+
+times the parent commit's GroupNorm kernels in turns with this tree's (unpack
+the parent there first: `git archive <commit> | tar -x -C build/parent`).
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
+import ctypes
 import gc
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -165,7 +178,7 @@ def _graph_ms(fn, launches: int = 10) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(launches):
             fn()
     return _time_ms(graph.replay, iters=10, warmup=2) / launches
@@ -182,10 +195,159 @@ def _gn_library(x, scale, bias, act):
     return F.silu(y) if act else y
 
 
-def _kernel_phase(card: str):
+class _ParentGroupNorm:
+    """The parent commit's GroupNorm kernels, for timing in turns with this
+    tree's: the
+    `csrc/group_norm.cu` of a parent tree unpacked under `root` (for
+    example `git archive` of the parent commit into build/parent), built
+    alone with nvcc into build/parent_group_norm/ and called through its C
+    signatures, with its row chunks. The parent's C interface is the one
+    before the cluster redesign: three forward and four backward launches a
+    call, `rows` rows a block."""
+
+    _FWD = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    _BWD = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+    def __init__(self, root: str):
+        from diffusion_torch.ops import _build
+        self.out = os.path.join(os.path.dirname(_build.BUILD_DIR),
+                                "parent_group_norm", "libgn_parent.so")
+        os.makedirs(os.path.dirname(self.out), exist_ok=True)
+        src = os.path.join(root, "diffusion_torch", "csrc", "group_norm.cu")
+        self.proc = subprocess.Popen(
+            [_build._nvcc(), *_build._FLAGS, "-o", self.out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lib = None
+
+    def load(self) -> None:
+        log = self.proc.communicate()[0]
+        _check(self.proc.returncode == 0, f"the parent's group_norm.cu: {log}")
+        self.lib = ctypes.CDLL(self.out)
+        self.lib.dt_group_norm_fwd.argtypes = self._FWD
+        self.lib.dt_group_norm_bwd.argtypes = self._BWD
+
+    @staticmethod
+    def _layout(x):
+        b, c = x.shape[0], x.shape[-1]
+        l = x.numel() // (b * c)
+        rows = min(l, max(32, -(-b * l // 512)))
+        per16 = 16 // x.element_size()
+        vec = per16 if c % per16 == 0 else 1
+        return b, l, c, rows, -(-l // rows), vec
+
+    def fwd(self, x, scale, bias, act):
+        import torch
+        b, l, c, rows, chunks, vec = self._layout(x)
+        y = torch.empty_like(x)
+        stats = torch.empty((2, b, 32), device=x.device)
+        part = torch.empty((b, chunks, c, 2), device=x.device)
+        rc = self.lib.dt_group_norm_fwd(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(), b, l,
+            c, 32, rows, 1e-5, int(act == "silu"),
+            int(x.dtype == torch.bfloat16), vec,
+            torch.cuda.current_stream().cuda_stream)
+        _check(rc == 0, f"the parent's group_norm forward: CUDA error {rc}")
+        return y
+
+    def bwd(self, x, scale, bias, mean, rstd, g, act):
+        import torch
+        b, l, c, rows, chunks, vec = self._layout(x)
+        dx = torch.empty_like(x)
+        dp = torch.empty((2, c), device=x.device)
+        part = torch.empty((b, chunks, c, 2), device=x.device)
+        m12 = torch.empty((2, b, 32), device=x.device)
+        rc = self.lib.dt_group_norm_bwd(
+            x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dp[0].data_ptr(),
+            dp[1].data_ptr(), part.data_ptr(), m12.data_ptr(), b, l, c, 32,
+            rows, int(act == "silu"), int(x.dtype == torch.bfloat16), vec,
+            torch.cuda.current_stream().cuda_stream)
+        _check(rc == 0, f"the parent's group_norm backward: CUDA error {rc}")
+        return dx
+
+
+def _unet_group_norm_phase(card: str, parent=None) -> dict:
+    """Every GroupNorm call of one UNet forward, replayed from one CUDA
+    graph (the device time alone): the 61 forward calls of a 256px training
+    microbatch (batch 16) and of a 512px CFG step (batch 4), and the 61
+    backward calls of the microbatch, each total beside its summed byte
+    bound (x read once and y written once; x and g read once and dx written
+    once) and, where built, the parent's kernels timed in turns. Returns
+    {what: (ms, bound_ms)}."""
+    import torch
+
+    from diffusion_torch.models.unet import SD2_BASE_UNET, group_norm_shapes
+    from diffusion_torch.ops import groupnorm as gn
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for what, batch, side, backward in (
+            ("256px microbatch (batch 16) forward", 16, 32, False),
+            ("512px CFG step (batch 4) forward", 4, 64, False),
+            ("256px microbatch (batch 16) backward", 16, 32, True)):
+        calls = []
+        for shape, groups, act in group_norm_shapes(SD2_BASE_UNET, batch,
+                                                    side):
+            x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+            c = shape[-1]
+            scale = torch.randn(c, generator=gen, device=dev)
+            bias = torch.randn(c, generator=gen, device=dev)
+            g = torch.randn(shape, generator=gen, device=dev).bfloat16() \
+                if backward else None
+            _, mean, rstd = gn.group_norm_cuda(x, scale, bias, groups, 1e-5,
+                                               act)
+            calls.append((x, g, scale, bias, mean, rstd, act))
+        nbytes = sum((3 if backward else 2) * _nbytes(x) for x, *_ in calls)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+
+        def ours():
+            for x, g, scale, bias, mean, rstd, act in calls:
+                if backward:
+                    gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g, 32,
+                                           act)
+                else:
+                    gn.group_norm_cuda(x, scale, bias, 32, 1e-5, act)
+
+        def theirs():
+            for x, g, scale, bias, mean, rstd, act in calls:
+                if backward:
+                    parent.bwd(x, scale, bias, mean, rstd, g, act)
+                else:
+                    parent.fwd(x, scale, bias, act)
+
+        case = {}
+        _graph_turns(case, ours, theirs if parent else None)
+        ms = case["graph_ms"]
+        old = (f", the parent's kernels {case['parent_graph_ms']:.4f} ms "
+               f"({case['parent_graph_ms'] / ms:.2f}x)"
+               if "parent_graph_ms" in case else "")
+        print(f"kernel group_norm unet {what}: {len(calls)} calls in a CUDA "
+              f"graph {ms:.4f} ms{old}; summed byte bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB) [{card}]")
+        out[what] = (ms, bound)
+        del calls
+    return out
+
+
+def _graph_turns(case, fn, parent_fn) -> None:
+    """case["graph_ms"] from `fn` and, where the parent's kernels were
+    built, case["parent_graph_ms"] from `parent_fn`, timed in turns (parent,
+    this tree, this tree, parent); each the mean of its two."""
+    if parent_fn is None:
+        case["graph_ms"] = _graph_ms(fn)
+        return
+    a, b, c, d = (_graph_ms(f) for f in (parent_fn, fn, fn, parent_fn))
+    case["graph_ms"], case["parent_graph_ms"] = (b + c) / 2, (a + d) / 2
+
+
+def _kernel_phase(card: str, parent=None):
     """Each kernel against its plain version at the main paths' shapes;
     returns {kernel: [case, ...]}, a case being a dict of err, ms,
-    plain_ms, library_ms, bound_ms, bound_by."""
+    plain_ms, library_ms, bound_ms, bound_by. `parent`: the parent's GroupNorm
+    kernels (`_ParentGroupNorm`), timed in turns with this tree's."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
@@ -200,12 +362,16 @@ def _kernel_phase(card: str):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def report(name, shape, case, err_text, extra=""):
-        rate = (f", {case['tflops']:.1f} TFLOP/s; in a CUDA graph "
-                f"{case['graph_ms']:.4f} ms" + (
-                    f" (library {case['library_graph_ms']:.4f} ms)"
-                    if "library_graph_ms" in case else "")
-                + f"; wrapper host time {case['host_us']:.1f} us per call"
-                if "tflops" in case else "")
+        rate = (f", {case['tflops']:.1f} TFLOP/s" if "tflops" in case
+                else "") + (
+            f"; in a CUDA graph {case['graph_ms']:.4f} ms" + (
+                f" (library {case['library_graph_ms']:.4f} ms)"
+                if "library_graph_ms" in case else "")
+            + (f" (the parent's kernels {case['parent_graph_ms']:.4f} ms, "
+               f"{case['parent_graph_ms'] / case['graph_ms']:.2f}x)"
+               if "parent_graph_ms" in case else "")
+            + f"; wrapper host time {case['host_us']:.1f} us per call"
+            if "graph_ms" in case else "")
         print(f"kernel {name} {shape} bf16{extra}: {err_text}; "
               f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms, "
               f"library {case['library_ms']:.4f} ms, bound "
@@ -232,13 +398,16 @@ def _kernel_phase(card: str):
         stat_err = max((mean - ref_mean).abs().max().item(),
                        ((rstd - ref_rstd).abs() / ref_rstd).max().item())
         bms, by = _bound(10 * x.numel(), 2 * _nbytes(x) + 3 * c * 4)
+        fn = lambda: gn.group_norm_cuda(x, scale, bias, 32, 1e-5, act)
         case = {"err": err, "bound_ms": bms, "bound_by": by,
-                "ms": _time_ms(lambda: gn.group_norm_cuda(
-                    x, scale, bias, 32, 1e-5, act)),
+                "ms": _time_ms(fn),
                 "plain_ms": _time_ms(lambda: gn.group_norm_reference(
                     x, scale, bias, 32, 1e-5, act)),
                 "library_ms": _time_ms(lambda: _gn_library(x, scale, bias,
-                                                           act))}
+                                                           act)),
+                "host_us": _host_us(fn)}
+        _graph_turns(case, fn, parent and (lambda: parent.fwd(
+            x, scale, bias, act)))
         report("group_norm", shape, case,
                f"max_abs_err {err:.3e} (bound {bound:.3e}), stats err "
                f"{stat_err:.3e} (bound 1e-4)", f" act={act}")
@@ -270,13 +439,17 @@ def _kernel_phase(card: str):
         g_nchw = g.view(lib_out.shape[0], lib_out.shape[2], lib_out.shape[3],
                         c).permute(0, 3, 1, 2)
         bms, by = _bound(20 * x.numel(), 3 * _nbytes(x) + 7 * c * 4)
+        fn = lambda: gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g,
+                                            32, act)
         case = {"err": err, "bound_ms": bms, "bound_by": by,
-                "ms": _time_ms(lambda: gn.group_norm_bwd_cuda(
-                    x, scale, bias, mean, rstd, g, 32, act)),
+                "ms": _time_ms(fn),
                 "plain_ms": _time_ms(lambda: gn.group_norm_bwd_reference(
                     x, scale, bias, mean, rstd, g, 32, act)),
                 "library_ms": _time_ms(lambda: torch.autograd.grad(
-                    lib_out, (xl, sl, bl), g_nchw, retain_graph=True))}
+                    lib_out, (xl, sl, bl), g_nchw, retain_graph=True)),
+                "host_us": _host_us(fn)}
+        _graph_turns(case, fn, parent and (lambda: parent.bwd(
+            x, scale, bias, mean, rstd, g, act)))
         report("group_norm_bwd", shape, case,
                f"dx max_abs_err {err:.3e} (bound {bound:.3e}), "
                f"dscale/dbias relative err {p_err:.3e} (bound 1e-4)",
@@ -589,7 +762,9 @@ def _train_phase(model, card: str):
 
 
 _CATEGORIES = (   # kernel-name patterns, first match wins
-    ("GroupNorm kernels", ("gn_partial", "gn_merge", "gn_apply", "gn_bwd")),
+    # this tree's gn_fwd_kernel / gn_bwd_kernel, and the parent's kernels
+    ("GroupNorm kernels", ("gn_fwd", "gn_bwd", "gn_partial", "gn_merge",
+                           "gn_apply")),
     ("flash kernels", ("flash_",)),
     ("optimizer/EMA foreach", ("multi_tensor_apply", "foreach")),
     ("cuDNN convs", ("conv", "cudnn", "implicit", "dgrad", "wgrad",
@@ -723,7 +898,12 @@ def _post(port: int, payload: dict, out: dict, key: str) -> None:
         conn.close()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a tree of the parent commit (git archive), whose "
+                         "GroupNorm kernels are timed in turns with these")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -749,9 +929,13 @@ def main() -> int:
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    # 2. build
+    # 2. build (the parent's GroupNorm kernels alongside, where a parent
+    # tree is given)
     t0 = time.perf_counter()
+    parent = _ParentGroupNorm(args.parent) if args.parent else None
     _build.library()
+    if parent:
+        parent.load()
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     with open(_build.build_log()) as f:
         usage = _ptxas_usage(f.read())
@@ -766,7 +950,8 @@ def main() -> int:
                f"ptxas reports spills (or no entry) for {name}: {u}")
 
     # 3. kernels against their plain versions
-    kernels = _kernel_phase(card)
+    kernels = _kernel_phase(card, parent)
+    _unet_group_norm_phase(card, parent)
 
     # 4. serve
     t0 = time.perf_counter()

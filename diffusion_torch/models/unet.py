@@ -22,7 +22,8 @@ from diffusion_torch.models.layers import (CHANNELS_LAST, Container, Conv2d, Dow
                                            TimestepEmbedding, Transformer2D,
                                            Upsample, timestep_embedding)
 
-__all__ = ["UNetConfig", "UNet2DCondition", "SD2_BASE_UNET"]
+__all__ = ["UNetConfig", "UNet2DCondition", "SD2_BASE_UNET",
+           "group_norm_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +46,47 @@ class UNetConfig:
 
 
 SD2_BASE_UNET = UNetConfig()
+
+
+def group_norm_shapes(config: UNetConfig, batch: int, side: int):
+    """The GroupNorm calls of one `UNet2DCondition` forward on (batch, C,
+    side, side) latents, in call order: ((B, L, C), groups, act) per call,
+    the (B, L, C) slab that `ops.groupnorm.group_norm` receives."""
+    chans, groups = config.block_out_channels, config.norm_num_groups
+    calls = []
+
+    def norm(c, s, act):
+        calls.append(((batch, s * s, c), groups, act))
+
+    def resnet(cin, cout, s):
+        norm(cin, s, "silu")
+        norm(cout, s, "silu")
+
+    n, s, cur = len(chans), side, chans[0]
+    skips = [cur]
+    for i, out in enumerate(chans):
+        for _ in range(config.layers_per_block):
+            resnet(cur, out, s)
+            if config.block_has_attention[i]:
+                norm(out, s, None)
+            cur = out
+            skips.append(cur)
+        if i < n - 1:
+            s //= 2
+            skips.append(cur)
+    resnet(cur, cur, s)
+    norm(cur, s, None)
+    resnet(cur, cur, s)
+    for i, out in enumerate(reversed(chans)):
+        for _ in range(config.layers_per_block + 1):
+            resnet(cur + skips.pop(), out, s)
+            if config.block_has_attention[n - 1 - i]:
+                norm(out, s, None)
+            cur = out
+        if i < n - 1:
+            s *= 2
+    norm(chans[0], s, "silu")
+    return calls
 
 
 class UNet2DCondition(nn.Module):

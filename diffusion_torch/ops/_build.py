@@ -41,10 +41,8 @@ _SIGNATURES = {
                                   _I, *[_LL] * 15, _F, _P],
     "dt_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, *[_LL] * 12, _F, _P],
-    "dt_group_norm_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _F, _I, _I, _I, _P],
-    "dt_group_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _P],
+    "dt_group_norm_fwd": [*[_P] * 7, *[_I] * 9, _F, _I, _I, _I, _P],
+    "dt_group_norm_bwd": [*[_P] * 11, *[_I] * 12, _P],
 }
 
 

@@ -46,6 +46,8 @@ _GN_TOL = {torch.bfloat16: dict(atol=3.2e-2, rtol=8e-3),
     ((3, 777, 96), 32, "silu"),      # ragged last chunk, C/G = 3
     ((2, 50, 36), 4, None),          # C % 8 != 0: scalar apply path
     ((4, 64, 2560), 32, "silu"),
+    ((4, 4096, 960), 32, "silu"),    # 512px CFG batch 4, the largest slice
+    ((1, 65536, 256), 32, "silu"),   # VAE decoder: two launches
 ])
 def test_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, act):
     x = _randn(shape, 0, dtype, cuda, shift=3.0)
@@ -209,6 +211,8 @@ def _assert_close_rel(got, want, rel, rtol):
     ((16, 16, 2560), 32, "silu"),
     ((3, 777, 96), 32, "silu"),      # ragged last chunk, C/G = 3
     ((2, 50, 36), 4, None),          # C % 8 != 0: scalar apply path
+    ((4, 4096, 960), 32, "silu"),    # a non-portable cluster (> 8 blocks)
+    ((1, 65536, 256), 32, None),     # two launches
 ])
 def test_group_norm_bwd_kernel_matches_plain(cuda, dtype, shape, groups, act):
     x, g, scale, bias, mean, rstd = _gn_bwd_case(shape, groups, act, dtype,
@@ -227,6 +231,61 @@ def test_group_norm_bwd_kernel_matches_plain(cuda, dtype, shape, groups, act):
         _assert_close_rel(dx, want_dx, 1e-5, 1e-4)
     _assert_close_rel(dscale, want_ds, 1e-5, 1e-4)
     _assert_close_rel(dbias, want_db, 1e-5, 1e-4)
+
+
+# one case per path of the plan, and both sides of the portable cluster size
+_GN_PATHS = [
+    ((16, 1024, 320), 32, "cluster"),
+    ((1, 262144, 128), 32, "split"),     # the VAE decoder's last slab, 512px
+    ((2, 50, 36), 4, "generic"),
+    ((2, 4096, 320), 32, "cluster"),     # a cluster of 8 in the backward
+    ((4, 4096, 960), 32, "cluster"),     # 8 forward, 16 backward blocks
+]
+
+
+@pytest.mark.parametrize("shift", [0.0, 1000.0], ids=["mean0", "mean1000"])
+@pytest.mark.parametrize("shape,groups,path", _GN_PATHS)
+def test_group_norm_paths_match_plain(cuda, shape, groups, path, shift):
+    """Forward and backward on every path of the plan, bf16, at mean 0 and
+    mean 1000 (where E[x^2] - E[x]^2 would cancel), within the tolerances
+    of the tests above."""
+    dtype = torch.bfloat16
+    b, l, c = shape
+    assert gn.plan(b, l, c, groups, 2).path == path
+    x = _randn(shape, 0, dtype, cuda, shift=shift)
+    g = _randn(shape, 3, dtype, cuda)
+    scale = _randn((c,), 1, torch.float32, cuda)
+    bias = _randn((c,), 2, torch.float32, cuda)
+    y, mean, rstd = gn.group_norm_cuda(x, scale, bias, groups, 1e-5, "silu")
+    want = gn.group_norm_reference(x, scale, bias, groups, 1e-5, "silu")
+    torch.testing.assert_close(y.float(), want.float(), **_GN_TOL[dtype])
+    want_mean, want_rstd = gn.group_norm_stats_reference(x, groups, 1e-5)
+    torch.testing.assert_close(mean, want_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, atol=1e-5, rtol=1e-4)
+    dx, dscale, dbias = gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g,
+                                               groups, "silu")
+    want_dx, want_ds, want_db = gn.group_norm_bwd_reference(
+        x, scale, bias, mean, rstd, g, groups, "silu")
+    _assert_close_rel(dx, want_dx, 2 ** -7, 8e-3)
+    _assert_close_rel(dscale, want_ds, 1e-5, 1e-4)
+    _assert_close_rel(dbias, want_db, 1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(16, 1024, 960), (1, 65536, 256),
+                                   (4, 4096, 960)])
+def test_group_norm_bwd_is_deterministic(cuda, shape):
+    """dscale and dbias sum over images and blocks in a fixed order (the
+    last block to arrive adds the images' sums in image order): two runs
+    agree bit for bit, and so does dx."""
+    x, g, scale, bias, mean, rstd = _gn_bwd_case(shape, 32, "silu",
+                                                 torch.bfloat16, cuda)
+    first = gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g, 32, "silu")
+    torch.cuda.synchronize()
+    for _ in range(2):
+        again = gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g, 32,
+                                       "silu")
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_group_norm_autograd_on_card(cuda):
