@@ -11,46 +11,61 @@
 // operands' dtype.
 //
 // What bounds it on the card: at the UNet's spatial self-attention (S = 1024
-// or 4096, d = 64) the backward does 2.5x the forward's tensor-core work
-// (five S x S x 64 products per head against O(S * d) bytes, and P is
-// recomputed in both kernels, so seven are issued), far above the
-// flop-per-byte ridge: it is bound by the tensor cores and how well they
-// are fed.
+// or 4096, d = 64) the work is S x S x 64 products against O(S * d) bytes,
+// far above the card's flop-per-byte ridge, so the tensor cores bound both
+// kernels: three products a tile in dQ (S = Q K^T, dP = dO V^T, dQ += dS K),
+// four in dK/dV, and one exponential per score in each (MUFU.EX2, 16 a clock
+// per SM: two thirds of the time the tensor cores take for dQ's three
+// products of the same scores), so the exponentials must overlap the
+// products.
 //
-// Design against that bound:
+// Design against that bound (hopper_common.cuh has the building blocks):
 //  * Two kernels, as on the TPU, because CUDA blocks run in no order and a
-//    sum across blocks would need atomics: dQ owns one (b*h, 64-row q tile)
-//    per block and loops over K/V tiles; dK/dV owns one (b*h, 128-key tile)
-//    per block and loops over Q/dO tiles. No atomics, so the result is
-//    deterministic.
-//  * delta is fused into the dQ kernel: each dQ block computes it for its
-//    64 rows from the dO and O tiles it loads anyway and writes it out for
-//    the dK/dV kernel, which runs after it on the same stream.
-//  * dQ: mma.sync m16n8k16 bf16 -> fp32 with the fragment layouts of
-//    flash_common.cuh: the score and dp accumulators are reused in place
-//    as the A operand of the next product, so P and dS never touch shared
-//    or device memory; K comes through ldmatrix.trans. Tiles are loaded
-//    synchronously.
-//  * dK/dV (hopper_common.cuh has the building blocks): three warpgroups,
-//    two consumers of 64 keys each and one producer. TMA loads the block's
-//    K and V once; the producer's single thread streams 64-query tiles of
-//    Q and dO, with their 64 lse and delta values (bulk copies), through a
-//    ring of kStages shared-memory stages guarded by full and empty
-//    mbarriers, and gives up its registers (setmaxnreg) to the consumers.
-//    Per tile each consumer runs S^T = K Q^T and dP^T = V dO^T as wgmma
-//    m64n64k16 with all operands in shared memory (K and V are A, K-major;
-//    Q and dO are B, K-major), makes P^T and dS^T in registers, and runs
-//    dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A operands
-//    and dO and Q read MN-major from the same swizzled tiles. dK and dV are
-//    64 x 64 fp32 per warpgroup, 32 registers each per thread. The
-//    exponentials are bare MUFU.EX2 (exp2_ftz), the dQ kernel's exp2f: the
-//    two give P the same bits except where p < 2^-126, which exp2_ftz
-//    flushes to zero (the dQ kernel keeps the denormal).
-//  * q/k/v/dO/O are read through their (B, S, H, D) strides (tensor maps
-//    for the dK/dV kernel), so the head fold costs nothing; dQ/dK/dV are
-//    written contiguous (B, S, H, 64). Key rows past Skv read as zeros and
-//    are not stored.
-// Not yet done: cp.async/TMA double buffering and wgmma in the dQ kernel.
+//    sum across blocks would need atomics: dQ owns one (b*h, 128 q rows) per
+//    block and loops over K/V tiles; dK/dV owns one (b*h, 128 keys) per
+//    block and loops over Q/dO tiles. No atomics, so the result is
+//    deterministic. Both have three warpgroups: two consumers of 64 rows
+//    each and one producer, whose single thread issues every TMA load of
+//    128-byte-swizzled tiles through a ring of stages guarded by "full" and
+//    "empty" mbarriers and which gives up its registers (setmaxnreg) to the
+//    consumers.
+//  * dQ: TMA loads the block's Q, dO and O once (O only for delta) and
+//    streams 64-key K and V tiles through a 4-stage ring. Each consumer
+//    first forms delta = rowsum(dO * O) for its rows from the dO and O
+//    tiles in shared memory (both carry the same swizzle, so a chunk of
+//    one pairs with the same chunk of the other without unswizzling),
+//    keeps it in registers and writes it out for the dK/dV kernel, which
+//    runs after it on the same stream; it also loads its 64 rows of Q and
+//    dO once as register A fragments. Per tile it runs S = Q K^T and
+//    dP = dO V^T as wgmma with Q and dO from registers and K and V read
+//    K-major from shared memory, forms dS = p (dp - delta) in registers
+//    and packs it to bf16 in the A-operand layout (the accumulator layout
+//    of S), and runs dQ += dS K as wgmma with dS from registers and K read
+//    MN-major from the same tile S read K-major. Tile i's S and dP are
+//    issued together with tile i-1's dQ product, and tile i's exponentials
+//    run while that product is on the tensor cores; the dS of alternate
+//    tiles lives in two register sets, and a stage is released once the
+//    product that reads it has completed. This plan is the fastest of
+//    those measured (PERF.md): at 128-key tiles the two dS sets do not
+//    fit in the registers and ptxas serializes the overlap. Skv is a
+//    multiple of 64, so no key tile is ragged (a ragged 128-key tile would
+//    need p forced to 0 on its padded keys: p = exp(-lse) overflows where
+//    lse < -88, and inf times their zero K rows is NaN). q rows past Sq
+//    read as zeros and are neither read from lse nor written.
+//  * dK/dV: TMA loads the block's K and V once; the producer streams
+//    64-query tiles of Q and dO, with their 64 lse and delta values (bulk
+//    copies), through a ring of kStages stages. Per tile each consumer runs
+//    S^T = K Q^T and dP^T = V dO^T as wgmma m64n64k16 with all operands in
+//    shared memory (K and V are A, K-major; Q and dO are B, K-major), makes
+//    P^T and dS^T in registers, and runs dV += P^T dO and dK += dS^T Q with
+//    P^T and dS^T as register A operands and dO and Q read MN-major from
+//    the same swizzled tiles. dK and dV are 64 x 64 fp32 per warpgroup, 32
+//    registers each per thread.
+//  * The exponentials are bare MUFU.EX2 (exp2_ftz) in both kernels, so the
+//    two give P the same bits.
+//  * q/k/v/dO/O are read through their (B, S, H, D) strides (4-D tensor
+//    maps), so the head fold costs nothing; dQ/dK/dV are written contiguous
+//    (B, S, H, 64). Rows past the end read as zeros and are not stored.
 
 #include <math.h>
 
@@ -61,92 +76,253 @@ namespace {
 
 using namespace flash;
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ o,
-                    const __nv_bfloat16* __restrict__ dout,
+constexpr int kConsumerThreads = 256;   // two consumer warpgroups
+
+// ---- dQ ------------------------------------------------------------------
+
+constexpr int kDqRows = 128;            // q rows per block: two warpgroups
+constexpr int kDqKeys = 64;             // keys per streamed K/V tile
+constexpr int kDqStages = 4;            // K/V ring depth
+constexpr int kDqThreads = kConsumerThreads + 128;
+constexpr int kDqTileBytes = kDqKeys * kD * 2;
+
+struct alignas(1024) DqSmem {
+  __nv_bfloat16 q[kDqRows * kD];
+  __nv_bfloat16 dout[kDqRows * kD];
+  __nv_bfloat16 o[kDqRows * kD];
+  __nv_bfloat16 k[kDqStages][kDqKeys * kD];
+  __nv_bfloat16 v[kDqStages][kDqKeys * kD];
+  uint64_t qo_full, full[kDqStages], empty[kDqStages];
+};
+constexpr int kDqSmemBytes = sizeof(DqSmem) + 1024;  // + alignment slack
+
+// d (64 rows x 64 keys, fp32) = A B^T over the 64 head dims, A from
+// registers (A fragments, one per 16 dims), B (the tile's keys) K-major in
+// shared memory; issued, not committed
+__device__ __forceinline__ void issue_rs(float (&d)[32],
+                                         const uint32_t (&a)[kD / 16][4],
+                                         uint64_t b) {
+  using namespace hopper;
+#pragma unroll
+  for (int kc = 0; kc < kD / 16; ++kc)
+    wgmma_m64n64k16_rs(d, a[kc], b + kc * kDescK16, kc > 0);
+}
+
+// the A fragments of tile rows `row` and row + 8 (row % 8 == g) of a
+// swizzled 64-dim tile: dims c of row r sit in chunk (c / 8) ^ (r % 8)
+__device__ __forceinline__ void load_a(uint32_t (&a)[kD / 16][4],
+                                       const __nv_bfloat16* t, int row, int g,
+                                       int t4) {
+#pragma unroll
+  for (int kc = 0; kc < kD / 16; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {         // j & 1: row + 8; j & 2: dims + 8
+      const int r = row + (j & 1) * 8;
+      a[kc][j] = *reinterpret_cast<const uint32_t*>(
+          t + r * kD + ((2 * kc + (j >> 1)) ^ g) * 8 + 2 * t4);
+    }
+}
+
+// rowsum(dO * O) of the tile row `row` (row % 8 == g) over the quad's four
+// lanes. dO and O hold row r's 16-byte chunk c at chunk c ^ (r % 8), so one
+// physical chunk of each holds the same 8 dims. Lane t4 takes physical
+// chunks (2 t4 + j) ^ g, j = 0, 1: the quad covers the row, and the 8 lanes
+// of a quarter warp read 8 distinct chunks (no bank conflict).
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b, int row,
+                                         int g, int t4) {
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int off = row * kD + ((2 * t4 + j) ^ g) * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(a + off);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + off);
+    const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 u = __bfloat1622float2(xs[e]);
+      const float2 w = __bfloat1622float2(ys[e]);
+      acc = fmaf(u.x, w.x, acc);
+      acc = fmaf(u.y, w.y, acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
+
+// dS = p (dp - delta), p = exp2(s * scale_log2 - lse * log2e), of one tile
+// (rows g, g+8 x 64 keys), rounded to bf16 (as the TPU kernel casts ds to
+// k's dtype) into the A fragments of dS K, 16 keys per k-chunk: chunk j of
+// the accumulator is keys 8j..8j+7, two chunks one A fragment. nl0/nl1 are
+// -lse * log2e and dl0/dl1 delta of the two rows.
+__device__ __forceinline__ void ds_tile(const float (&s)[32],
+                                        const float (&dp)[32],
+                                        float scale_log2, float nl0,
+                                        float nl1, float dl0, float dl1,
+                                        uint32_t (&da)[kDqKeys / 16][4]) {
+#pragma unroll
+  for (int kc = 0; kc < kDqKeys / 16; ++kc) {
+    float d[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {           // j & 2: row g+8
+      const float p = hopper::exp2_ftz(
+          fmaf(s[8 * kc + j], scale_log2, (j & 2) ? nl1 : nl0));
+      d[j] = p * (dp[8 * kc + j] - ((j & 2) ? dl1 : dl0));
+    }
+    da[kc][0] = pack_bf16(d[0], d[1]);
+    da[kc][1] = pack_bf16(d[2], d[3]);
+    da[kc][2] = pack_bf16(d[4], d[5]);
+    da[kc][3] = pack_bf16(d[6], d[7]);
+  }
+}
+
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int H, int Sq, int Skv,
-                    Strides qs, Strides ks, Strides vs, Strides os,
-                    Strides dos, float scale, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sDO[kTile][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile][kLd];  // O, then K tiles
-  __shared__ __align__(16) __nv_bfloat16 sV[kTile][kLd];
-  __shared__ float sDelta[kTile];
+                    float scale, float scale_log2) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wr = warp * 16;
+  const int q0 = blockIdx.x * kDqRows;
+  const int n_tiles = Skv / kDqKeys;
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-
-  load_tile(sQ, q + b * qs.b + h * qs.h, qs.s, q0);
-  load_tile(sDO, dout + b * dos.b + h * dos.h, dos.s, q0);
-  load_tile(sK, o + b * os.b + h * os.h, os.s, q0);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  {
-    // delta = rowsum(dO * O) in fp32: two threads per row, 32 dims each
-    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * 32;
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; c += 2) {
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&sDO[r][c0 + c]));
-      const float2 w = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&sK[r][c0 + c]));
-      acc += a.x * w.x + a.y * w.y;
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((threadIdx.x & 1) == 0) {
-      sDelta[r] = acc;
-      delta[(long long)bh * Sq + q0 + r] = acc;
-    }
-  }
-  uint32_t qa[4][4], da[4][4];              // A fragments of Q and dO
-  load_a_frags(qa, sQ, wr, g, t4);
-  load_a_frags(da, sDO, wr, g, t4);
-  __syncthreads();                          // sDelta written, sK free
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-  const float lse0 = lse[(long long)bh * Sq + r0] * kLog2e;
-  const float lse1 = lse[(long long)bh * Sq + r1] * kLog2e;
-  const float dl0 = sDelta[wr + g], dl1 = sDelta[wr + g + 8];
 
-  float acc[8][4];                          // dQ rows (g, g+8) x 64 dims
-  zero(acc);
-  for (int kv0 = 0; kv0 < Skv; kv0 += kTile) {
-    __syncthreads();                        // previous tile fully consumed
-    load_tile(sK, kb, ks.s, kv0);
-    load_tile(sV, vb, vs.s, kv0);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];                // rows (g, g+8) x 64 keys
-    zero(s);
-    zero(dp);
-    mma_abt(s, qa, sK, g, t4);              // Q K^T
-    mma_abt(dp, da, sV, g, t4);             // dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {        // ds = p (dp - delta), in s
-      s[nt][0] = exp2f(s[nt][0] * scale_log2 - lse0) * (dp[nt][0] - dl0);
-      s[nt][1] = exp2f(s[nt][1] * scale_log2 - lse0) * (dp[nt][1] - dl0);
-      s[nt][2] = exp2f(s[nt][2] * scale_log2 - lse1) * (dp[nt][2] - dl1);
-      s[nt][3] = exp2f(s[nt][3] * scale_log2 - lse1) * (dp[nt][3] - dl1);
+  if (wg == 2) {
+    // producer: one thread issues every load
+    regs_release<24>();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(&sm.qo_full, 3 * kDqRows * kD * 2);
+      tma_load(sm.q, &tq, &sm.qo_full, 0, q0, h, b);
+      tma_load(sm.dout, &tdo, &sm.qo_full, 0, q0, h, b);
+      tma_load(sm.o, &to, &sm.qo_full, 0, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kDqStages;
+        // the first pass over the ring finds every stage empty
+        mbar_wait(&sm.empty[s], ((i / kDqStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * kDqTileBytes);
+        tma_load(sm.k[s], &tk, &sm.full[s], 0, i * kDqKeys, h, b);
+        tma_load(sm.v[s], &tv, &sm.full[s], 0, i * kDqKeys, h, b);
+      }
     }
-    mma_ab(acc, s, sK, lane);               // dQ += ds K
+  } else {
+    // consumers: warpgroup wg owns q rows q0 + 64*wg .. +63
+    regs_claim<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row = wg * 64 + warp * 16 + g;     // tile rows row, row + 8
+    const int r0 = q0 + row, r1 = r0 + 8;
+    const float* lseb = lse + (long long)bh * Sq;
+    // -lse in log2 units; rows past Sq (zero Q, dO and O, not stored) take 0
+    const float nl0 = r0 < Sq ? -lseb[r0] * kLog2e : 0.f;
+    const float nl1 = r1 < Sq ? -lseb[r1] * kLog2e : 0.f;
+
+    mbar_wait(&sm.qo_full, 0);
+    const float dl0 = row_dot(sm.dout, sm.o, row, g, t4);
+    const float dl1 = row_dot(sm.dout, sm.o, row + 8, g, t4);
+    if (t4 == 0) {
+      if (r0 < Sq) delta[(long long)bh * Sq + r0] = dl0;
+      if (r1 < Sq) delta[(long long)bh * Sq + r1] = dl1;
+    }
+
+    uint32_t qa[kD / 16][4], doa[kD / 16][4];  // Q and dO as A fragments
+    load_a(qa, sm.q + wg * 64 * kD, warp * 16 + g, g, t4);
+    load_a(doa, sm.dout + wg * 64 * kD, warp * 16 + g, g, t4);
+
+    float acc[32];                          // dQ rows (g, g+8) x 64 dims
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    // S = Q K^T and dP = dO V^T of tile i (issued, committed; not waited for)
+    auto issue_scores = [&](float (&s)[32], float (&dp)[32], int i) {
+      const int st = i % kDqStages;
+      mbar_wait(&sm.full[st], (i / kDqStages) & 1);
+      wgmma_fence();
+      issue_rs(s, qa, desc_sw128(sm.k[st]));
+      issue_rs(dp, doa, desc_sw128(sm.v[st]));
+      wgmma_commit();
+    };
+    // dQ += dS K of tile i, dS from `da`, K read MN-major (issued, committed)
+    auto issue_dq = [&](int i, const uint32_t (&da)[kDqKeys / 16][4]) {
+      const uint64_t k_desc = desc_sw128(sm.k[i % kDqStages]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kDqKeys / 16; ++kc)
+        wgmma_m64n64k16_rs_tn(acc, da[kc], k_desc + kc * kDescRows16);
+      wgmma_commit();
+    };
+    // Tile i's S and dP are issued with tile i-1's dQ product, and tile
+    // i's dS is formed while that product runs. The dS of alternate tiles
+    // lives in two register sets, so no register that a product in flight
+    // reads is written before it completes (a copy between them made ptxas
+    // serialize the products, C7513).
+    auto step = [&](int i, const uint32_t (&cur)[kDqKeys / 16][4],
+                    uint32_t (&next)[kDqKeys / 16][4]) {
+      float s[32], dp[32];
+      issue_scores(s, dp, i);
+      issue_dq(i - 1, cur);
+      wgmma_wait<1>();                      // S and dP, not yet dQ
+      fence_regs(s);
+      fence_regs(dp);
+      ds_tile(s, dp, scale_log2, nl0, nl1, dl0, dl1, next);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&sm.empty[(i - 1) % kDqStages]);  // done with tile i-1
+    };
+    uint32_t da0[kDqKeys / 16][4], da1[kDqKeys / 16][4];
+    {
+      float s[32], dp[32];
+      issue_scores(s, dp, 0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      ds_tile(s, dp, scale_log2, nl0, nl1, dl0, dl1, da0);
+    }
+    int i = 1;
+    for (; i + 1 < n_tiles; i += 2) {
+      step(i, da0, da1);
+      step(i + 1, da1, da0);
+    }
+    if (i < n_tiles) {
+      step(i, da0, da1);
+      issue_dq(i, da1);
+    } else {
+      issue_dq(i - 1, da0);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&sm.empty[(n_tiles - 1) % kDqStages]);
+    store_rows(dq, reinterpret_cast<const float(*)[4]>(acc), b, Sq, H, h,
+               r0, t4, scale, scale);
   }
-  store_rows(dq, acc, b, Sq, H, h, r0, t4, scale, scale);
 }
+
+// ---- dK/dV ---------------------------------------------------------------
 
 constexpr int kBKeys = 128;         // keys per dK/dV block: two warpgroups
 constexpr int kBQ = 64;             // queries per streamed Q/dO tile
 constexpr int kStages = 3;          // Q/dO ring depth
-constexpr int kConsumerThreads = 256;
 constexpr int kDkvThreads = kConsumerThreads + 128;
 constexpr int kQTileBytes = kBQ * kD * 2;
 
@@ -297,7 +473,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 // alignment. lse: contiguous (B, H, Sq) fp32 from the forward. delta:
 // (B, H, Sq) fp32, written here for the dK/dV launch. dq: contiguous
 // (B, Sq, H, 64) bf16. Sq and Skv are multiples of 64. Returns the launch's
-// cudaError_t.
+// cudaError_t (cudaErrorInvalidValue where the CUDA driver refuses a tensor
+// map).
 extern "C" int dt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, int B, int H,
@@ -306,18 +483,23 @@ extern "C" int dt_flash_attention_bwd_dq(
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, long long do_sb, long long do_ss, long long do_sh,
     float scale, void* stream) {
-  dim3 grid(Sq / kTile, B * H);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0,
+  CUtensorMap tq, tk, tv, to, tdo;
+  if (!hopper::make_map(&tq, q, B, Sq, H, q_sb, q_ss, q_sh, kDqRows) ||
+      !hopper::make_map(&tk, k, B, Skv, H, k_sb, k_ss, k_sh, kDqKeys) ||
+      !hopper::make_map(&tv, v, B, Skv, H, v_sb, v_ss, v_sh, kDqKeys) ||
+      !hopper::make_map(&to, o, B, Sq, H, o_sb, o_ss, o_sh, kDqRows) ||
+      !hopper::make_map(&tdo, dout, B, Sq, H, do_sb, do_ss, do_sh, kDqRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDqSmemBytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  dim3 grid((Sq + kDqRows - 1) / kDqRows, B * H);
+  flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), H, Sq, Skv,
-      Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
-      Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh},
-      Strides{do_sb, do_ss, do_sh}, scale, scale * kLog2e);
+      tq, tk, tv, to, tdo, static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), H, Sq,
+      Skv, scale, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

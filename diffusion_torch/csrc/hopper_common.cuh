@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward
-// (flash_attention.cu) and dK/dV (flash_attention_bwd.cu) kernels: TMA
+// (flash_attention.cu) and backward (flash_attention_bwd.cu) kernels: TMA
 // tensor maps and loads, mbarriers, wgmma with shared-memory descriptors,
 // and register reallocation between warpgroups.
 //
@@ -8,11 +8,12 @@
 // of row r lands at chunk c ^ (r % 8), so every wgmma operand read is free of
 // bank conflicts. A wgmma descriptor of such a tile:
 //  * K-major (the reduction axis is the 64 contiguous head dims: Q and K as
-//    A and B of Q K^T, K and V as A of K Q^T and V dO^T, Q and dO as their
-//    B): 8-row groups 1024 bytes apart (SBO); one k16 step is +32 bytes
-//    inside the swizzle atom, which the hardware swizzles as it reads.
-//  * MN-major (the reduction axis is the tile's rows: V in P V, dO in
-//    P^T dO, Q in dS^T Q, all 64 wide): the same fields; along K, 8-row
+//    A and B of Q K^T, V as B of dO V^T, K and V as A of K Q^T and V dO^T,
+//    Q and dO as their B): 8-row groups 1024 bytes apart (SBO); one k16
+//    step is +32 bytes inside the swizzle atom, which the hardware
+//    swizzles as it reads.
+//  * MN-major (the reduction axis is the tile's rows: V in P V, K in dS K,
+//    dO in P^T dO, Q in dS^T Q, all 64 wide): the same fields; along K, 8-row
 //    groups are SBO = 1024 bytes apart, and one k16 step is +16 rows =
 //    2048 bytes. N = 64 is exactly one swizzle atom wide, so the stride
 //    between atoms along N (LBO) is never used.
@@ -22,7 +23,9 @@
 // 8-column chunk j the floats d[4j .. 4j+3] = (row g: cols 8j + 2t4, +1;
 // row g+8: the same cols), the mma.sync C layout of flash_common.cuh. A
 // register A operand (k16) is the mma.sync A layout of warp w's 16 rows, so
-// two neighbouring accumulator chunks pack into one A fragment (pack_a).
+// two neighbouring accumulator chunks pack into one A fragment: floats
+// 8k .. 8k+7 give a0 = (0, 1), a1 = (2, 3), a2 = (4, 5), a3 = (6, 7), each
+// pair through pack_bf16.
 
 #pragma once
 
@@ -283,6 +286,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tn(float (&d)[32],
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
       "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64, fp32) {+}= A (64 x 16, bf16 registers in the mma.sync A
+// layout) B (16 x 64); B K-major in shared memory. D is zeroed first where
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 }  // namespace hopper

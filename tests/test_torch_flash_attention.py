@@ -157,6 +157,87 @@ def test_grad_matches_xla_vjp(s):
                                    atol=2e-5, rtol=1e-4)
 
 
+def _tiled_dq(q, k, v, out, lse, do, keys, mask=True, rows=128):
+    """The dQ kernel's tiling in torch: 128-row q blocks and `keys`-key K/V
+    tiles (64 in the kernel; 128 shows what a ragged key tile needs), with
+    the zero rows past Sq and Skv that its tensor maps read; `mask` forces
+    p to 0 on padded keys. Rows past Sq take lse 0 and are not returned.
+    Returns (dq, delta)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    pad_q, pad_k = -sq % rows, -skv % keys
+
+    def pad(t, n):                      # zero rows after dim 1
+        return torch.cat([t, t.new_zeros((b, n) + t.shape[2:])], dim=1)
+    qp, op, dop = (pad(t, pad_q) for t in (q, out, do))
+    kp, vp = pad(k, pad_k), pad(v, pad_k)
+    lsep = torch.cat([lse, lse.new_zeros((b, h, pad_q))], dim=-1)
+    delta = (dop.float() * op.float()).sum(-1).transpose(1, 2)  # (B, H, Sq)
+    dq = torch.empty(qp.shape, dtype=torch.float32)
+    for r0 in range(0, sq + pad_q, rows):
+        rs = slice(r0, r0 + rows)
+        acc = torch.zeros((b, rows, h, d))
+        for k0 in range(0, skv + pad_k, keys):
+            kt, vt = kp[:, k0:k0 + keys], vp[:, k0:k0 + keys]
+            s = torch.einsum("bqhd,bkhd->bhqk", qp[:, rs].float(), kt.float())
+            if mask:
+                s[..., torch.arange(k0, k0 + keys) >= skv] = -torch.inf
+            p = torch.exp(s * d ** -0.5 - lsep[..., rs, None])
+            dp = torch.einsum("bqhd,bkhd->bhqk", dop[:, rs].float(), vt.float())
+            ds = p * (dp - delta[..., rs, None])
+            acc += torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype), kt).float()
+        dq[:, rs] = acc * d ** -0.5
+    return dq[:, :sq].to(q.dtype), delta[..., :sq]
+
+
+def _bwd_inputs(b, sq, skv, h, seed, negative):
+    """q, k, v, out, lse, do (fp32); `negative`: q near -5 and k near +5,
+    so every score is near -200 and every row's lse below -100."""
+    rng = np.random.default_rng(seed)
+    shift = 5.0 if negative else 0.0
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, 64)) - shift).float()
+    k = torch.from_numpy(rng.standard_normal((b, skv, h, 64)) + shift).float()
+    v, do = (torch.from_numpy(rng.standard_normal(shape)).float()
+             for shape in ((b, skv, h, 64), (b, sq, h, 64)))
+    out, lse = tfa.flash_attention_reference(q, k, v)
+    assert not negative or lse.max().item() < -100
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("keys", [64, 128])
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (1, 192, 320, 3),                 # a ragged q block and key tile
+    (2, 128, 192, 4),                 # a ragged last key tile
+    (1, 256, 256, 2),                 # whole tiles
+    (2, 64, 128, 1),                  # half a q block, one key tile
+])
+def test_dq_kernel_tiling_matches_plain(b, sq, skv, h, negative, keys):
+    """The dQ kernel's tiling (emulated in fp32) gives what the plain
+    backward gives, at ragged shapes and where every lse is below -100."""
+    q, k, v, out, lse, do = _bwd_inputs(b, sq, skv, h, sq + skv, negative)
+    dq, delta = _tiled_dq(q, k, v, out, lse, do, keys)
+    want = tfa.flash_attention_bwd_reference(q, k, v, out, lse, do)[0]
+    # fp32 throughout; blockwise sums against one einsum per product
+    assert torch.isfinite(dq).all()
+    np.testing.assert_allclose(dq.numpy(), want.numpy(), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(
+        delta.numpy(), (do * out).sum(-1).transpose(1, 2).numpy(),
+        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [(1, 192, 320, 3), (2, 128, 192, 4)])
+def test_dq_tiling_needs_the_padded_key_mask(b, sq, skv, h):
+    """With 128-key tiles and without the mask, a padded key's
+    p = exp(0 - lse) overflows to inf where lse < -100 and meets its zero K
+    row: inf * 0 = NaN in dQ. 64-key tiles have no padded keys."""
+    q, k, v, out, lse, do = _bwd_inputs(b, sq, skv, h, sq + skv, True)
+    dq, _ = _tiled_dq(q, k, v, out, lse, do, 128, mask=False)
+    assert not torch.isfinite(dq).all()
+    dq, _ = _tiled_dq(q, k, v, out, lse, do, 64, mask=False)
+    assert torch.isfinite(dq).all()
+
+
 def test_bwd_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 64, 2, 64, seed=2))
     out, lse = tfa.flash_attention_reference(q, k, v)

@@ -365,6 +365,36 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, sq, skv, h):
         assert torch.equal(a, w)
 
 
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (1, 192, 320, 3),                 # a ragged q block and key tile
+    (2, 128, 192, 4),                 # a ragged last key tile
+])
+def test_flash_bwd_dq_kernel_with_strongly_negative_lse(cuda, b, sq, skv, h):
+    """q near -5 and k near +5: every score is near -200 and every row's lse
+    below -100, so a padded key's p = exp(0 - lse) would overflow to inf
+    and meet its zero K row as NaN; the kernel's 64-key tiles hold no
+    padded key, and its rows past Sq read no lse."""
+    q = _randn((b, sq, h, 64), 10, torch.bfloat16, cuda, shift=-5.0)
+    k = _randn((b, skv, h, 64), 11, torch.bfloat16, cuda, shift=5.0)
+    v = _randn((b, skv, h, 64), 12, torch.bfloat16, cuda)
+    do = _randn((b, sq, h, 64), 13, torch.bfloat16, cuda)
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    assert lse.max().item() < -100
+    before = fa.launches_bwd_dq.value
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_dq.value == before + 1
+    assert torch.isfinite(dq).all()
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)[0]
+    _assert_close_rel(dq, want, _FA_BWD_REL, _FA_BWD_RTOL)
+    # fp32 sums of the same products in another order
+    prod = do.float() * out.float()
+    err = (delta - prod.sum(-1).transpose(1, 2)).abs()
+    assert (err <= 1e-5 * prod.abs().sum(-1).transpose(1, 2)).all()
+    again, again_delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    assert torch.equal(dq, again) and torch.equal(delta, again_delta)
+
+
 def test_flash_bwd_kernel_reads_strided_views(cuda):
     qkv = _randn((2, 256, 4, 192), 3, torch.bfloat16, cuda)
     q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
