@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each raising on failure (exit code 1):
-  1. device: the card's name and power limit, the TF32 settings (both off);
+  1. device: the card's name and power limit, the TF32 settings (both off),
+     the host's PyYAML and Pillow versions;
   2. build: the CUDA kernels from diffusion_torch/csrc with one nvcc call;
      each kernel's ptxas registers, shared memory and spills, with no
      spills allowed in the wgmma kernels (flash forward, dQ and dK/dV);
@@ -45,7 +46,22 @@ Phases, each raising on failure (exit code 1):
      changed params and EMA, all five kernels' launch counters above zero
      for the fit; step time, samples/s, peak memory, launches per step;
      then two more steps under torch.profiler for the device's busy time,
-     idle share and time by kernel category.
+     idle share and time by kernel category;
+  8. composed run: the unedited yamls/SD-2-base-256.yaml composed through
+     diffusion_torch's config loader with dotted overrides only (global
+     batch 32, the LAION reader over precomputed-latent MDS shards that the
+     port's MDSWriter writes from a numpy seed, 256 training and 64 eval
+     samples; the eval set through the LAION reader too; 6 batches, eval
+     every 3) and run by `diffusion_torch.train.train.train(config)`:
+     finite losses and grad norms, exactly one eval (after batch 3) with a
+     finite MSE, all five kernels launched during the fit and both forward
+     kernels during the eval; step time and samples/s beside phase 7's,
+     the wait on the dataloader per step, the eval's MSE and wall time,
+     peak memory, and which libdataio path ran;
+  9. fp32 UNet: `encode_latents_in_fp16: false` builds an fp32 full-width
+     UNet; one 256px batch-1 forward on the card runs its attention on
+     plain math (the flash counter stays 0) and agrees with the same
+     weights on the CPU.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -68,6 +84,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -80,6 +97,8 @@ TRAIN_SIZE = 256    # yamls/SD-2-base-256.yaml
 TRAIN_BATCH = 32    # global batch: two microbatches of 16
 TRAIN_MICRO = 16    # device_train_microbatch_size (SD-2-base-256.yaml)
 TRAIN_STEPS = 6
+COMPOSED_TRAIN, COMPOSED_EVAL = 256, 64   # samples (8 and 2 batches of 32)
+COMPOSED_EVAL_AT = 3                      # trainer.eval_interval, batches
 DEVICE = "cuda:0"
 # NVIDIA H100 SXM peaks (data sheet; dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -677,11 +696,11 @@ def _grad_reference_phase(model, card: str) -> None:
 
 def _train_phase(model, card: str):
     """`Trainer.fit()` over the SD-2-base-256 recipe; returns the five
-    kernels' launch counts during the fit."""
+    kernels' launch counts during the fit and the step time (s) after the
+    first step."""
     import torch
 
     from diffusion_torch.algorithms.ema import EMA
-    from diffusion_torch.ops import flash_attention as fa
     from diffusion_torch.ops import groupnorm as gn
     from diffusion_torch.train.events import Callback
     from diffusion_torch.train.optim import adamw, multi_step_with_warmup
@@ -717,10 +736,7 @@ def _train_phase(model, card: str):
         algorithms=[EMA(smoothing=0.9999, ema_start="0ba")],
         callbacks=[record], max_duration=f"{TRAIN_STEPS}ba",
         device_train_microbatch_size=TRAIN_MICRO, seed=17, device=dev)
-    counters = {"group_norm": gn.launches, "group_norm_bwd": gn.launches_bwd,
-                "flash_attention": fa.launches,
-                "flash_attention_bwd_dq": fa.launches_bwd_dq,
-                "flash_attention_bwd_dkv": fa.launches_bwd_dkv}
+    counters = _counters()
     for c in (*counters.values(), gn.contiguity_copies):
         c.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -771,7 +787,258 @@ def _train_phase(model, card: str):
         _check(n > 0, f"{name} kernel was not launched during the fit")
     del trainer
     _profile_phase(model, batches, card)
+    return launches, step_s
+
+
+def _counters() -> dict:
+    """The five kernels' launch counters, by the names of the JSON line."""
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+    return {"group_norm": gn.launches, "group_norm_bwd": gn.launches_bwd,
+            "flash_attention": fa.launches,
+            "flash_attention_bwd_dq": fa.launches_bwd_dq,
+            "flash_attention_bwd_dkv": fa.launches_bwd_dkv}
+
+
+class ComposedRecord:
+    """A callback for the composed run, named by a `_target_` in its
+    config: per step the metrics (synchronised), the step's end and the
+    wait on the dataloader; per eval its wall time (synchronised) and the
+    kernels' launches inside it."""
+
+    def __init__(self):
+        self.steps, self.waits, self.evals = [], [], []
+        self._t = self._got = self._launches = None
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+        name = event.value
+        if name == "before_dataloader":
+            self._t = time.perf_counter()
+        elif name == "after_dataloader":
+            self._got = time.perf_counter()
+            self.waits.append(self._got - self._t)
+        elif name == "batch_end":
+            metrics = {k: float(v) for k, v in state.metrics.items()}
+            now = time.perf_counter()
+            # the step's own time: from the batch in hand to its metrics
+            self.steps.append((metrics, now, state.lr, now - self._got))
+        elif name == "eval_start":
+            torch.cuda.synchronize()
+            self._t = time.perf_counter()
+            self._launches = {k: c.value for k, c in _counters().items()}
+        elif name == "eval_end":
+            torch.cuda.synchronize()
+            self.evals.append((state.timestamp.batch,
+                               time.perf_counter() - self._t,
+                               {k: c.value - self._launches[k]
+                                for k, c in _counters().items()}))
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass
+
+
+def _write_laion_shards(path: str, n: int, rng, size: int = TRAIN_SIZE,
+                        dim: int = 1024) -> int:
+    """LAION's MDS columns (`jpg`, `caption`, `latents_256` 4x32x32 fp16
+    NCHW, `caption_latents` 77x1024 fp16, at size 256) with the port's
+    MDSWriter, values from `rng`; returns the bytes written."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_torch.data.mds import MDSWriter
+    cols = {"jpg": "bytes", "caption": "str", f"latents_{size}": "bytes",
+            "caption_latents": "bytes"}
+    with MDSWriter(path, cols, size_limit=1 << 23) as w:
+        for i in range(n):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 255, (32, 32, 3), np.uint8)).save(
+                buf, format="JPEG")
+            w.write({"jpg": buf.getvalue(), "caption": f"sample {i}",
+                     f"latents_{size}": rng.standard_normal(
+                         (4, size // 8, size // 8)).astype(
+                             np.float16).tobytes(),
+                     "caption_latents": rng.standard_normal(
+                         (77, dim)).astype(np.float16).tobytes()})
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _composed_phase(card: str, train_step_s: float) -> dict:
+    """yamls/SD-2-base-256.yaml composed by the port's loader and run by
+    its `train(config)` over MDS shards written here; returns the five
+    kernels' launch counts during the run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.data import native
+    from diffusion_torch.train.train import train
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_laion_") as tmp:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(6)
+        train_dir, eval_dir = (os.path.join(tmp, d) for d in ("train", "eval"))
+        nbytes = (_write_laion_shards(train_dir, COMPOSED_TRAIN, rng),
+                  _write_laion_shards(eval_dir, COMPOSED_EVAL, rng))
+        print(f"composed: wrote {COMPOSED_TRAIN} training and {COMPOSED_EVAL}"
+              f" eval LAION samples ({nbytes[0] / 1e6:.1f} + "
+              f"{nbytes[1] / 1e6:.1f} MB of MDS shards) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        metrics_file = os.path.join(tmp, "metrics.jsonl")
+        overrides = [
+            f"batch_size={TRAIN_BATCH}",
+            f"dataset.train_dataset.remote={train_dir}",
+            f"dataset.train_dataset.local={train_dir}",
+            "dataset.train_dataset.num_workers=2",
+            "dataset.eval_dataset._target_="
+            "diffusion_tpu.data.laion.build_streaming_laion_dataloader",
+            f"dataset.eval_dataset.remote={eval_dir}",
+            f"dataset.eval_dataset.local={eval_dir}",
+            "+dataset.eval_dataset.precomputed_latents=true",
+            f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
+            f"dataset.eval_batch_size={TRAIN_BATCH}",
+            "dataset.eval_dataset.num_workers=2",
+            f"trainer.max_duration={TRAIN_STEPS}ba",
+            f"trainer.eval_interval={COMPOSED_EVAL_AT}ba",
+            "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
+            f"+logger.file.filename={metrics_file}",
+            f"+callbacks.chip_smoke._target_={__name__}.ComposedRecord"]
+        config = load_config(os.path.join(root, "yamls", "SD-2-base-256.yaml"),
+                             overrides)
+        print(f"composed: yamls/SD-2-base-256.yaml with {len(overrides)} "
+              f"dotted overrides: {' '.join(overrides)}")
+        # WandBLogger is a no-op without wandb; with it, it stays offline
+        os.environ.setdefault("WANDB_MODE", "disabled")
+        counters = _counters()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(metrics_file) as f:
+            records = [json.loads(line) for line in f]
+
+    record = next(c for c in trainer.engine.callbacks
+                  if type(c).__name__ == "ComposedRecord")
+    model = trainer.model
+    print(f"composed: model {type(model).__module__}.{type(model).__name__}, "
+          f"UNet {sum(p.numel() for p in model.unet.parameters()) / 1e6:.1f}M"
+          f" params, compute {model.unet.dtype}; loaders "
+          f"{type(trainer.train_dataloader).__module__} ({len(trainer.train_dataloader)}"
+          f" batches an epoch, {trainer.train_dataloader.worker_type} workers);"
+          f" algorithms {[type(a).__name__ for a in trainer.engine.algorithms]};"
+          f" libdataio: {native.build_info()}")
+    for i, (m, _, lr, own) in enumerate(record.steps):
+        print(f"composed: step {i}: loss {m['loss/train/total']:.6f}, grad "
+              f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+              f"{record.waits[i] * 1e3:.1f} ms on the dataloader, then "
+              f"{own * 1e3:.1f} ms to the step's metrics")
+    _check(trainer.state.timestamp.batch == TRAIN_STEPS
+           and len(record.steps) == TRAIN_STEPS,
+           "the composed run did not take its 6 batches")
+    _check(all(math.isfinite(v) for m, *_ in record.steps
+               for v in m.values()),
+           "a loss or grad norm of the composed run is not finite")
+    times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+    # the batch after the eval carries the eval: leave it out
+    train_times = [t for i, t in enumerate(times) if i + 1 != COMPOSED_EVAL_AT]
+    step_s = sum(train_times) / len(train_times)
+    waits = record.waits[1:]
+    wait_s = sum(waits) / len(waits)
+    owns = [st[3] for i, st in enumerate(record.steps)
+            if i and i != COMPOSED_EVAL_AT]
+    own_s = sum(owns) / len(owns)
+    print(f"composed: SD-2-base {TRAIN_SIZE}px from MDS shards, global batch "
+          f"{TRAIN_BATCH}: run {wall:.2f} s (composition and the model's "
+          f"build included); step time after the first {step_s * 1e3:.1f} ms"
+          f" (steps: {', '.join(f'{x * 1e3:.1f}' for x in times)} ms, the "
+          f"one after the eval left out), {TRAIN_BATCH / step_s:.2f} "
+          f"samples/s, against {train_step_s * 1e3:.1f} ms and "
+          f"{TRAIN_BATCH / train_step_s:.2f} samples/s from memory (phase "
+          f"7); dataloader wait {wait_s * 1e3:.1f} ms a step after the first "
+          f"({wait_s / step_s:.3f} of the step; first step "
+          f"{record.waits[0] * 1e3:.1f} ms, the workers' start), the step's "
+          f"own time (batch in hand to metrics) {own_s * 1e3:.1f} ms; peak "
+          f"device memory {peak:.2f} GiB [{card}]")
+    evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
+    _check(len(evals) == 1 and len(record.evals) == 1
+           and evals[0]["step"] == COMPOSED_EVAL_AT
+           and record.evals[0][0] == COMPOSED_EVAL_AT,
+           f"expected one eval after batch {COMPOSED_EVAL_AT}: {evals}")
+    mse = evals[0]["metrics/eval/MeanSquaredError"]
+    mse_bin = evals[0]["metrics/eval/MeanSquaredError/bin-0-1"]
+    _, eval_s, eval_launches = record.evals[0]
+    print(f"composed: eval after batch {COMPOSED_EVAL_AT}: MSE {mse:.6f}, "
+          f"bin 0-1 {mse_bin:.6f}, {COMPOSED_EVAL // TRAIN_BATCH} batches of "
+          f"{TRAIN_BATCH} in {eval_s * 1e3:.1f} ms [{card}]")
+    _check(math.isfinite(mse) and mse == mse_bin,
+           "the eval MSE is not finite or differs from its (0, 1) bin")
+    fit_launches = {k: launches[k] - eval_launches[k] for k in launches}
+    print(f"composed: kernel launches during the fit {json.dumps(fit_launches)}"
+          f" (per step " + json.dumps({k: v / TRAIN_STEPS for k, v in
+                                       fit_launches.items()})
+          + f"); during the eval {json.dumps(eval_launches)} (per eval batch "
+          + json.dumps({k: v / (COMPOSED_EVAL // TRAIN_BATCH)
+                        for k, v in eval_launches.items()}) + ")")
+    for name in launches:
+        _check(fit_launches[name] > 0,
+               f"{name} kernel was not launched during the composed fit")
+    for name in ("group_norm", "flash_attention"):
+        _check(eval_launches[name] > 0,
+               f"{name} kernel was not launched during the eval")
     return launches
+
+
+def _fp32_unet_phase(card: str) -> None:
+    """`encode_latents_in_fp16: false`: the fp32 full-width UNet's
+    attention runs on plain math on the card (the flash kernels take bf16
+    with head dim 64 only), and its output agrees with the same weights on
+    the CPU."""
+    import copy
+
+    import torch
+
+    from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+
+    model = stable_diffusion_2(precomputed_latents=True,
+                               encode_latents_in_fp16=False, device=DEVICE,
+                               seed=0)
+    gen = torch.Generator().manual_seed(7)
+    side = TRAIN_SIZE // 8
+    lat = torch.randn((1, 4, side, side), generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    t = torch.tensor([500])
+    ctx = torch.randn((1, 77, 1024), generator=gen)
+    fa.launches.reset()
+    gn.launches.reset()
+    with torch.inference_mode():
+        got = model.unet(lat.to(DEVICE), t.to(DEVICE), ctx.to(DEVICE))
+        torch.cuda.synchronize()
+        flash, norm = fa.launches.value, gn.launches.value
+        ref = copy.deepcopy(model.unet).to("cpu")
+        want = ref(lat, t, ctx)
+    err = _rel_l2(got, want)
+    finite = bool(torch.isfinite(got).all())
+    print(f"fp32 UNet: encode_latents_in_fp16=false, compute "
+          f"{model.unet.dtype}, {TRAIN_SIZE}px batch 1 forward on the card: "
+          f"{tuple(got.shape)}, finite {finite}, flash launches {flash}, "
+          f"GroupNorm launches {norm}; against fp32 on the CPU relative L2 "
+          f"error {err:.3e} (bound 1e-3) [{card}]")
+    _check(finite and flash == 0 and norm > 0 and err <= 1e-3,
+           "the fp32 UNet did not run its attention on plain math, or "
+           "disagrees with the CPU")
 
 
 _CATEGORIES = (   # kernel-name patterns, first match wins
@@ -941,6 +1208,11 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}); nvidia-smi: {card}")
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    import PIL
+    import yaml
+    print(f"host: PyYAML {yaml.__version__} (the config loader), Pillow "
+          f"{PIL.__version__} (JPEG decode), g++ {shutil.which('g++')} "
+          f"(libdataio)")
 
     # 2. build (the parent's dQ kernel alongside, where a parent tree is
     # given)
@@ -1079,8 +1351,16 @@ def main(argv=None) -> int:
     print(f"train: SD-2-base training model built in "
           f"{time.perf_counter() - t0:.1f} s (UNet only, trainable)")
     _grad_reference_phase(train_model, card)
-    train_launches = _train_phase(train_model, card)
+    train_launches, train_step_s = _train_phase(train_model, card)
     del train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8-9. the composed run, and the fp32 UNet
+    composed_launches = _composed_phase(card, train_step_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _fp32_unet_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
@@ -1106,7 +1386,8 @@ def main(argv=None) -> int:
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches.get(name, 0) + train_launches[name],
+            "launches": (launches.get(name, 0) + train_launches[name]
+                         + composed_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

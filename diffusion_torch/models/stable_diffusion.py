@@ -59,6 +59,13 @@ class StableDiffusion:
     latent_scale: float = 0.18215
     precomputed_latents: bool = False
     val_seed: int = 1138
+    # eval loss bins: [lo, hi) fractions of the training timesteps
+    loss_bins: Tuple[Tuple[float, float], ...] = ((0, 1),)
+    train_metric_names: Tuple[str, ...] = ("MeanSquaredError",)
+    val_metric_names: Tuple[str, ...] = ("MeanSquaredError",)
+    # recorded for the trainer, as the JAX package records it; sharding
+    # comes with multi-device training (ROADMAP.md queue 1 item 9)
+    fsdp: bool = True
 
     @property
     def device(self) -> torch.device:

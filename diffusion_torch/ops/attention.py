@@ -3,10 +3,12 @@
 Counterpart of `diffusion_tpu/ops/attention.py` without the sequence- and
 tensor-parallel contexts. Every entry point takes (B, S, H, D) q/k/v. The
 eligibility rule is the JAX one, with "the backend is a TPU" read as "the
-tensor lies on a CUDA device": at 512px the UNet's S=4096 and S=1024
-self-attention run the kernel; cross-attention (77 keys), the S=256 and S=64
-stages and CLIP's masked attention stay on plain torch math (a matmul, a
-softmax and a matmul).
+tensor lies on a CUDA device", plus what the CUDA kernels take: bf16 q/k/v
+with head dim 64. At 512px the bf16 UNet's S=4096 and S=1024
+self-attention run the kernel; cross-attention (77 keys), the S=256 and
+S=64 stages, CLIP's masked attention, and every fp32, fp16 or head-dim-128
+call stay on plain torch math (a matmul, a softmax and a matmul), which
+computes the same function (the JAX kernel runs in any dtype).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from diffusion_torch.ops.flash_attention import flash_attention
 
-__all__ = ["multi_head_attention"]
+__all__ = ["multi_head_attention", "flash_eligible"]
 
 
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,14 +43,20 @@ def _shape_eligible(q_shape: Sequence[int], k_shape: Sequence[int]) -> bool:
             and q_shape[1] % 128 == 0 and k_shape[1] % 128 == 0)
 
 
-def _flash_eligible(q: torch.Tensor, k: torch.Tensor,
-                    mask: Optional[torch.Tensor]) -> bool:
-    return mask is None and q.is_cuda and _shape_eligible(q.shape, k.shape)
+def flash_eligible(device_type: str, dtype: torch.dtype,
+                   q_shape: Sequence[int], k_shape: Sequence[int],
+                   masked: bool) -> bool:
+    """Whether (B, S, H, D) attention goes to the flash kernel: unmasked,
+    on a CUDA device, in bf16 with head dim 64 (the kernels' one case), at
+    a shape the JAX rule sends to its kernel."""
+    return (not masked and device_type == "cuda" and dtype == torch.bfloat16
+            and q_shape[-1] == 64 and _shape_eligible(q_shape, k_shape))
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, S, H, D) tensors."""
-    if _flash_eligible(q, k, mask):
+    if flash_eligible(q.device.type, q.dtype, q.shape, k.shape,
+                      mask is not None):
         return flash_attention(q, k, v)[0]
     return _xla_attention(q, k, v, mask)

@@ -50,6 +50,9 @@ class State:
     loss: Optional[torch.Tensor] = None
     lr: Optional[float] = None
     metrics: Optional[Dict[str, torch.Tensor]] = None
+    # eval transient fields
+    eval_label: Optional[str] = None
+    eval_batch_idx: int = 0
     # wall-clock scratch for monitors
     batch_wct: float = 0.0
     total_wct: float = 0.0

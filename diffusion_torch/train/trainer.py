@@ -1,8 +1,8 @@
-"""The single-device Trainer: grad accumulation, AdamW, EMA, events.
+"""The single-device Trainer: grad accumulation, AdamW, EMA, events, eval.
 
 Counterpart of `diffusion_tpu/train/trainer.py` (`_init_device_state`,
-`_make_train_step`, `fit`), with the JAX constructor's names. One training
-batch is one step:
+`_make_train_step`, `fit`, `eval`), with the JAX constructor's names. One
+training batch is one step:
 
 - the batch splits into `grad_accum_steps` microbatches (Composer's ceil
   rule: a microbatch never exceeds `device_train_microbatch_size`); each
@@ -21,17 +21,28 @@ batch is one step:
   and, when skipping is on, `trainer/nonfinite_skipped`; `lr` is logged
   from the schedule at the trainer step, as JAX logs it.
 
+Eval runs after batch `b` when `b % eval_interval == 0` and `b` is not the
+last, and on `eval()`. Each evaluator's loader restarts at epoch 0 and is
+cut at `eval_subset_num_batches`; under EVAL_START/EVAL_END (the EMA swaps
+its weights in and out) and `torch.no_grad()`, each batch's per-example
+MSE and the `MeanSquaredError/bin-lo-hi` timestep masks of the model's
+`loss_bins` are summed as numerator/denominator pairs and logged as
+`metrics/<label>/<name>`. Eval timesteps and noise come from a generator
+derived from the model's `val_seed` and the batch index, unless
+`eval_noise_hook(batch_index, batch) -> (noise, timesteps)` hands them over.
+
 Runs on `device` (CUDA unless the caller asks for the CPU; it raises where
-CUDA is missing), which must be the model's. A mesh, evaluators,
-checkpoints and resuming raise NotImplementedError naming their ROADMAP.md
-items.
+CUDA is missing), which must be the model's. A mesh or more than one
+process, checkpoints and resuming raise NotImplementedError naming their
+ROADMAP.md items; `fsdp_config`, `image_size`, `save_interval`,
+`save_overwrite` and `precision` are recorded.
 """
 
 from __future__ import annotations
 
 import time as _time
-from typing import (Any, Callable, Dict, Iterable, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -42,15 +53,28 @@ from diffusion_torch.train.events import Algorithm, Callback, Event, EventEngine
 from diffusion_torch.train.optim import (build_optimizer, constant_scheduler,
                                          global_norm)
 from diffusion_torch.train.state import State, TrainState
-from diffusion_torch.utils.device import Device, resolve_device
+from diffusion_torch.utils.device import Device, rank_and_world, resolve_device
 from diffusion_torch.utils.logging import (ConsoleLogger, Logger,
                                            LoggerCollection)
 from diffusion_torch.utils.time import Time, Timestamp, time_to_batches
 
-__all__ = ["Trainer", "grad_accum_steps"]
+__all__ = ["Trainer", "Evaluator", "grad_accum_steps"]
 
 NoiseHook = Callable[[int, int, int, Dict[str, torch.Tensor]],
                      Tuple[torch.Tensor, torch.Tensor]]
+EvalNoiseHook = Callable[[int, Dict[str, torch.Tensor]],
+                         Tuple[torch.Tensor, torch.Tensor]]
+
+
+class Evaluator:
+    """(label, dataloader, metric names) bundle (reference train.py:48-59
+    builds composer Evaluators from the `evaluators` config dict)."""
+
+    def __init__(self, label: str, dataloader: Iterable,
+                 metric_names: Sequence[str] = ()):
+        self.label = label
+        self.dataloader = dataloader
+        self.metric_names = tuple(metric_names)
 
 
 def grad_accum_steps(global_batch: int, micro: int) -> int:
@@ -72,7 +96,7 @@ class Trainer:
         self,
         model: Any,
         train_dataloader: Optional[Iterable] = None,
-        eval_dataloader: Optional[Iterable] = None,
+        eval_dataloader: Union[None, Iterable, Sequence[Evaluator]] = None,
         optimizers: Optional[dict] = None,
         schedulers: Optional[Callable[[int], float]] = None,
         loggers: Union[None, Logger, Sequence[Logger]] = None,
@@ -80,24 +104,32 @@ class Trainer:
         callbacks: Optional[Sequence[Callback]] = None,
         *,
         max_duration: Union[str, int] = "1ba",
+        eval_interval: Union[str, int] = "10000ba",
         device_train_microbatch_size: Optional[int] = None,
         run_name: str = "run",
         seed: int = 17,
         scale_schedule_ratio: float = 1.0,
         save_folder: Optional[str] = None,
+        save_interval: Union[str, int] = "10000ba",
+        save_overwrite: bool = True,
         autoresume: bool = False,
         load_path: Optional[str] = None,
         skip_nonfinite_updates: bool = False,
+        eval_subset_num_batches: int = -1,
         mesh: Any = None,
         mesh_config: Optional[dict] = None,
+        fsdp_config: Optional[dict] = None,
+        image_size: int = 256,
         grad_clip_norm: Optional[float] = None,
         batches_per_epoch: Optional[int] = None,
         device: Device = None,
+        precision: str = "amp_bf16",
+        progress_bar: bool = False,
         log_to_console: bool = False,
         noise_hook: Optional[NoiseHook] = None,
+        eval_noise_hook: Optional[EvalNoiseHook] = None,
     ):
-        if eval_dataloader is not None:
-            raise _unported("evaluators", 3, "the eval loop")
+        del progress_bar  # yaml parity; the trainer prints no bar
         if save_folder:
             raise _unported("save_folder", 4, "checkpoints and pretrained "
                             "weights")
@@ -106,6 +138,9 @@ class Trainer:
                             "pretrained weights")
         if mesh is not None or mesh_config:
             raise _unported("a device mesh", 9, "multi-device")
+        if rank_and_world()[1] > 1:
+            raise _unported("training on more than one process "
+                            "(fsdp_config)", 9, "multi-device")
         device = resolve_device(device)
         if model.device.type != device.type or (
                 device.index is not None and model.device != device):
@@ -120,8 +155,18 @@ class Trainer:
         self.scale_schedule_ratio = float(scale_schedule_ratio)
         self.max_batches = int(self.scale_schedule_ratio * time_to_batches(
             self.max_duration, self.max_duration, batches_per_epoch or 0))
+        self.eval_interval = time_to_batches(eval_interval, self.max_duration,
+                                             batches_per_epoch or 0)
+        self.eval_subset_num_batches = eval_subset_num_batches
+        self.save_interval = time_to_batches(save_interval, self.max_duration,
+                                             batches_per_epoch or 0)
+        self.save_overwrite = save_overwrite
+        self.fsdp_config = fsdp_config
+        self.image_size = image_size
+        self.precision = precision
         self.skip_nonfinite_updates = skip_nonfinite_updates
         self.noise_hook = noise_hook
+        self.eval_noise_hook = eval_noise_hook
 
         if loggers is None:
             loggers = [ConsoleLogger(log_interval=100)] if log_to_console else []
@@ -131,6 +176,16 @@ class Trainer:
         self.engine = EventEngine(algorithms or [], callbacks or [])
         self.ema_algorithm: Optional[EMA] = next(
             (a for a in self.engine.algorithms if isinstance(a, EMA)), None)
+
+        if eval_dataloader is None:
+            self.evaluators: List[Evaluator] = []
+        elif isinstance(eval_dataloader, (list, tuple)) and eval_dataloader \
+                and isinstance(eval_dataloader[0], Evaluator):
+            self.evaluators = list(eval_dataloader)
+        else:
+            self.evaluators = [Evaluator(
+                "eval", eval_dataloader,
+                getattr(model, "val_metric_names", ("MeanSquaredError",)))]
 
         self._init_device_state(optimizers, schedulers, grad_clip_norm,
                                 device_train_microbatch_size)
@@ -163,9 +218,10 @@ class Trainer:
         self.train_state = TrainState(step=0, params=params,
                                       optimizer=optimizer, ema_params=ema)
 
-    def _generator(self, step: int) -> torch.Generator:
-        """The step's generator: its seed mixes the run seed and the step."""
-        mixed = np.random.SeedSequence([self.seed, step]).generate_state(
+    def _generator(self, seed: int, index: int) -> torch.Generator:
+        """A generator for (seed, index), e.g. the run seed and the step,
+        or `val_seed` and the eval batch."""
+        mixed = np.random.SeedSequence([seed, index]).generate_state(
             1, np.uint64)[0]
         return torch.Generator(device=self.device).manual_seed(
             int(mixed) & (2 ** 63 - 1))
@@ -178,7 +234,7 @@ class Trainer:
         n_accum = (grad_accum_steps(global_batch, self.micro_size)
                    if self.micro_size else 1)
         micro = global_batch // n_accum
-        gen = self._generator(ts.step)
+        gen = self._generator(self.seed, ts.step)
         for p in params:
             p.grad = None
         loss = torch.zeros((), device=self.device)
@@ -215,10 +271,14 @@ class Trainer:
         ts.step += 1
         return metrics
 
+    def _to_device(self, host_batch: Mapping[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in host_batch.items()}
+
     def _device_batches(self) -> Iterable[Tuple[Dict[str, torch.Tensor], int]]:
         for host_batch in self.train_dataloader:
-            batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                     for k, v in host_batch.items()}
+            batch = self._to_device(host_batch)
             yield batch, int(next(iter(batch.values())).shape[0])
 
     # ------------------------------------------------------------------
@@ -272,6 +332,9 @@ class Trainer:
                     logger.log_metrics(
                         {k: float(v) for k, v in metrics.items()}
                         | {"lr": state.lr, "time/batch": b}, step=b)
+                if self.eval_interval and b % self.eval_interval == 0 \
+                        and b < self.max_batches and self.evaluators:
+                    self.eval()
                 self.engine.run(Event.BATCH_CHECKPOINT, state, logger)
             if not epoch_had_batches:
                 raise RuntimeError("train_dataloader yielded no batches")
@@ -282,5 +345,69 @@ class Trainer:
         self.engine.run(Event.FIT_END, state, logger)
         logger.flush()
 
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _eval_step(self, batch: Dict[str, torch.Tensor], index: int
+                   ) -> Dict[str, Tuple[float, float]]:
+        """(numerator, denominator) of the MSE and of each loss bin's MSE
+        over one batch: per-example means of the squared error."""
+        model = self.model
+        num_t = model.noise_scheduler.num_train_timesteps
+        noise = timesteps = gen = None
+        if self.eval_noise_hook is not None:
+            noise, timesteps = self.eval_noise_hook(index, batch)
+        else:
+            gen = self._generator(model.val_seed, index)
+        pred, target, t = model.forward(batch, gen, noise, timesteps)
+        err = torch.square(pred.float() - target.float())
+        per_example = err.mean(dim=tuple(range(1, err.ndim)))
+        out = {"MeanSquaredError": (float(per_example.sum()),
+                                    float(per_example.numel()))}
+        for lo, hi in model.loss_bins:
+            mask = ((t >= lo * num_t) & (t < hi * num_t)).float()
+            out[f"MeanSquaredError/bin-{lo}-{hi}"] = (
+                float((per_example * mask).sum()), float(mask.sum()))
+        return out
+
+    def eval(self, subset_num_batches: Optional[int] = None
+             ) -> Dict[str, float]:
+        state, logger = self.state, self.logger
+        limit = subset_num_batches if subset_num_batches is not None \
+            else self.eval_subset_num_batches
+        self.engine.run(Event.EVAL_START, state, logger)
+        results: Dict[str, float] = {}
+        self.model.unet.eval()
+        for evaluator in self.evaluators:
+            accum: Dict[str, Tuple[float, float]] = {}
+            state.eval_label = evaluator.label
+            # every eval scores the same slice of the eval set: a prior
+            # subset-limited pass left the loader mid-epoch
+            dl = evaluator.dataloader
+            if hasattr(dl, "load_state_dict"):
+                dl.load_state_dict({"epoch": 0, "batch_in_epoch": 0})
+            for i, host_batch in enumerate(dl):
+                if limit and limit > 0 and i >= limit:
+                    break
+                state.eval_batch_idx = i
+                batch = self._to_device(host_batch)
+                state.batch = batch
+                self.engine.run(Event.EVAL_BATCH_START, state, logger)
+                for name, (num, den) in self._eval_step(batch, i).items():
+                    a, b = accum.get(name, (0.0, 0.0))
+                    accum[name] = (a + num, b + den)
+                self.engine.run(Event.EVAL_BATCH_END, state, logger)
+            for name, (num, den) in accum.items():
+                if den > 0:
+                    results[f"metrics/{evaluator.label}/{name}"] = num / den
+        logger.log_metrics(results, step=state.timestamp.batch)
+        self.engine.run(Event.EVAL_END, state, logger)
+        return results
+
     def close(self) -> None:
         self.logger.close()
+        # persistent-worker loaders keep a process or thread pool alive
+        for loader in [self.train_dataloader] + [
+                e.dataloader for e in self.evaluators]:
+            close_fn = getattr(loader, "close", None)
+            if callable(close_fn):
+                close_fn()

@@ -1,8 +1,8 @@
-"""Logger destinations: console and JSON-lines file.
+"""Logger destinations: console, JSON-lines file and WandB.
 
-A copy of the Logger, ConsoleLogger, FileLogger and LoggerCollection part
-of `diffusion_tpu/utils/logging.py`, which imports no jax: the port imports
-nothing of the JAX package. The WandB logger is not ported.
+A copy of the Logger, ConsoleLogger, FileLogger, WandBLogger and
+LoggerCollection part of `diffusion_tpu/utils/logging.py`, which imports no
+jax: the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +13,10 @@ import sys
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
-__all__ = ["Logger", "ConsoleLogger", "FileLogger", "LoggerCollection"]
+import numpy as np
+
+__all__ = ["Logger", "ConsoleLogger", "FileLogger", "WandBLogger",
+           "LoggerCollection"]
 
 
 class Logger:
@@ -83,6 +86,45 @@ class FileLogger(Logger):
     def close(self):
         if not self._f.closed:
             self._f.close()
+
+
+class WandBLogger(Logger):
+    """WandB destination (reference train.py:74-82 injects token/host/mode via
+    env vars; same here — WANDB_API_KEY/WANDB_MODE). No-ops if wandb is not
+    installed, and says so on stderr."""
+
+    def __init__(self, name: Optional[str] = None, project: Optional[str] = None,
+                 group: Optional[str] = None, config: Optional[dict] = None,
+                 **init_kwargs):
+        try:
+            import wandb
+        except ImportError:
+            self._run = None
+            print("WandBLogger: wandb not installed; logging disabled",
+                  file=sys.stderr)
+            return
+        self._wandb = wandb
+        self._run = wandb.init(name=name, project=project, group=group,
+                               config=config, **init_kwargs)
+
+    def log_metrics(self, metrics, step=None):
+        if self._run:
+            self._run.log({k: _scalarize(v) for k, v in metrics.items()}, step=step)
+
+    def log_hyperparameters(self, params):
+        if self._run:
+            self._run.config.update(params, allow_val_change=True)
+
+    def log_images(self, images, name="image", step=None, **kwargs):
+        if self._run:
+            imgs = np.asarray(images)
+            if imgs.ndim == 3:
+                imgs = imgs[None]
+            self._run.log({name: [self._wandb.Image(i) for i in imgs]}, step=step)
+
+    def close(self):
+        if self._run:
+            self._run.finish()
 
 
 class LoggerCollection(Logger):

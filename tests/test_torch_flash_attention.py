@@ -2,7 +2,8 @@
 the CPU runs), and its dispatch rule against the JAX package:
 `flash_attention_with_lse` and `flash_attention_bwd_with_lse` with the
 Pallas kernels in interpret mode, `jax.vjp` of `_xla_attention`, and
-`_flash_eligible`."""
+`_flash_eligible` (with the kernels' dtype and head dim,
+`tests/test_torch_attention_dispatch.py`)."""
 
 import types
 
@@ -88,9 +89,9 @@ def test_dispatch_rule_matches_jax(monkeypatch, q_shape, k_shape):
     assert tattn._shape_eligible(q_shape, k_shape) == want
     assert not jattn._flash_eligible(q, k, object())
     # a tensor that is not on CUDA never takes the kernel, masked or not
-    tq = torch.empty(q_shape, device="meta")
-    tk = torch.empty(k_shape, device="meta")
-    assert not tattn._flash_eligible(tq, tk, None)
+    for device_type in ("meta", "cpu"):
+        assert not tattn.flash_eligible(device_type, torch.bfloat16, q_shape,
+                                        k_shape, False)
 
 
 def test_dispatch_by_device():

@@ -495,3 +495,40 @@ def test_tiny_trainer_on_card_matches_cpu(cuda):
     for name, want in params[0].items():
         torch.testing.assert_close(params[1][name], want, atol=1e-6,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 1024, 5, 64)),    # fp32 SD2 first stage at 256px
+    (torch.float32, (1, 4096, 5, 64)),    # fp32 SD2 first stage at 512px
+    (torch.float32, (2, 1024, 5, 128)),
+    (torch.bfloat16, (2, 1024, 5, 128)),  # head dim 128
+    (torch.float16, (2, 1024, 5, 64)),
+])
+def test_attention_dispatch_takes_plain_math_where_no_kernel(cuda, dtype,
+                                                             shape):
+    """What the flash kernels do not take (fp32, fp16, head dim 128) runs
+    on plain math on the card without a launch, and matches it."""
+    from diffusion_torch.ops import attention as attn
+    q, k, v = (_randn(shape, s, dtype, cuda) for s in range(3))
+    before = fa.launches.value
+    out = attn.multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches.value == before
+    assert out.dtype == dtype and out.shape == q.shape
+    want = attn._xla_attention(q, k, v, None)
+    assert torch.equal(out, want)
+    ref = torch.nn.functional.scaled_dot_product_attention(
+        *(t.double().transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.double(), ref, atol=tol, rtol=tol)
+
+
+def test_attention_dispatch_launches_the_kernel_in_bf16(cuda):
+    from diffusion_torch.ops import attention as attn
+    q, k, v = (_randn((2, 1024, 5, 64), s, torch.bfloat16, cuda)
+               for s in range(3))
+    before = fa.launches.value
+    out = attn.multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches.value == before + 1
+    _assert_flash_out_close(out, fa.flash_attention_reference(q, k, v)[0])

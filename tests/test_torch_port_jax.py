@@ -67,8 +67,9 @@ def test_clip_text_round_trip():
 
 
 def test_port_imports_no_jax():
-    """Every diffusion_torch module, the training slice's included, imports
-    without pulling in jax/flax/optax or any module of the JAX package."""
+    """Every diffusion_torch module, the training slice's and the composed
+    run's included, imports without pulling in jax/flax/optax or any module
+    of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffusion_torch\n"
@@ -86,9 +87,12 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     seen = set(proc.stdout.split())
-    # the training slice's modules among them
+    # the training slice's modules among them, and the composed run's
     assert {f"diffusion_torch.{m}" for m in (
         "train.trainer", "train.optim", "train.state", "train.events",
         "algorithms.ema", "utils.time", "utils.logging", "utils.device",
-        "ops.flash_attention", "ops.groupnorm")} <= seen
-    assert len(seen) >= 25                          # every module was seen
+        "ops.flash_attention", "ops.groupnorm", "config.loader",
+        "data.dataloader", "data.laion", "data.coco", "data.native",
+        "metrics.mse", "callbacks.monitors", "algorithms.low_precision",
+        "train.train", "run")} <= seen
+    assert len(seen) >= 50                          # every module was seen

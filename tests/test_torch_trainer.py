@@ -188,7 +188,7 @@ def test_trainer_refuses_what_is_not_ported():
     model = stable_diffusion_tiny(device="cpu", precomputed_latents=True)
     for kwargs, item in (({"save_folder": "x"}, "item 4"),
                          ({"load_path": "x"}, "item 4"),
-                         ({"eval_dataloader": []}, "item 3"),
+                         ({"autoresume": True}, "item 4"),
                          ({"mesh_config": {"fsdp": 1}}, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(model=model, device="cpu", **kwargs)
