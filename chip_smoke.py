@@ -61,7 +61,32 @@ Phases, each raising on failure (exit code 1):
   9. fp32 UNet: `encode_latents_in_fp16: false` builds an fp32 full-width
      UNet; one 256px batch-1 forward on the card runs its attention on
      plain math (the flash counter stays 0) and agrees with the same
-     weights on the CPU.
+     weights on the CPU;
+ 10. checkpoint: first the free disk space under build/, which must hold
+     the phase's peak (two fp32 checkpoints of params, mu and nu, about
+     10.4 GB each, and a 2.5 GB fp16 pretrained directory; it fails,
+     naming the need, when it is short), in a temporary directory there
+     that is deleted at the end. Phase 8's composed run again, plus
+     `trainer.save_folder`, `save_interval=3ba` and
+     `save_num_checkpoints_to_keep=1`: run 1 gets a SIGTERM after batch
+     3 (a `Preempt` callback) and must leave fit() with ba3 saved (async:
+     pinned host buffer, then a writer thread); run 2 adds
+     `trainer.autoresume=true`, and a `ResumeCheck` callback holds the
+     restored parameters, moments, count, step and timestamp against run
+     1's live trainer with torch.equal before any step; run 2's batches
+     4-6 must be within 1e-3 (relative) of phase 8's losses and grad
+     norms, with a line saying whether they are bit-equal (and, if not,
+     which backward ops are not deterministic); ba6 must be complete and
+     ba3 pruned. Then a step right after an async save beside one
+     without, and the restore's time alone. Last, a full-width fp16
+     diffusers directory (unet/, vae/ decoder, text_encoder/) written
+     from seeded random modules by the port's safetensors writer; the
+     endpoint built from it with `pretrained=True` and
+     `checkpoint_path=ba6` must hold ba6's UNet and the fp16 towers in
+     fp32 exactly, and serve one 512px request over HTTP (200, a 512x512
+     PNG, finite latents, GroupNorm and flash launches). Sizes, copy,
+     write and restore times and rates, the request's latency and the
+     free disk space are printed with the card's name and power limit.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -100,6 +125,7 @@ TRAIN_STEPS = 6
 COMPOSED_TRAIN, COMPOSED_EVAL = 256, 64   # samples (8 and 2 batches of 32)
 COMPOSED_EVAL_AT = 3                      # trainer.eval_interval, batches
 DEVICE = "cuda:0"
+_ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM peaks (data sheet; dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -866,51 +892,58 @@ def _write_laion_shards(path: str, n: int, rng, size: int = TRAIN_SIZE,
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def _composed_phase(card: str, train_step_s: float) -> dict:
+def _composed_overrides(tmp: str, phase: str, metrics_file: str) -> list:
+    """Write the composed run's LAION shards under `tmp` (the same bytes
+    on every call: a numpy seed) and return the dotted overrides that
+    point yamls/SD-2-base-256.yaml at them: global batch 32, 6 batches,
+    an eval after batch 3, a FileLogger and the ComposedRecord callback."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    train_dir, eval_dir = (os.path.join(tmp, d) for d in ("train", "eval"))
+    nbytes = (_write_laion_shards(train_dir, COMPOSED_TRAIN, rng),
+              _write_laion_shards(eval_dir, COMPOSED_EVAL, rng))
+    print(f"{phase}: wrote {COMPOSED_TRAIN} training and {COMPOSED_EVAL}"
+          f" eval LAION samples ({nbytes[0] / 1e6:.1f} + "
+          f"{nbytes[1] / 1e6:.1f} MB of MDS shards) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [
+        f"batch_size={TRAIN_BATCH}",
+        f"dataset.train_dataset.remote={train_dir}",
+        f"dataset.train_dataset.local={train_dir}",
+        "dataset.train_dataset.num_workers=2",
+        "dataset.eval_dataset._target_="
+        "diffusion_tpu.data.laion.build_streaming_laion_dataloader",
+        f"dataset.eval_dataset.remote={eval_dir}",
+        f"dataset.eval_dataset.local={eval_dir}",
+        "+dataset.eval_dataset.precomputed_latents=true",
+        f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
+        f"dataset.eval_batch_size={TRAIN_BATCH}",
+        "dataset.eval_dataset.num_workers=2",
+        f"trainer.max_duration={TRAIN_STEPS}ba",
+        f"trainer.eval_interval={COMPOSED_EVAL_AT}ba",
+        "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
+        f"+logger.file.filename={metrics_file}",
+        f"+callbacks.chip_smoke._target_={__name__}.ComposedRecord"]
+
+
+def _composed_phase(card: str, train_step_s: float):
     """yamls/SD-2-base-256.yaml composed by the port's loader and run by
     its `train(config)` over MDS shards written here; returns the five
-    kernels' launch counts during the run."""
+    kernels' launch counts during the run and each step's metrics."""
     import tempfile
 
-    import numpy as np
     import torch
 
     from diffusion_torch.config import load_config
     from diffusion_torch.data import native
     from diffusion_torch.train.train import train
 
-    root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_laion_") as tmp:
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(6)
-        train_dir, eval_dir = (os.path.join(tmp, d) for d in ("train", "eval"))
-        nbytes = (_write_laion_shards(train_dir, COMPOSED_TRAIN, rng),
-                  _write_laion_shards(eval_dir, COMPOSED_EVAL, rng))
-        print(f"composed: wrote {COMPOSED_TRAIN} training and {COMPOSED_EVAL}"
-              f" eval LAION samples ({nbytes[0] / 1e6:.1f} + "
-              f"{nbytes[1] / 1e6:.1f} MB of MDS shards) in "
-              f"{time.perf_counter() - t0:.1f} s")
         metrics_file = os.path.join(tmp, "metrics.jsonl")
-        overrides = [
-            f"batch_size={TRAIN_BATCH}",
-            f"dataset.train_dataset.remote={train_dir}",
-            f"dataset.train_dataset.local={train_dir}",
-            "dataset.train_dataset.num_workers=2",
-            "dataset.eval_dataset._target_="
-            "diffusion_tpu.data.laion.build_streaming_laion_dataloader",
-            f"dataset.eval_dataset.remote={eval_dir}",
-            f"dataset.eval_dataset.local={eval_dir}",
-            "+dataset.eval_dataset.precomputed_latents=true",
-            f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
-            f"dataset.eval_batch_size={TRAIN_BATCH}",
-            "dataset.eval_dataset.num_workers=2",
-            f"trainer.max_duration={TRAIN_STEPS}ba",
-            f"trainer.eval_interval={COMPOSED_EVAL_AT}ba",
-            "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
-            f"+logger.file.filename={metrics_file}",
-            f"+callbacks.chip_smoke._target_={__name__}.ComposedRecord"]
-        config = load_config(os.path.join(root, "yamls", "SD-2-base-256.yaml"),
-                             overrides)
+        overrides = _composed_overrides(tmp, "composed", metrics_file)
+        config = load_config(os.path.join(_ROOT, "yamls",
+                                          "SD-2-base-256.yaml"), overrides)
         print(f"composed: yamls/SD-2-base-256.yaml with {len(overrides)} "
               f"dotted overrides: {' '.join(overrides)}")
         # WandBLogger is a no-op without wandb; with it, it stays offline
@@ -996,7 +1029,7 @@ def _composed_phase(card: str, train_step_s: float) -> dict:
     for name in ("group_norm", "flash_attention"):
         _check(eval_launches[name] > 0,
                f"{name} kernel was not launched during the eval")
-    return launches
+    return launches, [m for m, *_ in record.steps]
 
 
 def _fp32_unet_phase(card: str) -> None:
@@ -1039,6 +1072,454 @@ def _fp32_unet_phase(card: str) -> None:
     _check(finite and flash == 0 and norm > 0 and err <= 1e-3,
            "the fp32 UNet did not run its attention on plain math, or "
            "disagrees with the CPU")
+
+
+class Preempt:
+    """A callback for the checkpoint phase's first run: sends this process
+    a SIGTERM at the end of batch `at`, as a scheduler does ahead of a
+    preemption."""
+
+    def __init__(self, at: int):
+        self.at = int(at)
+
+    def run_event(self, event, state, logger) -> None:
+        if event.value == "batch_end" and state.timestamp.batch == self.at:
+            import signal
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass
+
+
+class ResumeCheck:
+    """A callback for the checkpoint phase's second run: when its fit
+    starts, right after the restore and before any step, the restored
+    parameters, moments, count, step and timestamp must equal `live`'s
+    (the first run's trainer, still on the card) exactly."""
+
+    live = None      # set by the phase, cleared after the run
+    result = None
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+        if event.value != "fit_start":
+            return
+        live = type(self).live.train_state
+        ts = state.train_state
+        t0 = time.perf_counter()
+        bad = [n for n, p in live.params.items()
+               if not torch.equal(p, ts.params[n])]
+        for key in ("mu", "nu"):
+            bad += [f"{key}[{i}]" for i, (a, b) in enumerate(zip(
+                getattr(live.optimizer, key), getattr(ts.optimizer, key)))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+        type(self).result = {
+            "tensors": len(live.params) * 3, "unequal": bad,
+            "step": (ts.step, live.step),
+            "count": (ts.optimizer.count, live.optimizer.count),
+            "timestamp": (state.timestamp.state_dict(),
+                          type(self).live.state.timestamp.state_dict()),
+            "seconds": time.perf_counter() - t0}
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass
+
+
+def _sd2_sizes() -> tuple:
+    """Parameter counts of the full-width UNet, VAE decoder and CLIP text
+    tower, from modules on the meta device (no memory, no weights)."""
+    import torch
+
+    from diffusion_torch.models.clip import SD2_TEXT_CONFIG, CLIPTextModel
+    from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition
+    from diffusion_torch.models.vae import SD2_VAE, AutoencoderKL
+    with torch.device("meta"):
+        return tuple(sum(p.numel() for p in m.parameters()) for m in (
+            UNet2DCondition(SD2_BASE_UNET), AutoencoderKL(SD2_VAE),
+            CLIPTextModel(SD2_TEXT_CONFIG)))
+
+
+def _checkpoint_disk_need(n_unet: int, n_vae: int, n_text: int,
+                          shard_bytes: int = 60 * 10 ** 6) -> dict:
+    """Bytes the checkpoint phase holds on disk at its peak: two
+    checkpoints (fp32 params, mu and nu of the UNet; the yaml has no EMA)
+    until the newer one is marked and the older pruned, the fp16
+    pretrained directory (UNet, VAE decoder, CLIP text) and the MDS
+    shards."""
+    ckpt = 3 * 4 * n_unet
+    pretrained = 2 * (n_unet + n_vae + n_text)
+    return {"checkpoint": ckpt, "pretrained": pretrained,
+            "shards": shard_bytes, "need": 2 * ckpt + pretrained + shard_bytes}
+
+
+def _check_disk(path: str, need: int) -> int:
+    """The free bytes under `path`; fails, naming the need, below it."""
+    free = shutil.disk_usage(path).free
+    _check(free >= need, f"the checkpoint phase needs {need / 1e9:.1f} GB "
+           f"free under {path} (two SD-2-base checkpoints and an fp16 "
+           f"pretrained directory); {free / 1e9:.1f} GB are free")
+    return free
+
+
+def _determinism_report(card: str) -> None:
+    """Run each backward op of the training step twice on the same inputs
+    and say which ones do not give the same bits: the three backward
+    kernels, and cuDNN's convolution and cuBLAS's GEMM backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_torch.ops.flash_attention import flash_attention
+    from diffusion_torch.ops.groupnorm import group_norm
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(dtype)
+
+    def grads(fn, *inputs):
+        leaves = [x.detach().requires_grad_(True) for x in inputs]
+        out = fn(*leaves)
+        g = torch.randn(out.shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(5), device=DEVICE).to(out.dtype)
+        return torch.autograd.grad(out, leaves, g)
+
+    x = randn(16, 320, 32, 32).contiguous(memory_format=torch.channels_last)
+    q, k, v = (randn(16, 1024, 5, 64) for _ in range(3))
+    cases = {
+        "GroupNorm backward kernel": (     # channels last, as the UNet's
+            lambda x, s, b: group_norm(x, s, b, 32, act="silu"),
+            (randn(16, 32, 32, 320), randn(320, dtype=torch.float32),
+             randn(320, dtype=torch.float32))),
+        "flash dQ and dK/dV kernels": (
+            lambda q, k, v: flash_attention(q, k, v)[0], (q, k, v)),
+        "cuDNN conv backward (320->320, 3x3)": (
+            lambda x, w: F.conv2d(x, w, padding=1),
+            (x, randn(320, 320, 3, 3))),
+        "cuBLAS linear backward (16384x320 @ 320x1280)": (
+            F.linear, (randn(16384, 320), randn(1280, 320))),
+    }
+    for name, (fn, inputs) in cases.items():
+        a, b = grads(fn, *inputs), grads(fn, *inputs)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"checkpoint: determinism: {name}: "
+              f"{'bit-equal' if same else 'NOT bit-equal'} over two runs "
+              f"on the same inputs [{card}]")
+
+
+def _checkpoint_phase(card: str, composed_steps: list) -> dict:
+    """Phase 10: save, preempt, resume and serve at full width (see the
+    module docstring). Returns the five kernels' launches in the phase."""
+    import tempfile
+    build = os.path.join(_ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    sizes = _sd2_sizes()
+    disk = _checkpoint_disk_need(*sizes)
+    free = _check_disk(build, disk["need"])
+    print(f"checkpoint: disk: {free / 1e9:.2f} GB free under build/; the "
+          f"phase needs {disk['need'] / 1e9:.2f} GB at its peak (two "
+          f"checkpoints of {disk['checkpoint'] / 1e9:.2f} GB, the fp16 "
+          f"pretrained directory of {disk['pretrained'] / 1e9:.2f} GB, "
+          f"{disk['shards'] / 1e6:.0f} MB of shards) [{card}]")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build)
+    try:
+        return _checkpoint_runs(tmp, card, composed_steps, sizes)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _checkpoint_runs(tmp: str, card: str, composed_steps: list,
+                     sizes: tuple) -> dict:
+    import gc
+
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.train import checkpoint as ckpt
+    from diffusion_torch.train.train import train
+    from diffusion_torch.utils import safetensors
+
+    folder = os.path.join(tmp, "ckpt")
+    base = _composed_overrides(tmp, "checkpoint", os.path.join(
+        tmp, "metrics.jsonl")) + [
+        f"trainer.save_folder={folder}",
+        f"trainer.save_interval={COMPOSED_EVAL_AT}ba",
+        "+trainer.save_num_checkpoints_to_keep=1"]
+    yaml_path = os.path.join(_ROOT, "yamls", "SD-2-base-256.yaml")
+    first = base + [f"+callbacks.preempt._target_={__name__}.Preempt",
+                    f"+callbacks.preempt.at={COMPOSED_EVAL_AT}"]
+    print(f"checkpoint: run 1: yamls/SD-2-base-256.yaml with the composed "
+          f"run's overrides and {' '.join(first[len(base) - 3:])}")
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    run1 = train(load_config(yaml_path, first))
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    save = ckpt.last_save_stats()
+    rec1 = next(c for c in run1.engine.callbacks
+                if type(c).__name__ == "ComposedRecord")
+    ba3 = os.path.join(folder, f"ba{COMPOSED_EVAL_AT}")
+    _check(run1.state.timestamp.batch == COMPOSED_EVAL_AT
+           and len(rec1.steps) == COMPOSED_EVAL_AT
+           and sorted(os.listdir(folder)) == [os.path.basename(ba3)]
+           and os.path.exists(os.path.join(ba3, "meta.json")),
+           f"the SIGTERM after batch {COMPOSED_EVAL_AT} did not leave fit() "
+           f"with {ba3} complete: {os.listdir(folder)}")
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(ba3) for f in fs)
+    print(f"checkpoint: run 1: SIGTERM after batch {COMPOSED_EVAL_AT}: fit() "
+          f"returned at batch {run1.state.timestamp.batch} with "
+          f"ba{COMPOSED_EVAL_AT} complete, {wall1:.2f} s with the build and "
+          f"the eval; checkpoint {size / 1e9:.3f} GB ({size} bytes; tensors "
+          f"{save['bytes']} bytes: fp32 params, mu, nu of "
+          f"{sizes[0] / 1e6:.1f}M parameters) [{card}]")
+    print(f"checkpoint: async save: pinned host buffer allocated in "
+          f"{save['pin_alloc_s']:.3f} s (once; {save['bytes'] / 1e9:.2f} GB),"
+          f" device-to-host copy {save['d2h_s']:.3f} s "
+          f"({save['bytes'] / save['d2h_s'] / 1e9:.2f} GB/s), "
+          f"save_checkpoint returned after {save['call_s']:.3f} s, the "
+          f"thread wrote the files in {save['write_s']:.3f} s "
+          f"({save['bytes'] / save['write_s'] / 1e9:.2f} GB/s) [{card}]")
+    with open(os.path.join(ba3, "meta.json")) as f:
+        meta = json.load(f)
+    live_loader = run1.train_dataloader.state_dict()
+    _check(meta["dataloader"] == live_loader,
+           f"the checkpoint's loader position {meta['dataloader']} is not "
+           f"the live one {live_loader}")
+
+    ResumeCheck.live = run1
+    second = base + ["trainer.autoresume=true",
+                     f"+callbacks.resume._target_={__name__}.ResumeCheck"]
+    t0 = time.perf_counter()
+    run2 = train(load_config(yaml_path, second))
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches = {name: c.value for name, c in counters.items()}
+    check = ResumeCheck.result
+    ResumeCheck.live = ResumeCheck.result = None
+    del run1
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check(check is not None, "the resumed run's fit did not start")
+    print(f"checkpoint: run 2 (trainer.autoresume=true): restored "
+          f"{check['tensors']} tensors, {len(check['unequal'])} of them "
+          f"unequal to run 1's live state (torch.equal); step "
+          f"{check['step'][0]} (live {check['step'][1]}), count "
+          f"{check['count'][0]} (live {check['count'][1]}), timestamp "
+          f"{json.dumps(check['timestamp'][0])}, loader position "
+          f"{json.dumps(meta['dataloader'])}")
+    _check(not check["unequal"] and check["step"][0] == check["step"][1]
+           and check["count"][0] == check["count"][1]
+           and check["timestamp"][0] == check["timestamp"][1],
+           f"the restored state differs from the live one: {check}")
+    end_loader = run2.train_dataloader.state_dict()
+    _check(end_loader["epoch"] == live_loader["epoch"]
+           and end_loader["batch_in_epoch"]
+           == live_loader["batch_in_epoch"] + TRAIN_STEPS - COMPOSED_EVAL_AT,
+           f"the resumed loader did not continue from {live_loader}: "
+           f"{end_loader}")
+    rec2 = next(c for c in run2.engine.callbacks
+                if type(c).__name__ == "ComposedRecord")
+    got = [m for m, *_ in rec2.steps]
+    want = composed_steps[COMPOSED_EVAL_AT:]
+    _check(len(got) == len(want) == TRAIN_STEPS - COMPOSED_EVAL_AT,
+           f"the resumed run took {len(got)} steps")
+    bit_equal = True
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = {k: abs(g[k] - w[k]) / abs(w[k]) for k in
+               ("loss/train/total", "grad/global_norm")}
+        bit_equal = bit_equal and all(g[k] == w[k] for k in rel)
+        print(f"checkpoint: resumed step {COMPOSED_EVAL_AT + i}: loss "
+              f"{g['loss/train/total']!r} (phase 8: {w['loss/train/total']!r}"
+              f", rel {rel['loss/train/total']:.3e}), grad norm "
+              f"{g['grad/global_norm']!r} (phase 8: "
+              f"{w['grad/global_norm']!r}, rel "
+              f"{rel['grad/global_norm']:.3e}); bound 1e-3")
+        _check(all(r <= 1e-3 for r in rel.values()),
+               f"resumed step {COMPOSED_EVAL_AT + i} differs from phase 8's "
+               f"by more than 1e-3: {rel}")
+    print(f"checkpoint: resumed losses and grad norms "
+          f"{'ARE' if bit_equal else 'are NOT'} bit-equal to phase 8's "
+          f"(cudnn.deterministic={torch.backends.cudnn.deterministic}, "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark})")
+    if not bit_equal:
+        _determinism_report(card)
+    ba6 = os.path.join(folder, f"ba{TRAIN_STEPS}")
+    _check(sorted(os.listdir(folder)) == [os.path.basename(ba6)]
+           and os.path.exists(os.path.join(ba6, "meta.json")),
+           f"expected ba{TRAIN_STEPS} complete and ba{COMPOSED_EVAL_AT} "
+           f"pruned: {os.listdir(folder)}")
+    save6 = ckpt.last_save_stats()
+    print(f"checkpoint: run 2: {wall2:.2f} s with the build and the "
+          f"restore; ba{TRAIN_STEPS} complete and ba{COMPOSED_EVAL_AT} pruned "
+          f"(save_num_checkpoints_to_keep=1); its save: device-to-host "
+          f"{save6['d2h_s']:.3f} s, returned after {save6['call_s']:.3f} s, "
+          f"written in {save6['write_s']:.3f} s, pinned buffer reused "
+          f"({save6['pin_alloc_s']:.3f} s) [{card}]")
+
+    # a step right after an async save, beside one without: run 2's next
+    # batch three times (the first warms the allocator, emptied above),
+    # saving into a directory of its own
+    batches = run2._device_batches()
+    batch, n = next(batches)
+    steps = {}
+    for label in ("warm-up", "without a save in flight",
+                  "right after an async save"):
+        if label.startswith("right"):
+            run2.save_folder = os.path.join(tmp, "ckpt_timing")
+            t0 = time.perf_counter()
+            run2.save_checkpoint()
+            steps["save returned"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run2._train_step(batch, n)
+        torch.cuda.synchronize()
+        steps[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.finalize_pending()
+    steps["then finalize waited"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(tmp, "ckpt_timing"))
+    own = [st[3] for st in rec2.steps[1:]]
+    print(f"checkpoint: training step (one batch of 32, the same batch each "
+          f"time) {steps['warm-up'] * 1e3:.1f} ms first, "
+          f"{steps['without a save in flight'] * 1e3:.1f} ms without a save "
+          f"in flight, "
+          f"{steps['right after an async save'] * 1e3:.1f} ms right after an "
+          f"async save that returned in {steps['save returned'] * 1e3:.1f} "
+          f"ms (the write then took {steps['then finalize waited']:.2f} s "
+          f"more); the resumed run's own steps "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in own)} ms [{card}]")
+
+    # restore alone: read plus host-to-device, into run 2's live state
+    t0 = time.perf_counter()
+    ckpt.load_checkpoint(ba6, run2.train_state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    print(f"checkpoint: restore of ba{TRAIN_STEPS} (read and host-to-device"
+          f" of {save6['bytes'] / 1e9:.2f} GB; the files were just written, "
+          f"so the read may come from the page cache) {restore_s:.3f} s "
+          f"({save6['bytes'] / restore_s / 1e9:.2f} GB/s) [{card}]")
+    del run2, batches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _pretrained_serving(tmp, card, ba6, launches, safetensors)
+
+
+def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
+                        safetensors) -> dict:
+    """Write a full-width fp16 diffusers directory from seeded random
+    modules, build the endpoint from it with the checkpoint's UNet, and
+    serve one 512px request over HTTP."""
+    import gc
+
+    import torch
+    from PIL import Image
+
+    from diffusion_torch.inference.inference_model import \
+        StableDiffusionInference
+    from diffusion_torch.inference.serve import make_server
+    from diffusion_torch.models.models import stable_diffusion_2
+
+    pre = os.path.join(tmp, "sd2_fp16")
+    source = stable_diffusion_2(device=DEVICE, seed=1)
+    t0 = time.perf_counter()
+    towers, nbytes = {}, 0
+    for name, fname in (("unet", "diffusion_pytorch_model.safetensors"),
+                        ("vae", "diffusion_pytorch_model.safetensors"),
+                        ("text_encoder", "model.safetensors")):
+        half = {k: v.half().cpu() for k, v in
+                getattr(source, name).state_dict().items()}
+        os.makedirs(os.path.join(pre, name))
+        nbytes += safetensors.save_file(half, os.path.join(pre, name, fname))
+        if name != "unet":
+            towers[name] = half
+    write_s = time.perf_counter() - t0
+    del source
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"checkpoint: pretrained directory (diffusers layout, fp16: unet/,"
+          f" vae/ decoder and post_quant_conv, text_encoder/) "
+          f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s [{card}]")
+
+    t0 = time.perf_counter()
+    endpoint = StableDiffusionInference(
+        model_name=pre, pretrained=True, checkpoint_path=ba6,
+        default_size=SIZE, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = endpoint.model
+    want = safetensors.load_file(os.path.join(ba6, "state",
+                                              "params.safetensors"))
+    unet_bad = [n for n, p in model.unet.named_parameters()
+                if not torch.equal(p, want[n].to(p.device))]
+    tower_bad = [f"{name}.{k}" for name, half in towers.items()
+                 for k, v in getattr(model, name).state_dict().items()
+                 if v.dtype != torch.float32
+                 or not torch.equal(v, half[k].to(v.device).float())]
+    print(f"checkpoint: endpoint from the pretrained directory and "
+          f"ba{TRAIN_STEPS} built in {build_s:.2f} s (the load of "
+          f"{nbytes / 1e9:.2f} GB of fp16 weights and the checkpoint's UNet "
+          f"included); UNet tensors unequal to the checkpoint's: "
+          f"{len(unet_bad)} of {len(want)}; tower tensors unequal to the "
+          f"fp16 values in fp32: {len(tower_bad)} [{card}]")
+    _check(not unet_bad and len(want) == len(
+        list(model.unet.parameters())) and not tower_bad,
+           f"the endpoint does not serve the checkpoint's UNet and the "
+           f"pretrained towers: {unet_bad[:5]} {tower_bad[:5]}")
+
+    decoded = []
+    model.vae.post_quant_conv.register_forward_pre_hook(
+        lambda mod, inp: decoded.append(
+            (tuple(inp[0].shape), bool(torch.isfinite(inp[0]).all()))))
+    server = make_server(endpoint, "127.0.0.1", 0, max_batch_size=1,
+                         batch_wait_ms=0.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    counters = _counters()
+    results: dict = {}
+    try:
+        for c in counters.values():
+            c.reset()
+        _post(server.server_address[1], {
+            "prompt": "a lighthouse on a cliff at dusk",
+            "num_inference_steps": STEPS, "guidance_scale": 7.5, "seed": 0,
+            "height": SIZE, "width": SIZE}, results, "request")
+        torch.cuda.synchronize()
+        served = {name: c.value for name, c in counters.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    _check("request" in results, "the request got no response")
+    status, body, seconds = results["request"]
+    _check(status == 200, f"HTTP {status} {body}")
+    img = Image.open(io.BytesIO(base64.b64decode(body["images"][0])))
+    img.load()
+    _check(img.size == (SIZE, SIZE) and img.mode == "RGB",
+           f"PNG {img.size} {img.mode}")
+    _check(len(decoded) == 1 and decoded[0][1],
+           f"latents before the decode not finite: {decoded}")
+    print(f"checkpoint: served one {SIZE}px request ({STEPS} steps) from the "
+          f"checkpoint: HTTP 200, {img.size[0]}x{img.size[1]} PNG, latents "
+          f"{decoded[0][0]} finite before the decode, {seconds:.3f} s end to "
+          f"end; kernel launches {json.dumps(served)} [{card}]")
+    for name in ("group_norm", "flash_attention"):
+        _check(served[name] > 0, f"{name} kernel was not launched while "
+               f"serving the checkpoint")
+    free = shutil.disk_usage(tmp).free
+    print(f"checkpoint: disk free at the phase's end (before its directory "
+          f"is deleted) {free / 1e9:.2f} GB")
+    del endpoint, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + served[k] for k in launches}
 
 
 _CATEGORIES = (   # kernel-name patterns, first match wins
@@ -1357,12 +1838,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 8-9. the composed run, and the fp32 UNet
-    composed_launches = _composed_phase(card, train_step_s)
+    composed_launches, composed_steps = _composed_phase(card, train_step_s)
     gc.collect()
     torch.cuda.empty_cache()
     _fp32_unet_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
+    # 10. checkpoint, preempt, resume, and serve the checkpoint
+    checkpoint_launches = _checkpoint_phase(card, composed_steps)
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
@@ -1387,7 +1870,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (launches.get(name, 0) + train_launches[name]
-                         + composed_launches[name]),
+                         + composed_launches[name]
+                         + checkpoint_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -6,11 +6,18 @@ PNGs; `predict_many` merges several mergeable requests into one generate
 call, padded to a power-of-two batch. PyTorch runs eagerly, so there is no
 compile cache; `generate` runs under `torch.inference_mode()`.
 
-Weights are random (flax-like init from `seed`) or, with `jax_params`, the
-JAX package's `(params, frozen)` trees moved over by `models/port_jax.py`.
-Not ported yet: checkpoint loading, img2img/inpainting, per-request
-samplers and guidance rescale (each raises NotImplementedError naming its
-ROADMAP.md item).
+Weights are random (flax-like init from `seed`), published ones
+(`pretrained=True, model_name=<local diffusers directory>`, through the
+builder), or, with `jax_params`, the JAX package's `(params, frozen)`
+trees moved over by `models/port_jax.py`. `checkpoint_path` then replaces
+the UNet's weights with a checkpoint's parameters: a Trainer checkpoint
+(`ba<N>/`, written EMA-active, so it serves the EMA) or a weights-only
+directory holding a bare `params.safetensors`; an `s3://`, `gs://` or
+`file://` path is fetched once into a cache (`train/checkpoint.py`). A
+checkpoint holds no frozen towers, so one over random towers raises
+unless `allow_random_frozen=True`. Not ported yet: img2img/inpainting,
+per-request samplers and guidance rescale (each raises
+NotImplementedError naming its ROADMAP.md item).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from diffusion_torch.models.models import stable_diffusion_2
 from diffusion_torch.models.port_jax import (clip_text_from_jax,
                                              unet_from_jax, vae_from_jax)
+from diffusion_torch.train.checkpoint import fetch_checkpoint_dir, load_params
 
 __all__ = ["StableDiffusionInference", "image_to_base64_png"]
 
@@ -40,18 +48,28 @@ def image_to_base64_png(image01: np.ndarray) -> str:
 
 
 class StableDiffusionInference:
-    def __init__(self, builder: Any = None, default_size: int = 512,
-                 seed: int = 0, device: Any = None,
+    def __init__(self, checkpoint_path: Optional[str] = None,
+                 model_name: Optional[str] = None, pretrained: bool = False,
+                 default_size: int = 512, seed: int = 0,
+                 allow_random_frozen: bool = False, builder: Any = None,
+                 device: Any = None,
                  jax_params: Optional[Tuple[Dict, Dict]] = None,
-                 checkpoint_path: Optional[str] = None,
                  **model_kwargs: Any):
-        if checkpoint_path:
-            raise NotImplementedError(
-                "checkpoint loading comes with ROADMAP.md queue 1 item 4 "
-                "(checkpoints and pretrained weights)")
+        if checkpoint_path and not (pretrained or jax_params is not None
+                                    or allow_random_frozen):
+            # a checkpoint restores the UNet only: over random VAE and text
+            # towers every request decodes noise
+            raise RuntimeError(
+                "checkpoint_path given but the frozen VAE/text-encoder "
+                "towers are randomly initialized (the checkpoint only "
+                "restores the trainable UNet params). Pass pretrained=True "
+                "with model_name=<diffusers directory>, or "
+                "allow_random_frozen=True for smoke serving where noise "
+                "images are fine.")
         builder = builder or stable_diffusion_2
         # device None means CUDA; the builder raises where it is missing
-        self.model = builder(device=device, seed=seed, **model_kwargs)
+        self.model = builder(model_name=model_name, pretrained=pretrained,
+                             device=device, seed=seed, **model_kwargs)
         self.model.unet.eval().requires_grad_(False)     # served, not trained
         if jax_params is not None:
             params, frozen = jax_params
@@ -59,6 +77,11 @@ class StableDiffusionInference:
             self.model.vae.load_state_dict(vae_from_jax(frozen["vae"]))
             self.model.text_encoder.load_state_dict(
                 clip_text_from_jax(frozen["text_encoder"]))
+        self.checkpoint_file = None
+        if checkpoint_path:
+            local = fetch_checkpoint_dir(checkpoint_path)
+            self.checkpoint_file = load_params(
+                local, dict(self.model.unet.named_parameters()))
         self.default_size = default_size
         self.seed = seed
 

@@ -203,6 +203,19 @@ def make_server(endpoint: StableDiffusionInference, host: str = "0.0.0.0",
 
 def main() -> None:
     p = argparse.ArgumentParser()
+    p.add_argument("--checkpoint", default=None,
+                   help="a Trainer checkpoint directory (ba<N>) or a "
+                        "weights-only one, local or s3://, gs://, file://")
+    p.add_argument("--model-name", default=None,
+                   help="a local diffusers directory; with --pretrained its "
+                        "weights are loaded, so the frozen VAE and text "
+                        "towers are real")
+    p.add_argument("--pretrained", action="store_true",
+                   help="load --model-name's weights (a --checkpoint "
+                        "restores the UNet only, never the frozen towers)")
+    p.add_argument("--allow-random-frozen", action="store_true",
+                   help="serve a --checkpoint over RANDOM frozen towers "
+                        "(smoke runs only: the images are noise)")
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
@@ -211,8 +224,11 @@ def main() -> None:
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--batch-wait-ms", type=float, default=20.0)
     args = p.parse_args()
-    endpoint = StableDiffusionInference(default_size=args.size,
-                                        device=args.device, seed=args.seed)
+    endpoint = StableDiffusionInference(
+        checkpoint_path=args.checkpoint, model_name=args.model_name,
+        pretrained=args.pretrained,
+        allow_random_frozen=args.allow_random_frozen,
+        default_size=args.size, device=args.device, seed=args.seed)
     server = make_server(endpoint, args.host, args.port,
                          max_batch_size=args.max_batch_size,
                          batch_wait_ms=args.batch_wait_ms)

@@ -9,8 +9,14 @@ model), `val_metrics`, `train_metrics`, `val_seed`, `loss_bins`,
 `timestep_spacing`, `init_frozen_towers`. A builder makes the modules on
 `device` (CUDA unless the caller asks for the CPU; it raises where CUDA is
 missing) and draws their weights as flax's defaults would
-(`init_like_flax_`) from a `torch.Generator` seeded with `seed`; load real
-weights over them with `load_state_dict` (see `models/port_jax.py`).
+(`init_like_flax_`) from a `torch.Generator` seeded with `seed`. With
+`pretrained=True`, `model_name` must be a local directory (the JAX
+builders' check); the weights are then read from it over the random ones
+(`models/pretrained.py`: the msgpack trio of `tools/port_weights.py` or
+the diffusers/transformers safetensors subdirectories). `model_name` is
+also where a CLIP tokenizer is read from, when it holds one (`vocab.json`
+or a `tokenizer/` subdirectory); otherwise the byte-level tiny tokenizer
+is used.
 
 The UNet is trainable (fp32 parameters, `.train()` mode). The frozen VAE
 and CLIP towers are `.eval()` without gradients, and are not built when
@@ -18,8 +24,8 @@ and CLIP towers are `.eval()` without gradients, and are not built when
 and no generation eval.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: `pretrained: true` (item 4), a non-empty `val_guidance_scales` (the
-generation metrics, item 8), samplers other than DDIM (item 7).
+item: a non-empty `val_guidance_scales` (the generation metrics, item 8),
+samplers other than DDIM (item 7).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from diffusion_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
                                          SD2_TEXT_CONFIG)
 from diffusion_torch.models.layers import init_like_flax_
+from diffusion_torch.models.pretrained import load_pretrained_params
 from diffusion_torch.models.stable_diffusion import StableDiffusion
 from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition, UNetConfig
 from diffusion_torch.models.vae import SD2_VAE, AutoencoderKL, VAEConfig
@@ -42,20 +49,37 @@ from diffusion_torch.utils.device import Device, resolve_device
 __all__ = ["stable_diffusion_2", "stable_diffusion_tiny"]
 
 
-def _check_ported(inference_scheduler: str, pretrained: bool,
+def _check_ported(inference_scheduler: str,
                   val_guidance_scales: Optional[Sequence[float]]) -> None:
     if inference_scheduler.lower() != "ddim":
         raise NotImplementedError(
             f"sampler {inference_scheduler!r} comes with ROADMAP.md queue 1 "
             f"item 7 (DPM++/Euler samplers and guidance rescale)")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained=True comes with ROADMAP.md queue 1 item 4 "
-            "(checkpoints and pretrained weights)")
     if val_guidance_scales:
         raise NotImplementedError(
             "val_guidance_scales (generation metrics in the eval loop) come "
             "with ROADMAP.md queue 1 item 8 (metrics)")
+
+
+def _pretrained_dir(pretrained: bool, model_name: Optional[str]
+                    ) -> Optional[str]:
+    """The JAX builders' check: pretrained weights come from a local
+    directory (nothing is downloaded)."""
+    if not pretrained:
+        return None
+    if not (model_name and os.path.isdir(model_name)):
+        raise FileNotFoundError(
+            "pretrained=True requires model_name to be a local checkpoint "
+            f"directory (got {model_name!r}; nothing is downloaded)")
+    return model_name
+
+
+def _tokenizer(model_name: Optional[str]):
+    if model_name and (
+            os.path.exists(os.path.join(model_name, "vocab.json"))
+            or os.path.isdir(os.path.join(model_name, "tokenizer"))):
+        return CLIPTokenizer.from_pretrained(model_name)
+    return tiny_tokenizer()
 
 
 def _spacing(timestep_spacing: Optional[str],
@@ -72,7 +96,8 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
            device: Device, seed: int, *, precomputed_latents: bool,
            prediction_type: str, min_snr_gamma: Optional[float],
            rescale_betas_zero_snr: bool, timestep_spacing: Optional[str],
-           init_frozen_towers: Optional[bool], **fields: Any
+           init_frozen_towers: Optional[bool],
+           pretrained_path: Optional[str] = None, **fields: Any
            ) -> StableDiffusion:
     device = resolve_device(device)
     if init_frozen_towers is None:
@@ -98,13 +123,17 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
         if module is not None:
             init_like_flax_(module, gen)
             module.eval().requires_grad_(False)
-    return StableDiffusion(unet=unet, vae=towers[0], text_encoder=towers[1],
-                           tokenizer=tokenizer,
-                           inference_scheduler=inference_scheduler,
-                           noise_scheduler=noise_scheduler,
-                           prediction_type=prediction_type,
-                           min_snr_gamma=min_snr_gamma,
-                           precomputed_latents=precomputed_latents, **fields)
+    model = StableDiffusion(unet=unet, vae=towers[0], text_encoder=towers[1],
+                            tokenizer=tokenizer,
+                            inference_scheduler=inference_scheduler,
+                            noise_scheduler=noise_scheduler,
+                            prediction_type=prediction_type,
+                            min_snr_gamma=min_snr_gamma,
+                            precomputed_latents=precomputed_latents,
+                            pretrained_path=pretrained_path, **fields)
+    if pretrained_path:
+        load_pretrained_params(model)
+    return model
 
 
 def stable_diffusion_2(model_name: Optional[str] = None,
@@ -127,13 +156,13 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                        ) -> StableDiffusion:
     """SD-2-base at full width: 866M-parameter UNet, SD2 VAE, 23-layer
     CLIP text tower, computing in bf16 (`encode_latents_in_fp16`, as the JAX
-    builder maps it) or fp32. `model_name` is a local HF tokenizer directory;
-    without one the byte-level tiny tokenizer is used."""
-    _check_ported(inference_scheduler, pretrained, val_guidance_scales)
-    tokenizer = (CLIPTokenizer.from_pretrained(model_name)
-                 if model_name and os.path.exists(model_name)
-                 else tiny_tokenizer())
-    return _build(SD2_BASE_UNET, SD2_VAE, SD2_TEXT_CONFIG, tokenizer,
+    builder maps it) or fp32. `model_name` is a local diffusers directory:
+    the weights with `pretrained=True`, and the tokenizer where it holds
+    one."""
+    _check_ported(inference_scheduler, val_guidance_scales)
+    pretrained_path = _pretrained_dir(pretrained, model_name)
+    return _build(SD2_BASE_UNET, SD2_VAE, SD2_TEXT_CONFIG,
+                  _tokenizer(model_name),
                   torch.bfloat16 if encode_latents_in_fp16 else torch.float32,
                   device, seed,
                   precomputed_latents=precomputed_latents,
@@ -141,6 +170,7 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                   rescale_betas_zero_snr=rescale_betas_zero_snr,
                   timestep_spacing=timestep_spacing,
                   init_frozen_towers=init_frozen_towers,
+                  pretrained_path=pretrained_path,
                   val_seed=int(val_seed),
                   loss_bins=tuple(tuple(b) for b in (loss_bins or [(0, 1)])),
                   train_metric_names=tuple(train_metrics
@@ -152,6 +182,7 @@ def stable_diffusion_2(model_name: Optional[str] = None,
 
 def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
                           precomputed_latents: bool = False,
+                          model_name: Optional[str] = None,
                           pretrained: bool = False,
                           val_metrics: Optional[List[Any]] = None,
                           inference_scheduler: str = "ddim",
@@ -164,8 +195,11 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
                           **_: Any) -> StableDiffusion:
     """The JAX package's tiny geometry (fp32): real architecture, small
     channels, for tests and CPU runs. Like the JAX builder, it ignores
-    keywords it does not know (a yaml's `loss_bins`, `fsdp`, ...)."""
-    _check_ported(inference_scheduler, pretrained, val_guidance_scales)
+    keywords it does not know (a yaml's `loss_bins`, `fsdp`, ...). It takes
+    the same `pretrained`/`model_name` contract as `stable_diffusion_2`
+    (the tokenizer stays the tiny one)."""
+    _check_ported(inference_scheduler, val_guidance_scales)
+    pretrained_path = _pretrained_dir(pretrained, model_name)
     return _build(
         UNetConfig(in_channels=4, out_channels=4, block_out_channels=(32, 64),
                    layers_per_block=1, block_has_attention=(True, False),
@@ -181,4 +215,5 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
         rescale_betas_zero_snr=rescale_betas_zero_snr,
         timestep_spacing=timestep_spacing,
         init_frozen_towers=init_frozen_towers,
+        pretrained_path=pretrained_path,
         val_metric_names=tuple(val_metrics or ("MeanSquaredError",)))

@@ -66,6 +66,8 @@ class StableDiffusion:
     # recorded for the trainer, as the JAX package records it; sharding
     # comes with multi-device training (ROADMAP.md queue 1 item 9)
     fsdp: bool = True
+    # the local diffusers directory the builder loaded (pretrained=True)
+    pretrained_path: Optional[str] = None
 
     @property
     def device(self) -> torch.device:

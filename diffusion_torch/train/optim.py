@@ -79,6 +79,28 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """`count` and the moments `mu` (in their own dtype) and `nu`, in
+        the order of `params`. The tensors are the live ones, not copies."""
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict()` into the moments in place; each moment
+        keeps its dtype and device."""
+        for key in ("mu", "nu"):
+            own, got = getattr(self, key), state[key]
+            if len(got) != len(own):
+                raise ValueError(f"{key}: {len(got)} tensors for "
+                                 f"{len(own)} parameters")
+            for i, (o, g) in enumerate(zip(own, got)):
+                if tuple(o.shape) != tuple(g.shape):
+                    raise ValueError(f"{key}[{i}]: shape {tuple(g.shape)} "
+                                     f"for a parameter of {tuple(o.shape)}")
+            for o, g in zip(own, got):
+                o.copy_(g)
+        self.count = int(state["count"])
+
     def lr_at(self, count: int) -> float:
         """The learning rate an update at optax count `count` uses."""
         if self.schedule is None:

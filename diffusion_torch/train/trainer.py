@@ -31,15 +31,37 @@ MSE and the `MeanSquaredError/bin-lo-hi` timestep masks of the model's
 derived from the model's `val_seed` and the batch index, unless
 `eval_noise_hook(batch_index, batch) -> (noise, timesteps)` hands them over.
 
+Checkpoints (`train/checkpoint.py`), as the JAX Trainer writes them:
+with `save_folder`, every `save_interval` batches and at the end of `fit`,
+with the EMA weights active (swapped out again after the save), the
+timestamp, the algorithms', callbacks' and train loader's state in
+`meta.json`; async by default (`async_checkpoint`), keeping
+`save_num_checkpoints_to_keep`, mirrored to `save_remote`. A bucket
+`save_folder` (s3://, gs://) is staged in a local directory keyed by run
+and bucket, and mirrored there. `autoresume` restores the newest complete
+checkpoint of `save_folder` (after pulling a newer one from `save_remote`),
+else `load_path`; `load_weights_only` takes the parameters alone and
+re-seeds the EMA from them. The restore is in place: the `Parameter`s the
+optimizer holds stay the ones the model computes with. Restoring the step
+restores the noise stream (it is derived from the seed and the step), and
+the optimizer's count is restored beside it (a skipped non-finite step
+leaves them apart). With `checkpoint_on_preemption`, a SIGTERM during
+`fit` (handled where `fit` runs on the main thread) ends the step loop at
+the batch's end with a checkpoint of that batch.
+
 Runs on `device` (CUDA unless the caller asks for the CPU; it raises where
 CUDA is missing), which must be the model's. A mesh or more than one
-process, checkpoints and resuming raise NotImplementedError naming their
-ROADMAP.md items; `fsdp_config`, `image_size`, `save_interval`,
-`save_overwrite` and `precision` are recorded.
+process raise NotImplementedError naming ROADMAP.md item 9; `fsdp_config`,
+`image_size` and `precision` are recorded.
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
+import os
+import signal
+import tempfile
 import time as _time
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
                     Sequence, Tuple, Union)
@@ -49,6 +71,7 @@ import torch
 
 from diffusion_torch.algorithms.ema import (EMA, apply_ema,
                                             ema_smoothing_for_step)
+from diffusion_torch.train import checkpoint as ckpt
 from diffusion_torch.train.events import Algorithm, Callback, Event, EventEngine
 from diffusion_torch.train.optim import (build_optimizer, constant_scheduler,
                                          global_norm)
@@ -110,11 +133,16 @@ class Trainer:
         seed: int = 17,
         scale_schedule_ratio: float = 1.0,
         save_folder: Optional[str] = None,
+        save_remote: Optional[str] = None,
         save_interval: Union[str, int] = "10000ba",
         save_overwrite: bool = True,
+        save_num_checkpoints_to_keep: int = -1,
+        async_checkpoint: bool = True,
+        checkpoint_on_preemption: bool = True,
+        skip_nonfinite_updates: bool = False,
         autoresume: bool = False,
         load_path: Optional[str] = None,
-        skip_nonfinite_updates: bool = False,
+        load_weights_only: bool = False,
         eval_subset_num_batches: int = -1,
         mesh: Any = None,
         mesh_config: Optional[dict] = None,
@@ -130,12 +158,6 @@ class Trainer:
         eval_noise_hook: Optional[EvalNoiseHook] = None,
     ):
         del progress_bar  # yaml parity; the trainer prints no bar
-        if save_folder:
-            raise _unported("save_folder", 4, "checkpoints and pretrained "
-                            "weights")
-        if autoresume or load_path:
-            raise _unported("load_path/autoresume", 4, "checkpoints and "
-                            "pretrained weights")
         if mesh is not None or mesh_config:
             raise _unported("a device mesh", 9, "multi-device")
         if rank_and_world()[1] > 1:
@@ -158,9 +180,26 @@ class Trainer:
         self.eval_interval = time_to_batches(eval_interval, self.max_duration,
                                              batches_per_epoch or 0)
         self.eval_subset_num_batches = eval_subset_num_batches
+        if save_folder and save_folder.startswith(("s3://", "gs://")):
+            # the yamls' save_folder may be a bucket: stage locally under a
+            # (run, bucket) key, so a stale staging directory of another
+            # bucket is never resumed, and mirror to the bucket
+            if save_remote is None:
+                save_remote = save_folder
+            key = hashlib.sha1(save_folder.encode()).hexdigest()[:8]
+            save_folder = os.path.join(tempfile.gettempdir(),
+                                       "diffusion_torch_ckpt",
+                                       f"{run_name}-{key}")
+        self.save_folder = save_folder
+        self.save_remote = save_remote
         self.save_interval = time_to_batches(save_interval, self.max_duration,
                                              batches_per_epoch or 0)
         self.save_overwrite = save_overwrite
+        self.save_num_checkpoints_to_keep = int(save_num_checkpoints_to_keep)
+        self.async_checkpoint = async_checkpoint
+        self.checkpoint_on_preemption = checkpoint_on_preemption
+        self._preempt_requested = False
+        self._last_saved_batch = -1
         self.fsdp_config = fsdp_config
         self.image_size = image_size
         self.precision = precision
@@ -198,6 +237,7 @@ class Trainer:
             ema_start_batch=(self.ema_algorithm.start_batch(
                 self.max_duration, batches_per_epoch or 0)
                 if self.ema_algorithm else 0))
+        self._maybe_restore(autoresume, load_path, load_weights_only)
         self.engine.run(Event.INIT, self.state, self.logger)
 
     # ------------------------------------------------------------------
@@ -285,6 +325,24 @@ class Trainer:
     def fit(self) -> None:
         if self.train_dataloader is None:
             raise ValueError("fit() requires a train_dataloader")
+        # set only by the SIGTERM handler, which is installed only where a
+        # checkpoint can be written
+        self._preempt_requested = False
+        prev_sigterm = None
+        if self.checkpoint_on_preemption and self.save_folder:
+            try:
+                prev_sigterm = signal.signal(
+                    signal.SIGTERM,
+                    lambda s, f: setattr(self, "_preempt_requested", True))
+            except ValueError:
+                pass  # not the main thread (embedded or test harnesses)
+        try:
+            self._fit()
+        finally:
+            if prev_sigterm is not None:
+                signal.signal(signal.SIGTERM, prev_sigterm)
+
+    def _fit(self) -> None:
         state, logger = self.state, self.logger
         self.engine.run(Event.FIT_START, state, logger)
         fit_start = _time.monotonic()
@@ -335,13 +393,29 @@ class Trainer:
                 if self.eval_interval and b % self.eval_interval == 0 \
                         and b < self.max_batches and self.evaluators:
                     self.eval()
+                if self.save_folder and self.save_interval \
+                        and b % self.save_interval == 0:
+                    self.save_checkpoint()
                 self.engine.run(Event.BATCH_CHECKPOINT, state, logger)
+                if self._preempt_requested:
+                    break
             if not epoch_had_batches:
                 raise RuntimeError("train_dataloader yielded no batches")
+            if self._preempt_requested:
+                logging.getLogger(__name__).warning(
+                    "SIGTERM received: checkpointing at ba%d and stopping "
+                    "(autoresume continues from there)",
+                    state.timestamp.batch)
+                break
             state.timestamp.to_next_epoch()
             self.engine.run(Event.EPOCH_END, state, logger)
             self.engine.run(Event.EPOCH_CHECKPOINT, state, logger)
 
+        if self.save_folder and \
+                self._last_saved_batch != state.timestamp.batch:
+            self.save_checkpoint()
+        if self.save_folder:
+            self._finish_checkpoints()
         self.engine.run(Event.FIT_END, state, logger)
         logger.flush()
 
@@ -403,7 +477,95 @@ class Trainer:
         self.engine.run(Event.EVAL_END, state, logger)
         return results
 
+    # ------------------------------------------------------------------
+    def save_checkpoint(self) -> Optional[str]:
+        """Write a checkpoint of this batch with the EMA weights active (the
+        reference's ema.py). With `async_checkpoint` it returns once the
+        tensors are on the host; the EMA swap-back that follows exchanges
+        storages only, and the next step may change them in place."""
+        if not self.save_folder:
+            return None
+        state = self.state
+        if self.ema_algorithm:
+            self.ema_algorithm.swap_in(state)
+        meta = {
+            "timestamp": state.timestamp.state_dict(),
+            "run_name": self.run_name,
+            "seed": self.seed,
+            "algorithms": {type(a).__name__: a.state_dict()
+                           for a in self.engine.algorithms},
+            "callbacks": {type(c).__name__: c.state_dict()
+                          for c in self.engine.callbacks},
+        }
+        if hasattr(self.train_dataloader, "state_dict"):
+            meta["dataloader"] = self.train_dataloader.state_dict()
+        try:
+            path = ckpt.save_checkpoint(
+                self.save_folder, state.timestamp.batch, self.train_state,
+                meta, overwrite=self.save_overwrite,
+                wait=not self.async_checkpoint, remote=self.save_remote)
+        finally:
+            if self.ema_algorithm:
+                self.ema_algorithm.swap_out(state)
+        self._last_saved_batch = state.timestamp.batch
+        # retention never waits on the async write: it counts as the newest
+        ckpt.prune_checkpoints(self.save_folder,
+                               self.save_num_checkpoints_to_keep)
+        return path
+
+    def _finish_checkpoints(self) -> None:
+        """Make the last save durable (and its remote copy), then let the
+        checkpoints it outdates age out."""
+        ckpt.finalize_pending()
+        ckpt.drain_remote_uploads()
+        ckpt.prune_checkpoints(self.save_folder,
+                               self.save_num_checkpoints_to_keep)
+
+    def _maybe_restore(self, autoresume: bool, load_path: Optional[str],
+                       load_weights_only: bool) -> None:
+        path = None
+        from_save_folder = False
+        if autoresume and self.save_folder:
+            if self.save_remote:
+                # a fresh host: the newest checkpoint may be remote only
+                ckpt.sync_from_remote(self.save_folder, self.save_remote)
+            path = ckpt.latest_checkpoint_path(self.save_folder)
+            from_save_folder = path is not None
+        if path is None and load_path:
+            path = load_path
+        if path is None:
+            return
+        ts = self.train_state
+        if load_weights_only:
+            ckpt.load_checkpoint(path, ts, partial=True)
+            if ts.ema_params is not None:
+                # the EMA was seeded from the initial weights: seed it from
+                # the loaded ones, or it blends toward the discarded init
+                with torch.no_grad():
+                    for name, p in ts.params.items():
+                        ts.ema_params[name].copy_(p)
+            return
+        _, meta = ckpt.load_checkpoint(path, ts)
+        self.state.timestamp.load_state_dict(meta.get("timestamp", {}))
+        if from_save_folder:
+            # this batch's checkpoint is the one just restored: a rerun of
+            # a finished fit must not write it again
+            self._last_saved_batch = self.state.timestamp.batch
+        for a in self.engine.algorithms:
+            a.load_state_dict(meta.get("algorithms", {}).get(
+                type(a).__name__, {}))
+        for c in self.engine.callbacks:
+            c.load_state_dict(meta.get("callbacks", {}).get(
+                type(c).__name__, {}))
+        if "dataloader" in meta and hasattr(self.train_dataloader,
+                                            "load_state_dict"):
+            self.train_dataloader.load_state_dict(meta["dataloader"])
+        # checkpoints are written EMA-active: swap back for training
+        if self.ema_algorithm and self.ema_algorithm.ema_weights_active:
+            self.ema_algorithm.swap_out(self.state)
+
     def close(self) -> None:
+        self._finish_checkpoints()
         self.logger.close()
         # persistent-worker loaders keep a process or thread pool alive
         for loader in [self.train_dataloader] + [

@@ -1,5 +1,6 @@
-"""What `chip_smoke.py` reads from nvcc's ptxas log, and its refusal to run
-without a CUDA device, checked without one."""
+"""What `chip_smoke.py` reads from nvcc's ptxas log, its refusal to run
+without a CUDA device, and its checkpoint phase's disk arithmetic, checked
+without a card."""
 
 import os
 import sys
@@ -56,3 +57,29 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     assert chip_smoke.main([]) == 2
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_checkpoint_phase_disk_need():
+    """Phase 10's peak: two fp32 checkpoints of the 865.9M-parameter UNet
+    (params, mu, nu: 10.39 GB each) and the fp16 pretrained directory
+    (UNet, VAE decoder, CLIP text: 2.51 GB), plus the shards."""
+    sizes = chip_smoke._sd2_sizes()
+    assert sizes == (865_910_724, 49_490_199, 340_387_840)
+    disk = chip_smoke._checkpoint_disk_need(*sizes, shard_bytes=0)
+    assert disk["checkpoint"] == 12 * 865_910_724
+    assert disk["pretrained"] == 2 * sum(sizes)
+    assert disk["need"] == 2 * disk["checkpoint"] + disk["pretrained"]
+    assert 23.2e9 < disk["need"] < 23.4e9
+
+
+def test_checkpoint_phase_refuses_short_disk(monkeypatch, tmp_path):
+    class Usage:
+        free = 20 * 10 ** 9
+
+    monkeypatch.setattr(chip_smoke.shutil, "disk_usage", lambda p: Usage)
+    need = chip_smoke._checkpoint_disk_need(*chip_smoke._sd2_sizes())["need"]
+    with pytest.raises(RuntimeError, match=r"needs 23\.\d GB free .* 20\.0 "
+                                           r"GB are free"):
+        chip_smoke._check_disk(str(tmp_path), need)
+    Usage.free = need
+    assert chip_smoke._check_disk(str(tmp_path), need) == need

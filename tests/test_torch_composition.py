@@ -329,12 +329,49 @@ def test_builders_take_the_yaml_keywords(monkeypatch):
     tmodels.stable_diffusion_2(loss_bins=[[0, 0.5], [0.5, 1]], device="cpu")
     assert seen["args"][4] is torch.bfloat16
     assert seen["kwargs"]["loss_bins"] == ((0, 0.5), (0.5, 1))
-    for kwargs, item in (({"pretrained": True}, "item 4"),
-                         ({"val_guidance_scales": [7.5]}, "item 8")):
-        for builder in (tmodels.stable_diffusion_2,
-                        tmodels.stable_diffusion_tiny):
-            with pytest.raises(NotImplementedError, match=item):
-                builder(device="cpu", **kwargs)
+    for builder in (tmodels.stable_diffusion_2,
+                    tmodels.stable_diffusion_tiny):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            builder(device="cpu", val_guidance_scales=[7.5])
+    # pretrained=True: the JAX builders' check that model_name is a local
+    # directory, raising what they raise
+    from diffusion_tpu.models import models as jmodels
+    for builder, jax_builder in (
+            (tmodels.stable_diffusion_2, jmodels.stable_diffusion_2),
+            (tmodels.stable_diffusion_tiny, jmodels.stable_diffusion_tiny)):
+        for name in (None, "/nonexistent/sd2"):
+            with pytest.raises(FileNotFoundError) as want:
+                jax_builder(pretrained=True, model_name=name)
+            with pytest.raises(type(want.value), match="local checkpoint"):
+                builder(device="cpu", pretrained=True, model_name=name)
+
+
+@pytest.mark.parametrize("name", ["SD-2-base-512.yaml",
+                                  "SD-2-base-512-tp.yaml"])
+def test_yaml_trainer_sections_reach_the_trainer(name):
+    """The `trainer:` sections of the 512px yamls, with their
+    `load_weights_only: true` and empty `load_path:`, build a Trainer (tiny
+    model, CPU): the keywords are taken, where the port's Trainer once
+    raised TypeError on them. The tp yaml's mesh then stops at the
+    multi-device item."""
+    import os
+    from diffusion_torch.config import load_config
+    full = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "yamls", name))
+    section = dict(full["trainer"], device="cpu")
+    assert section["load_weights_only"] is True
+    assert section["load_path"] is None
+    config = {"seed": full["seed"], "trainer": section, "model": {
+        "_target_": "diffusion_tpu.models.models.stable_diffusion_tiny",
+        "precomputed_latents": True, "device": "cpu"}}
+    if "mesh_config" in section:
+        with pytest.raises(NotImplementedError, match="item 9"):
+            build_trainer(config)
+        return
+    tr = build_trainer(config)
+    assert tr.save_folder is None and tr.state.timestamp.batch == 0
+    assert tr.save_interval == 10000 and tr.max_batches == 850000
+    tr.close()
 
 
 class _Record(Logger):

@@ -68,8 +68,9 @@ def test_clip_text_round_trip():
 
 def test_port_imports_no_jax():
     """Every diffusion_torch module, the training slice's and the composed
-    run's included, imports without pulling in jax/flax/optax or any module
-    of the JAX package."""
+    run's included, imports without pulling in jax/flax/optax, any module
+    of the JAX package, or the safetensors and msgpack packages (the card's
+    machine has neither: the port reads both formats itself)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffusion_torch\n"
@@ -78,7 +79,8 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'orbax', 'diffusion_tpu')]\n"
+        "('jax', 'flax', 'optax', 'orbax', 'diffusion_tpu', "
+        "'safetensors', 'msgpack')]\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n")
     env = dict(os.environ)
@@ -94,5 +96,6 @@ def test_port_imports_no_jax():
         "ops.flash_attention", "ops.groupnorm", "config.loader",
         "data.dataloader", "data.laion", "data.coco", "data.native",
         "metrics.mse", "callbacks.monitors", "algorithms.low_precision",
-        "train.train", "run")} <= seen
+        "train.train", "run", "train.checkpoint", "models.pretrained",
+        "utils.safetensors", "utils.flax_msgpack")} <= seen
     assert len(seen) >= 50                          # every module was seen
