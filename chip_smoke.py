@@ -20,13 +20,16 @@ Phases, each raising on failure (exit code 1):
      time alone (launches replayed from a CUDA graph; with --parent, the
      parent's dQ kernel in turns) and the wrapper's host time per call;
      for the flash kernels also TFLOP/s, and dQ + dK/dV beside SDPA's
-     flash backward in a CUDA graph. Then all 61 GroupNorm calls
-     of one UNet forward (256px batch 16, 512px batch 4) and backward
-     (256px batch 16), each set replayed from one CUDA graph, beside its
-     summed byte bound;
+     flash backward in a CUDA graph. The GroupNorm forward also at the
+     VAE encoder's largest slabs (256px, microbatch 16). Then all 61
+     GroupNorm calls of one UNet forward (256px batch 16, 512px batch 4)
+     and backward (256px batch 16), and all 22 of one VAE encode (256px
+     batch 16, 512px batch 1), each set replayed from one CUDA graph,
+     beside its summed byte bound;
   4. serve: the full-width SD-2-base endpoint (random weights from a seed).
-     Its UNet and VAE decoder first run against an fp32 CPU copy of
-     themselves on a small input. Then, at 512px behind the port's HTTP
+     Its UNet, VAE decoder and VAE encoder (posterior mean and logvar of a
+     64x64 image) first run against an fp32 CPU copy of themselves on a
+     small input. Then, at 512px behind the port's HTTP
      server on localhost: two concurrent, mergeable requests and a third
      with another step count; HTTP 200, decodable 512x512 PNGs, finite
      latents before the decode, and both forward kernels' launch counters
@@ -35,6 +38,17 @@ Phases, each raising on failure (exit code 1):
      step at batch 4 runs under torch.profiler for the device's busy time,
      idle share and time by kernel category at the very end, after every
      timed phase);
+ 5b. img2img and inpainting on the same endpoint: one VAE encode's
+     GroupNorm calls (all 22 through the kernel's wrapper) and the
+     encode's time at 512px batch 2 and 256px batch 16 (CUDA events);
+     then, one at a time over HTTP, a 20-step text-to-image request, an
+     img2img request (strength 0.5: 10 steps run) and an inpainting
+     request (a left-half-white mask, strength 0.8: 16 steps): HTTP 200,
+     512x512 PNGs, each latency beside phase 4's, and launch counts that
+     are the text request's less the steps not run plus the encoder's 22
+     GroupNorm calls; then through `generate` on the card with the same
+     draws, an all-ones mask must give the img2img output and an all-zeros
+     mask the VAE reconstruction decode(lat0), both bit for bit;
   6. gradient reference: the full-width training UNet's loss and gradient
      at 256px, batch 2, on the card (bf16, kernels) against the same
      weights in fp32 on the CPU (plain versions), with the three backward
@@ -50,14 +64,28 @@ Phases, each raising on failure (exit code 1):
   8. composed run: the unedited yamls/SD-2-base-256.yaml composed through
      diffusion_torch's config loader with dotted overrides only (global
      batch 32, the LAION reader over precomputed-latent MDS shards that the
-     port's MDSWriter writes from a numpy seed, 256 training and 64 eval
-     samples; the eval set through the LAION reader too; 6 batches, eval
-     every 3) and run by `diffusion_torch.train.train.train(config)`:
+     port's MDSWriter writes from a numpy seed, 256 training samples; the
+     recipe's own COCO eval reader over 64 COCO samples, JPEGs and caption
+     lists in MDS shards, so `model.init_frozen_towers=true`; 6 batches,
+     eval every 3) and run by `diffusion_torch.train.train.train(config)`:
      finite losses and grad norms, exactly one eval (after batch 3) with a
      finite MSE, all five kernels launched during the fit and both forward
      kernels during the eval; step time and samples/s beside phase 7's,
      the wait on the dataloader per step, the eval's MSE and wall time,
      peak memory, and which libdataio path ran;
+ 8b. online-encode run: the unedited yamls/SD-2-base-256-wds.yaml (raw
+     images, no precomputed latents) with dotted overrides only (global
+     batch 32 in microbatches of 16; `meta_json` manifests of webdataset
+     tar shards written from a numpy seed, 256 training and 64 eval
+     samples, JPEGs of four non-square sizes with .txt captions and .json
+     metadata; a `filter_strategy` file that drops punsafe > 0.5, set on
+     every 8th training sample; 6 batches, eval every 3) through
+     `train(config)`: finite losses and grad norms, one eval with a finite
+     MSE, the filter dropped exactly the flagged samples, all five kernels
+     launched during the fit, the frozen VAE and CLIP parameters
+     bit-unchanged and without gradients; step time, samples/s, the
+     towers' encode share of the step (CUDA events), the loader wait and
+     peak memory beside phase 8's;
   9. fp32 UNet: `encode_latents_in_fp16: false` builds an fp32 full-width
      UNet; one 256px batch-1 forward on the card runs its attention on
      plain math (the flash counter stays 0) and agrees with the same
@@ -79,7 +107,7 @@ Phases, each raising on failure (exit code 1):
      which backward ops are not deterministic); ba6 must be complete and
      ba3 pruned. Then a step right after an async save beside one
      without, and the restore's time alone. Last, a full-width fp16
-     diffusers directory (unet/, vae/ decoder, text_encoder/) written
+     diffusers directory (unet/, vae/ with its encoder, text_encoder/) written
      from seeded random modules by the port's safetensors writer; the
      endpoint built from it with `pretrained=True` and
      `checkpoint_path=ba6` must hold ba6's UNet and the fp16 towers in
@@ -124,6 +152,9 @@ TRAIN_MICRO = 16    # device_train_microbatch_size (SD-2-base-256.yaml)
 TRAIN_STEPS = 6
 COMPOSED_TRAIN, COMPOSED_EVAL = 256, 64   # samples (8 and 2 batches of 32)
 COMPOSED_EVAL_AT = 3                      # trainer.eval_interval, batches
+ONLINE_TRAIN, ONLINE_EVAL = 256, 64       # wds samples of the online run
+ONLINE_FLAG_EVERY = 8                     # every 8th flagged unsafe
+IMG2IMG_STRENGTH, INPAINT_STRENGTH = 0.5, 0.8
 DEVICE = "cuda:0"
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM peaks (data sheet; dense bf16 tensor cores, HBM3)
@@ -326,24 +357,33 @@ def _unet_group_norm_phase(card: str) -> dict:
     """Every GroupNorm call of one UNet forward, replayed from one CUDA
     graph (the device time alone): the 61 forward calls of a 256px training
     microbatch (batch 16) and of a 512px CFG step (batch 4), and the 61
-    backward calls of the microbatch, each total beside its summed byte
-    bound (x read once and y written once; x and g read once and dx written
+    backward calls of the microbatch; then the 22 calls of one VAE encode
+    of a 256px microbatch (batch 16) and of a 512px image, with their
+    kernel launches (the plans'). Each total beside its summed byte bound
+    (x read once and y written once; x and g read once and dx written
     once). Returns {what: (ms, bound_ms)}."""
     import torch
 
     from diffusion_torch.models.unet import SD2_BASE_UNET, group_norm_shapes
+    from diffusion_torch.models.vae import SD2_VAE, encoder_group_norm_shapes
     from diffusion_torch.ops import groupnorm as gn
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(4)
     out = {}
-    for what, batch, side, backward in (
-            ("256px microbatch (batch 16) forward", 16, 32, False),
-            ("512px CFG step (batch 4) forward", 4, 64, False),
-            ("256px microbatch (batch 16) backward", 16, 32, True)):
+    for what, shapes, backward in (
+            ("unet 256px microbatch (batch 16) forward",
+             group_norm_shapes(SD2_BASE_UNET, 16, 32), False),
+            ("unet 512px CFG step (batch 4) forward",
+             group_norm_shapes(SD2_BASE_UNET, 4, 64), False),
+            ("unet 256px microbatch (batch 16) backward",
+             group_norm_shapes(SD2_BASE_UNET, 16, 32), True),
+            ("vae encoder 256px microbatch (batch 16) forward",
+             encoder_group_norm_shapes(SD2_VAE, 16, 256, 256), False),
+            ("vae encoder 512px (batch 1) forward",
+             encoder_group_norm_shapes(SD2_VAE, 1, 512, 512), False)):
         calls = []
-        for shape, groups, act in group_norm_shapes(SD2_BASE_UNET, batch,
-                                                    side):
+        for shape, groups, act in shapes:
             x = torch.randn(shape, generator=gen, device=dev).bfloat16()
             c = shape[-1]
             scale = torch.randn(c, generator=gen, device=dev)
@@ -365,9 +405,11 @@ def _unet_group_norm_phase(card: str) -> dict:
                     gn.group_norm_cuda(x, scale, bias, 32, 1e-5, act)
 
         ms = _graph_ms(ours)
-        print(f"kernel group_norm unet {what}: {len(calls)} calls in a CUDA "
-              f"graph {ms:.4f} ms; summed byte bound {bound:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB) [{card}]")
+        kernels = sum(gn.plan(*shape, groups, 2, backward).launches
+                      for shape, groups, _ in shapes)
+        print(f"kernel group_norm {what}: {len(calls)} calls ({kernels} "
+              f"kernel launches) in a CUDA graph {ms:.4f} ms; summed byte "
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
         out[what] = (ms, bound)
         del calls
     return out
@@ -423,9 +465,13 @@ def _kernel_phase(card: str, parent=None):
         "group_norm", "group_norm_bwd", "flash_attention",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
 
-    # GroupNorm forward: the serving shapes, then the 256px training ones
+    # GroupNorm forward: the serving shapes, the 256px training one, then
+    # the VAE encoder's largest slabs at 256px, microbatch 16 (two launches
+    # and one)
     for shape, act in (((2, 4096, 320), "silu"), ((2, 1024, 640), None),
-                       ((1, 262144, 128), "silu"), ((16, 1024, 320), "silu")):
+                       ((1, 262144, 128), "silu"), ((16, 1024, 320), "silu"),
+                       ((16, 65536, 128), "silu"),
+                       ((16, 16384, 256), "silu")):
         x = randn(*shape)
         c = shape[-1]
         scale, bias = randn(c, dtype=torch.float32), randn(c, dtype=torch.float32)
@@ -612,15 +658,108 @@ def _kernel_phase(card: str, parent=None):
     return results
 
 
+def _smooth_image(rng, height: int, width: int):
+    """A uint8 (H, W, 3) image of smooth colour waves drawn from `rng` (a
+    photo-like JPEG, unlike white noise)."""
+    import numpy as np
+    y, x = np.mgrid[0:height, 0:width] / max(height, width)
+    out = np.empty((height, width, 3))
+    for c in range(3):
+        fx, fy, phase = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0), \
+            rng.uniform(0, 2 * np.pi)
+        out[..., c] = 127.5 + 127.5 * np.sin(2 * np.pi * (fx * x + fy * y)
+                                             + phase)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _jpeg(arr) -> bytes:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _b64_png(arr, mode=None) -> str:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode=mode).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def _left_half_mask(height: int, width: int):
+    """An inpainting mask, uint8 (H, W): white (255, regenerate) on the
+    left half, black (keep) on the right."""
+    import numpy as np
+    mask = np.zeros((height, width), np.uint8)
+    mask[:, :width // 2] = 255
+    return mask
+
+
+# the wds shards' JPEG sizes (width, height): non-square, so the reader's
+# resize and center crop both run
+_WDS_SIZES = ((320, 256), (256, 384), (400, 300), (288, 512))
+
+
+def _write_wds_shards(path: str, n: int, rng, start: int = 0,
+                      flag_every: int = 0, per_shard: int = 64):
+    """webdataset tar shards of `n` samples under `path` (`<key>.jpg`,
+    `.txt` caption "wds sample <i>", `.json` with width, height and
+    punsafe: 0.9 on every `flag_every`-th sample, else 0.1) and a JSON
+    manifest of them; returns (manifest path, the flagged keys, bytes)."""
+    import tarfile
+    os.makedirs(path, exist_ok=True)
+    shards, flagged, nbytes = [], set(), 0
+    for first in range(start, start + n, per_shard):
+        shard = os.path.join(path, f"{first:06d}.tar")
+        with tarfile.open(shard, "w") as tf:
+            for i in range(first, min(first + per_shard, start + n)):
+                w, h = _WDS_SIZES[i % len(_WDS_SIZES)]
+                unsafe = bool(flag_every) and i % flag_every == 5
+                if unsafe:
+                    flagged.add(f"{i:06d}")
+                meta = {"width": w, "height": h,
+                        "punsafe": 0.9 if unsafe else 0.1}
+                for ext, data in (
+                        ("jpg", _jpeg(_smooth_image(rng, h, w))),
+                        ("txt", f"wds sample {i}".encode()),
+                        ("json", json.dumps(meta).encode())):
+                    info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+        shards.append(shard)
+        nbytes += os.path.getsize(shard)
+    manifest = os.path.join(path, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump({"shards": shards}, f)
+    return manifest, flagged, nbytes
+
+
+def _write_coco_shards(path: str, n: int, rng) -> int:
+    """COCO's MDS columns (`image` JPEG bytes of COCO-like non-square sizes,
+    `captions` a JSON list of five) with the port's MDSWriter, values from
+    `rng`; returns the bytes written."""
+    from diffusion_torch.data.mds import MDSWriter
+    sizes = ((640, 480), (480, 640), (500, 375))
+    with MDSWriter(path, {"image": "bytes", "captions": "json"},
+                   size_limit=1 << 23) as w:
+        for i in range(n):
+            width, height = sizes[i % len(sizes)]
+            w.write({"image": _jpeg(_smooth_image(rng, height, width)),
+                     "captions": [f"coco image {i}, caption {k}"
+                                  for k in range(5)]})
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
 def _rel_l2(got, want) -> float:
     got, want = got.float().cpu(), want.float().cpu()
     return ((got - want).norm() / want.norm()).item()
 
 
 def _reference_phase(model, card: str) -> None:
-    """The full-width UNet and VAE decoder on the card (bf16, kernels)
-    against the same weights on the CPU (fp32, plain versions), at 256px so
-    the UNet's first stage (S=1024) runs the flash kernel."""
+    """The full-width UNet, VAE decoder and VAE encoder on the card (bf16,
+    kernels) against the same weights on the CPU (fp32, plain versions), at
+    256px so the UNet's first stage (S=1024) runs the flash kernel; the
+    encoder on a 64x64 batch-1 image (its posterior's mean and logvar)."""
     import copy
 
     import torch
@@ -630,25 +769,167 @@ def _reference_phase(model, card: str) -> None:
     t = torch.tensor([999, 20])
     ctx = torch.randn((2, 77, 1024), generator=gen)
     z = torch.randn((1, 4, 16, 16), generator=gen)
+    x = torch.rand((1, 3, 64, 64), generator=gen) * 2.0 - 1.0
+
+    def encode(m, dev):
+        post = m.encode(x.to(dev))
+        return {"posterior mean": post.mean, "posterior logvar": post.logvar}
+
     for name, module, run in (
-            ("UNet", model.unet, lambda m, dev: m(lat.to(dev), t.to(dev),
-                                                  ctx.to(dev))),
-            ("VAE decode", model.vae, lambda m, dev: m.decode(z.to(dev)))):
+            ("UNet", model.unet, lambda m, dev: {"": m(
+                lat.to(dev), t.to(dev), ctx.to(dev))}),
+            ("VAE decode", model.vae, lambda m, dev: {"": m.decode(
+                z.to(dev))}),
+            ("VAE encode", model.vae, encode)):
         with torch.inference_mode():
             got = run(module, "cuda:0")
             ref = copy.deepcopy(module).to("cpu")
             ref.dtype = torch.float32
             want = run(ref, "cpu")
         del ref
-        err = _rel_l2(got, want)
-        finite = bool(torch.isfinite(got).all())
-        # bf16 keeps 8 significant bits (2**-8 relative per rounding); the
-        # roundings of ~100 layers add up to a few percent of the output
-        print(f"reference: {name} {tuple(got.shape)} bf16 on the card vs "
-              f"fp32 on the CPU: relative L2 error {err:.3e} (bound 5e-2), "
-              f"finite {finite} [{card}]")
-        _check(finite and err <= 5e-2,
-               f"{name} disagrees with its fp32 CPU reference")
+        for part, out in got.items():
+            err = _rel_l2(out, want[part])
+            finite = bool(torch.isfinite(out).all())
+            # bf16 keeps 8 significant bits (2**-8 relative per rounding);
+            # the roundings of ~100 layers add up to a few percent
+            print(f"reference: {name}{' ' + part if part else ''} "
+                  f"{tuple(out.shape)} bf16 on the card vs fp32 on the CPU: "
+                  f"relative L2 error {err:.3e} (bound 5e-2), finite "
+                  f"{finite} [{card}]")
+            _check(finite and err <= 5e-2,
+                   f"{name} {part} disagrees with its fp32 CPU reference")
+
+
+def _img2img_phase(endpoint, card: str, merged_s: float) -> dict:
+    """Phase 5b: img2img and inpainting on the full-width endpoint (see the
+    module docstring). Returns the forward kernels' launches in its three
+    requests."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffusion_torch.inference.serve import make_server
+    from diffusion_torch.models.unet import group_norm_shapes
+    from diffusion_torch.models.vae import encoder_group_norm_shapes
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+
+    t_phase = time.perf_counter()
+    model = endpoint.model
+    per_step_gn = len(group_norm_shapes(model.unet.config, 2, SIZE // 8))
+    rng = np.random.default_rng(5)
+    src = _smooth_image(rng, SIZE, SIZE)
+    image_b64 = _b64_png(src)
+    mask_b64 = _b64_png(_left_half_mask(SIZE, SIZE), "L")
+    dev = model.device
+
+    # the encoder alone: its GroupNorm calls, and times at two sizes
+    n_calls = len(encoder_group_norm_shapes(model.vae.config, 1, SIZE, SIZE))
+    with torch.inference_mode():
+        x512 = torch.rand((2, 3, SIZE, SIZE), device=dev) * 2 - 1
+        x256 = torch.rand((TRAIN_MICRO, 3, TRAIN_SIZE, TRAIN_SIZE),
+                          device=dev) * 2 - 1
+        model.vae.encode(x512[:1])          # cuDNN picks per shape
+        torch.cuda.synchronize()
+        gn.launches.reset()
+        model.vae.encode(x512[:1])
+        torch.cuda.synchronize()
+        per_encode = gn.launches.value
+        times = {shape: _time_ms(lambda: model.vae.encode(x), iters=5,
+                                 warmup=2)
+                 for shape, x in (((2, SIZE), x512),
+                                  ((TRAIN_MICRO, TRAIN_SIZE), x256))}
+    del x512, x256
+    print(f"img2img: VAE encode: {per_encode} GroupNorm calls an encode "
+          f"(expected {n_calls}); {times[(2, SIZE)]:.2f} ms at {SIZE}px "
+          f"batch 2, {times[(TRAIN_MICRO, TRAIN_SIZE)]:.2f} ms at "
+          f"{TRAIN_SIZE}px batch {TRAIN_MICRO} (CUDA events, 5 encodes "
+          f"after 2) [{card}]")
+    _check(per_encode == n_calls, "the encoder's GroupNorm calls did not all "
+           "go through the kernel's wrapper")
+
+    # three requests over HTTP, one at a time: text-to-image, img2img and
+    # inpainting at the same step count
+    server = make_server(endpoint, "127.0.0.1", 0, max_batch_size=1,
+                         batch_wait_ms=0.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    common = {"prompt": "a lighthouse on a cliff at dusk", "guidance_scale":
+              7.5, "seed": 0, "height": SIZE, "width": SIZE,
+              "num_inference_steps": STEPS}
+    requests = (("text", {}),
+                ("img2img", {"image": image_b64,
+                             "strength": IMG2IMG_STRENGTH}),
+                ("inpaint", {"image": image_b64, "mask": mask_b64,
+                             "strength": INPAINT_STRENGTH}))
+    results, launches = {}, {}
+    try:
+        for key, extra in requests:
+            gn.launches.reset()
+            fa.launches.reset()
+            _post(server.server_address[1], {**common, **extra}, results, key)
+            torch.cuda.synchronize()
+            launches[key] = {"group_norm": gn.launches.value,
+                             "flash_attention": fa.launches.value}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    steps = {"text": STEPS, "img2img": int(STEPS * IMG2IMG_STRENGTH),
+             "inpaint": int(STEPS * INPAINT_STRENGTH)}
+    for key, _ in requests:
+        _check(key in results, f"request {key} got no response")
+        status, body, seconds = results[key]
+        _check(status == 200, f"request {key}: HTTP {status} {body}")
+        img = Image.open(io.BytesIO(base64.b64decode(body["images"][0])))
+        img.load()
+        _check(img.size == (SIZE, SIZE) and img.mode == "RGB",
+               f"request {key}: PNG {img.size} {img.mode}")
+        print(f"img2img: request {key}: HTTP 200, {img.size[0]}x"
+              f"{img.size[1]} PNG, {STEPS} steps ({steps[key]} run), "
+              f"{seconds:.3f} s end to end, beside phase 4's two merged "
+              f"{STEPS}-step text-to-image requests {merged_s:.3f} s; "
+              f"launches {json.dumps(launches[key])} [{card}]")
+        # the UNet's calls scale with the steps run; the encoder adds its
+        # GroupNorm calls once
+        want_gn = (launches["text"]["group_norm"]
+                   - per_step_gn * (STEPS - steps[key])
+                   + (n_calls if key != "text" else 0))
+        _check(launches[key]["group_norm"] == want_gn
+               and launches[key]["flash_attention"] * STEPS
+               == launches["text"]["flash_attention"] * steps[key],
+               f"request {key}: launches {launches[key]} are not the "
+               f"encoder's {n_calls} GroupNorm calls and {steps[key]} "
+               f"UNet steps beside text-to-image's {launches['text']}")
+
+    # the mask's extremes through generate, with the same draws
+    ids = torch.from_numpy(model.tokenizer([common["prompt"]])["input_ids"])
+    image = torch.from_numpy(src.astype(np.float32) / 255.0)[None].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lat = (1, SIZE // 8, SIZE // 8, 4)
+    eps = torch.randn(lat, generator=gen, device=dev)
+    noise = torch.randn(lat, generator=gen, device=dev)
+    kw = dict(height=SIZE, width=SIZE, guidance_scale=7.5,
+              num_inference_steps=STEPS, image=image,
+              strength=IMG2IMG_STRENGTH, latents=noise, latent_noise=eps)
+    plain = model.generate(ids, **kw)
+    ones = model.generate(ids, mask=torch.ones((1, SIZE, SIZE)), **kw)
+    zeros = model.generate(ids, mask=torch.zeros((1, SIZE, SIZE)), **kw)
+    with torch.inference_mode():
+        lat0 = model.encode_images(image * 2.0 - 1.0, eps)
+        recon = model.vae.decode(lat0.permute(0, 3, 1, 2) / model.latent_scale)
+        recon = (recon * 0.5 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    same_ones, same_zeros = torch.equal(plain, ones), torch.equal(zeros, recon)
+    finite = bool(torch.isfinite(plain).all())
+    print(f"img2img: generate on the card with the same draws: an all-ones "
+          f"mask equals img2img {same_ones}, an all-zeros mask equals the "
+          f"VAE reconstruction decode(lat0) {same_zeros}; finite {finite}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    _check(same_ones and same_zeros and finite,
+           "the inpainting blend is not the identity at mask 1 or the "
+           "reconstruction at mask 0")
+    return {k: sum(v[k] for v in launches.values())
+            for k in ("group_norm", "flash_attention")}
 
 
 def _grad_reference_phase(model, card: str) -> None:
@@ -892,31 +1173,42 @@ def _write_laion_shards(path: str, n: int, rng, size: int = TRAIN_SIZE,
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def _composed_overrides(tmp: str, phase: str, metrics_file: str) -> list:
-    """Write the composed run's LAION shards under `tmp` (the same bytes
-    on every call: a numpy seed) and return the dotted overrides that
-    point yamls/SD-2-base-256.yaml at them: global batch 32, 6 batches,
-    an eval after batch 3, a FileLogger and the ComposedRecord callback."""
+def _composed_overrides(tmp: str, phase: str, metrics_file: str,
+                        coco_eval: bool = False) -> list:
+    """Write the composed run's LAION training shards under `tmp` (the same
+    bytes on every call: a numpy seed) and its eval shards, and return the
+    dotted overrides that point yamls/SD-2-base-256.yaml at them: global
+    batch 32, 6 batches, an eval after batch 3, a FileLogger and the
+    ComposedRecord callback. With `coco_eval` the eval set is the
+    recipe's own COCO reader over COCO MDS shards (raw JPEGs, encoded by
+    the VAE, so the model builds its frozen towers); else the LAION
+    reader over precomputed latents."""
     import numpy as np
     t0 = time.perf_counter()
     rng = np.random.default_rng(6)
     train_dir, eval_dir = (os.path.join(tmp, d) for d in ("train", "eval"))
-    nbytes = (_write_laion_shards(train_dir, COMPOSED_TRAIN, rng),
-              _write_laion_shards(eval_dir, COMPOSED_EVAL, rng))
-    print(f"{phase}: wrote {COMPOSED_TRAIN} training and {COMPOSED_EVAL}"
-          f" eval LAION samples ({nbytes[0] / 1e6:.1f} + "
-          f"{nbytes[1] / 1e6:.1f} MB of MDS shards) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    nbytes = _write_laion_shards(train_dir, COMPOSED_TRAIN, rng)
+    if coco_eval:
+        eval_bytes = _write_coco_shards(eval_dir, COMPOSED_EVAL, rng)
+        eval_overrides = ["+model.init_frozen_towers=true"]
+    else:
+        eval_bytes = _write_laion_shards(eval_dir, COMPOSED_EVAL, rng)
+        eval_overrides = [
+            "dataset.eval_dataset._target_="
+            "diffusion_tpu.data.laion.build_streaming_laion_dataloader",
+            "+dataset.eval_dataset.precomputed_latents=true"]
+    print(f"{phase}: wrote {COMPOSED_TRAIN} training LAION samples and "
+          f"{COMPOSED_EVAL} eval {'COCO' if coco_eval else 'LAION'} samples "
+          f"({nbytes / 1e6:.1f} + {eval_bytes / 1e6:.1f} MB of MDS shards) "
+          f"in {time.perf_counter() - t0:.1f} s")
     return [
         f"batch_size={TRAIN_BATCH}",
         f"dataset.train_dataset.remote={train_dir}",
         f"dataset.train_dataset.local={train_dir}",
         "dataset.train_dataset.num_workers=2",
-        "dataset.eval_dataset._target_="
-        "diffusion_tpu.data.laion.build_streaming_laion_dataloader",
+        *eval_overrides,
         f"dataset.eval_dataset.remote={eval_dir}",
         f"dataset.eval_dataset.local={eval_dir}",
-        "+dataset.eval_dataset.precomputed_latents=true",
         f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
         f"dataset.eval_batch_size={TRAIN_BATCH}",
         "dataset.eval_dataset.num_workers=2",
@@ -941,7 +1233,8 @@ def _composed_phase(card: str, train_step_s: float):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_laion_") as tmp:
         metrics_file = os.path.join(tmp, "metrics.jsonl")
-        overrides = _composed_overrides(tmp, "composed", metrics_file)
+        overrides = _composed_overrides(tmp, "composed", metrics_file,
+                                        coco_eval=True)
         config = load_config(os.path.join(_ROOT, "yamls",
                                           "SD-2-base-256.yaml"), overrides)
         print(f"composed: yamls/SD-2-base-256.yaml with {len(overrides)} "
@@ -964,6 +1257,10 @@ def _composed_phase(card: str, train_step_s: float):
     record = next(c for c in trainer.engine.callbacks
                   if type(c).__name__ == "ComposedRecord")
     model = trainer.model
+    eval_set = type(trainer.evaluators[0].dataloader.dataset).__name__
+    _check(eval_set == "StreamingCOCOCaption" and model.vae is not None,
+           f"the eval set is {eval_set}, not the recipe's COCO reader, or "
+           f"the towers were not built")
     print(f"composed: model {type(model).__module__}.{type(model).__name__}, "
           f"UNet {sum(p.numel() for p in model.unet.parameters()) / 1e6:.1f}M"
           f" params, compute {model.unet.dtype}; loaders "
@@ -1011,9 +1308,11 @@ def _composed_phase(card: str, train_step_s: float):
     mse = evals[0]["metrics/eval/MeanSquaredError"]
     mse_bin = evals[0]["metrics/eval/MeanSquaredError/bin-0-1"]
     _, eval_s, eval_launches = record.evals[0]
-    print(f"composed: eval after batch {COMPOSED_EVAL_AT}: MSE {mse:.6f}, "
-          f"bin 0-1 {mse_bin:.6f}, {COMPOSED_EVAL // TRAIN_BATCH} batches of "
-          f"{TRAIN_BATCH} in {eval_s * 1e3:.1f} ms [{card}]")
+    print(f"composed: eval after batch {COMPOSED_EVAL_AT} on the recipe's "
+          f"COCO reader ({eval_set}; its [0, 1] images encoded as they come, "
+          f"as the reference encodes them, ROADMAP.md queue 3 fault 8): MSE "
+          f"{mse:.6f}, bin 0-1 {mse_bin:.6f}, {COMPOSED_EVAL // TRAIN_BATCH} "
+          f"batches of {TRAIN_BATCH} in {eval_s * 1e3:.1f} ms [{card}]")
     _check(math.isfinite(mse) and mse == mse_bin,
            "the eval MSE is not finite or differs from its (0, 1) bin")
     fit_launches = {k: launches[k] - eval_launches[k] for k in launches}
@@ -1029,7 +1328,238 @@ def _composed_phase(card: str, train_step_s: float):
     for name in ("group_norm", "flash_attention"):
         _check(eval_launches[name] > 0,
                f"{name} kernel was not launched during the eval")
-    return launches, [m for m, *_ in record.steps]
+    return launches, [m for m, *_ in record.steps], {
+        "step_s": step_s, "wait_s": wait_s, "peak": peak}
+
+
+class OnlineRecord(ComposedRecord):
+    """ComposedRecord for the online-encode run, and: the captions of each
+    training batch; the frozen VAE and CLIP parameters when the fit starts,
+    held against themselves (torch.equal) and their `.grad` when it ends;
+    and the span of the towers' encode on the stream inside each training
+    step (CUDA events around the model's `encode_images` and
+    `encode_text`: the device's gaps while the host launches count)."""
+
+    def __init__(self):
+        super().__init__()
+        self.captions, self.encode_ms = [], []
+        self.towers = {}
+        self.towers_unchanged = self.towers_no_grad = None
+        self._events, self._in_step = [], False
+
+    def _timed(self, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            if not self._in_step:
+                return fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self._events.append((start, end))
+            return out
+        return timed
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+        name = event.value
+        model = state.model
+        if name == "fit_start":
+            self.towers = {f"{part}.{n}": p.detach().clone()
+                           for part in ("vae", "text_encoder")
+                           for n, p in getattr(model, part).named_parameters()}
+            for attr in ("encode_images", "encode_text"):
+                setattr(model, attr, self._timed(getattr(model, attr)))
+        elif name == "after_dataloader":
+            self.captions.append(state.batch["captions"].cpu().numpy())
+        elif name == "batch_start":
+            self._events, self._in_step = [], True
+        elif name == "batch_end":
+            torch.cuda.synchronize()
+            self.encode_ms.append(sum(a.elapsed_time(b)
+                                      for a, b in self._events))
+            self._in_step = False
+        elif name == "fit_end":
+            for attr in ("encode_images", "encode_text"):
+                delattr(model, attr)
+            live = {f"{part}.{n}": p for part in ("vae", "text_encoder")
+                    for n, p in getattr(model, part).named_parameters()}
+            self.towers_unchanged = sorted(live) == sorted(self.towers) and \
+                all(torch.equal(p, self.towers[n]) for n, p in live.items())
+            self.towers_no_grad = all(p.grad is None and not p.requires_grad
+                                      for p in live.values())
+            self.towers = {}
+        super().run_event(event, state, logger)
+
+
+def _online_overrides(tmp: str, metrics_file: str, card: str) -> tuple:
+    """Write the online run's webdataset shards and filter strategy under
+    `tmp` (a numpy seed) and return (the dotted overrides that point
+    yamls/SD-2-base-256-wds.yaml at them, the training manifest, the
+    strategy file, the flagged keys): global batch 32 in microbatches of
+    16, 6 batches, an eval of 64 samples after batch 3, a FileLogger and
+    the OnlineRecord callback."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    train, flagged, nb_train = _write_wds_shards(
+        os.path.join(tmp, "train"), ONLINE_TRAIN, rng,
+        flag_every=ONLINE_FLAG_EVERY)
+    evals, _, nb_eval = _write_wds_shards(
+        os.path.join(tmp, "eval"), ONLINE_EVAL, rng, start=ONLINE_TRAIN)
+    strategy = os.path.join(tmp, "filter_strategy.json")
+    with open(strategy, "w") as f:
+        json.dump({"punsafe": {"max": 0.5, "default": True}}, f)
+    print(f"online: wrote {ONLINE_TRAIN} training samples ({len(flagged)} "
+          f"flagged punsafe 0.9) and {ONLINE_EVAL} eval samples, JPEGs of "
+          f"{', '.join(f'{w}x{h}' for w, h in _WDS_SIZES)} with .txt and "
+          f".json ({nb_train / 1e6:.1f} + {nb_eval / 1e6:.1f} MB of tar "
+          f"shards) in {time.perf_counter() - t0:.1f} s on the host [{card}]")
+    return [
+        f"batch_size={TRAIN_BATCH}",
+        f"trainer.device_train_microbatch_size={TRAIN_MICRO}",
+        f"dataset.train_dataset.meta_json={train}",
+        f"dataset.train_dataset.filter_strategy={strategy}",
+        f"dataset.eval_dataset.meta_json={evals}",
+        f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
+        f"dataset.eval_batch_size={TRAIN_BATCH}",
+        f"trainer.max_duration={TRAIN_STEPS}ba",
+        f"trainer.eval_interval={COMPOSED_EVAL_AT}ba",
+        "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
+        f"+logger.file.filename={metrics_file}",
+        f"+callbacks.chip_smoke._target_={__name__}.OnlineRecord"], \
+        train, strategy, flagged
+
+
+def _online_phase(card: str, composed: dict):
+    """Phase 8b: the unedited yamls/SD-2-base-256-wds.yaml (raw images from
+    tar shards, encoded online by the frozen VAE and CLIP) through the
+    port's loader and `train(config)`; returns the five kernels' launches
+    during the run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.data.datapipes import (filter_samples, list_shards,
+                                                tar_samples)
+    from diffusion_torch.data.filters import load_filter_strategy
+    from diffusion_torch.text.tokenizer import tiny_tokenizer
+    from diffusion_torch.train.train import train
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wds_") as tmp:
+        metrics_file = os.path.join(tmp, "metrics.jsonl")
+        overrides, manifest, strategy, flagged = _online_overrides(
+            tmp, metrics_file, card)
+        config = load_config(os.path.join(_ROOT, "yamls",
+                                          "SD-2-base-256-wds.yaml"), overrides)
+        print(f"online: yamls/SD-2-base-256-wds.yaml with {len(overrides)} "
+              f"dotted overrides: {' '.join(overrides)}")
+        # what the filter keeps, read straight from the shards
+        kept = {s["__key__"] for s in filter_samples(
+            tar_samples(list_shards([], manifest=manifest)),
+            load_filter_strategy(strategy))}
+        counters = _counters()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(metrics_file) as f:
+            records = [json.loads(line) for line in f]
+
+    record = next(c for c in trainer.engine.callbacks
+                  if type(c).__name__ == "OnlineRecord")
+    model = trainer.model
+    print(f"online: model {type(model).__module__}.{type(model).__name__}, "
+          f"precomputed_latents {model.precomputed_latents}, VAE "
+          f"{sum(p.numel() for p in model.vae.parameters()) / 1e6:.1f}M and "
+          f"CLIP text {sum(p.numel() for p in model.text_encoder.parameters()) / 1e6:.1f}M"
+          f" frozen, UNet compute {model.unet.dtype}; train loader "
+          f"{type(trainer.train_dataloader).__module__}."
+          f"{type(trainer.train_dataloader).__name__}")
+    for i, (m, _, lr, own) in enumerate(record.steps):
+        print(f"online: step {i}: loss {m['loss/train/total']:.6f}, grad norm"
+              f" {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
+              f"{own * 1e3:.1f} ms to the step's metrics; the towers' encode "
+              f"spans {record.encode_ms[i]:.1f} ms of the stream [{card}]")
+    _check(trainer.state.timestamp.batch == TRAIN_STEPS
+           and len(record.steps) == TRAIN_STEPS,
+           "the online-encode run did not take its 6 batches")
+    _check(all(math.isfinite(v) for m, *_ in record.steps
+               for v in m.values()),
+           "a loss or grad norm of the online-encode run is not finite")
+    evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
+    _check(len(evals) == 1 and evals[0]["step"] == COMPOSED_EVAL_AT
+           and math.isfinite(evals[0]["metrics/eval/MeanSquaredError"]),
+           f"expected one finite eval after batch {COMPOSED_EVAL_AT}: {evals}")
+
+    # the filter dropped exactly the flagged samples
+    every = {f"{i:06d}" for i in range(ONLINE_TRAIN)}
+    tok = tiny_tokenizer()
+    ids = {key: tuple(tok(f"wds sample {int(key)}")["input_ids"][0])
+           for key in every}
+    seen = {tuple(r) for batch in record.captions for r in batch}
+    flagged_ids = {ids[k] for k in flagged}
+    print(f"online: filter strategy punsafe <= 0.5: the shards' "
+          f"{ONLINE_TRAIN} samples, {len(flagged)} flagged, {len(kept)} kept;"
+          f" the run's {len(record.captions)} batches hold {len(seen)} "
+          f"distinct captions, none flagged: {not seen & flagged_ids}")
+    _check(kept == every - flagged
+           and len(flagged) == ONLINE_TRAIN // ONLINE_FLAG_EVERY
+           and seen <= {ids[k] for k in kept} and not seen & flagged_ids
+           and len(seen) == TRAIN_STEPS * TRAIN_BATCH,
+           "the filter did not drop exactly the flagged samples")
+
+    times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+    train_times = [t for i, t in enumerate(times) if i + 1 != COMPOSED_EVAL_AT]
+    step_s = sum(train_times) / len(train_times)
+    wait_s = sum(record.waits[1:]) / (len(record.waits) - 1)
+    enc_ms = float(np.mean([e for i, e in enumerate(record.encode_ms) if i]))
+    own_s = float(np.mean([st[3] for i, st in enumerate(record.steps)
+                           if i and i != COMPOSED_EVAL_AT]))
+    eval_mse = evals[0]["metrics/eval/MeanSquaredError"]
+    _, eval_s, eval_launches = record.evals[0]
+    print(f"online: SD-2-base {TRAIN_SIZE}px from raw images, global batch "
+          f"{TRAIN_BATCH} in microbatches of {TRAIN_MICRO}: run {wall:.2f} s "
+          f"(composition and build included); step time after the first "
+          f"{step_s * 1e3:.1f} ms (steps: {', '.join(f'{x * 1e3:.1f}' for x in times)}"
+          f" ms, the one after the eval left out), {TRAIN_BATCH / step_s:.2f} "
+          f"samples/s, against phase 8's {composed['step_s'] * 1e3:.1f} ms and"
+          f" {TRAIN_BATCH / composed['step_s']:.2f} samples/s from latents; "
+          f"the towers' encode spans {enc_ms:.1f} ms of the stream (CUDA "
+          f"events around it, the device's gaps while the host launches "
+          f"included; {enc_ms / (step_s * 1e3):.3f} of the step); loader wait "
+          f"{wait_s * 1e3:.1f} ms a step after the first "
+          f"({wait_s / step_s:.3f} of the step; phase 8's "
+          f"{composed['wait_s'] * 1e3:.1f} ms), the step's own time "
+          f"{own_s * 1e3:.1f} ms; eval MSE {eval_mse:.6f} over "
+          f"{ONLINE_EVAL} samples in {eval_s * 1e3:.1f} ms; peak device "
+          f"memory {peak:.2f} GiB (phase 8's {composed['peak']:.2f}) "
+          f"[{card}]")
+    fit_launches = {k: launches[k] - eval_launches[k] for k in launches}
+    print(f"online: kernel launches during the fit "
+          f"{json.dumps(fit_launches)}, during the eval "
+          f"{json.dumps(eval_launches)}; frozen towers bit-unchanged "
+          f"{record.towers_unchanged}, without gradients "
+          f"{record.towers_no_grad}; phase {time.perf_counter() - t_phase:.1f}"
+          f" s [{card}]")
+    for name in launches:
+        _check(fit_launches[name] > 0,
+               f"{name} kernel was not launched during the online fit")
+    _check(record.towers_unchanged and record.towers_no_grad,
+           "the frozen VAE or CLIP changed or got a gradient")
+    del trainer, model
+    return launches
 
 
 def _fp32_unet_phase(card: str) -> None:
@@ -1132,7 +1662,7 @@ class ResumeCheck:
 
 
 def _sd2_sizes() -> tuple:
-    """Parameter counts of the full-width UNet, VAE decoder and CLIP text
+    """Parameter counts of the full-width UNet, VAE and CLIP text
     tower, from modules on the meta device (no memory, no weights)."""
     import torch
 
@@ -1150,7 +1680,7 @@ def _checkpoint_disk_need(n_unet: int, n_vae: int, n_text: int,
     """Bytes the checkpoint phase holds on disk at its peak: two
     checkpoints (fp32 params, mu and nu of the UNet; the yaml has no EMA)
     until the newer one is marked and the older pruned, the fp16
-    pretrained directory (UNet, VAE decoder, CLIP text) and the MDS
+    pretrained directory (UNet, VAE, CLIP text) and the MDS
     shards."""
     ckpt = 3 * 4 * n_unet
     pretrained = 2 * (n_unet + n_vae + n_text)
@@ -1445,7 +1975,7 @@ def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
     gc.collect()
     torch.cuda.empty_cache()
     print(f"checkpoint: pretrained directory (diffusers layout, fp16: unet/,"
-          f" vae/ decoder and post_quant_conv, text_encoder/) "
+          f" vae/ encoder and decoder, text_encoder/) "
           f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s [{card}]")
 
     t0 = time.perf_counter()
@@ -1817,6 +2347,9 @@ def main(argv=None) -> int:
     print(f"times: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
 
+    # 5b. img2img and inpainting on the same endpoint
+    img2img_launches = _img2img_phase(endpoint, card, results["first"][2])
+
     # 6-7. the training slice, on a model of its own: free the endpoint;
     # its UNet, whose CFG step is profiled last, waits on the CPU so the
     # training phase's peak memory is its own
@@ -1838,7 +2371,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 8-9. the composed run, and the fp32 UNet
-    composed_launches, composed_steps = _composed_phase(card, train_step_s)
+    composed_launches, composed_steps, composed = _composed_phase(
+        card, train_step_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    online_launches = _online_phase(card, composed)
     gc.collect()
     torch.cuda.empty_cache()
     _fp32_unet_phase(card)
@@ -1869,8 +2406,10 @@ def main(argv=None) -> int:
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (launches.get(name, 0) + train_launches[name]
-                         + composed_launches[name]
+            "launches": (launches.get(name, 0)
+                         + img2img_launches.get(name, 0)
+                         + train_launches[name] + composed_launches[name]
+                         + online_launches[name]
                          + checkpoint_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],

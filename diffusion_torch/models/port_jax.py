@@ -103,12 +103,9 @@ def unet_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def vae_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """`AutoencoderKL` params -> the port's decode-path state_dict
-    (`decoder.*`, `post_quant_conv.*`); the encoder's params are dropped
-    until the port has an encoder."""
-    flat = {k: v for k, v in _flatten(tree).items()
-            if k.split("/")[0] in ("decoder", "post_quant_conv")}
-    return _convert(flat,
+    """`AutoencoderKL` params -> the port's VAE state_dict (`encoder.*`,
+    `quant_conv.*`, `decoder.*`, `post_quant_conv.*`)."""
+    return _convert(_flatten(tree),
                     lambda parts: ".".join(_block_name(p) for p in parts))
 
 

@@ -37,9 +37,6 @@ _PORTERS: Dict[str, Callable] = {"unet": unet_from_jax, "vae": vae_from_jax,
 
 # component -> (key prefixes the port sets aside, why)
 SET_ASIDE: Dict[str, Tuple[Tuple[str, ...], str]] = {
-    "vae": (("encoder.", "quant_conv."),
-            "the port's VAE decodes only; the encoder comes with ROADMAP.md "
-            "queue 1 item 6"),
     "text_encoder": (("text_model.embeddings.position_ids",),
                      "transformers' buffer of position indices; the port "
                      "computes the positions"),

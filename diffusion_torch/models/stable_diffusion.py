@@ -1,22 +1,26 @@
-"""StableDiffusion: the training forward and loss on precomputed latents,
-and text-to-image generation (CLIP text -> CFG DDIM loop over the UNet ->
-VAE decode).
+"""StableDiffusion: the training forward and loss (on precomputed latents,
+or on raw images encoded by the frozen VAE and CLIP towers), and
+generation: text-to-image, img2img (SDEdit) and inpainting (CLIP text ->
+CFG DDIM loop over the UNet -> VAE decode).
 
 Counterpart of `diffusion_tpu/models/stable_diffusion.py`. The modules own
 their weights, so no param trees are passed around; the denoise loop is a
-Python loop in place of `lax.scan`; timesteps and noise come from an
-explicit `torch.Generator`, or are passed in (`forward(noise=,
-timesteps=)`), so a test can hand both packages the same draws.
+Python loop in place of `lax.scan`; every draw (the posterior's eps, the
+timesteps, the noise, img2img's noise) comes from an explicit
+`torch.Generator`, or is passed in (`forward(noise=, timesteps=,
+latent_noise=)`, `generate(latents=, latent_noise=)`), so a test can hand
+both packages the same draws.
 
-Public layouts match JAX: the batch's `image_latents` are (B, H/8, W/8, 4)
-and `caption_latents` (B, 77, D); `forward` returns the prediction and
-target in that NHWC layout; `generate` takes latents (B, H/8, W/8, 4) and
-returns images (B, H, W, 3) in [0, 1]. Inside, latents are NCHW views of
-the same memory (channels_last).
+Public layouts match JAX: the batch's `image` is (B, H, W, 3),
+`captions` (B, 77) token ids, `image_latents` (B, H/8, W/8, 4) and
+`caption_latents` (B, 77, D); `forward` returns the prediction and target
+in the latents' NHWC layout; `generate` takes latents and noise
+(B, H/8, W/8, 4), images (B, H, W, 3) in [0, 1] and masks (B, H, W[, 1])
+or (B, H/8, W/8[, 1]), and returns images (B, H, W, 3) in [0, 1]. Inside,
+latents are NCHW views of the same memory (channels_last).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): raw-image training batches (the VAE encoder), img2img and
-inpainting, guidance rescale.
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+guidance rescale.
 """
 
 from __future__ import annotations
@@ -33,12 +37,10 @@ from diffusion_torch.schedulers import DDIMScheduler, DDPMScheduler
 
 __all__ = ["StableDiffusion"]
 
-# the JAX batch contract's keys for precomputed VAE and CLIP latents
+# the JAX batch contract's keys: raw images and token ids, or precomputed
+# VAE and CLIP latents
+_IMAGE, _IDS = "image", "captions"
 _LATENTS, _CAPTIONS = "image_latents", "caption_latents"
-_ENCODER = ("VAE encoding of raw-image batches comes with ROADMAP.md queue 1 "
-            "item 6 (VAE encoder, img2img and inpainting)")
-_IMG2IMG = ("img2img and inpainting come with ROADMAP.md queue 1 item 6 "
-            "(VAE encoder, img2img and inpainting)")
 _RESCALE = ("guidance_rescale > 0 comes with ROADMAP.md queue 1 item 7 "
             "(DPM++/Euler samplers and guidance rescale)")
 
@@ -86,19 +88,55 @@ class StableDiffusion:
         return ids
 
     # ---------------- training ----------------
+    @torch.no_grad()
+    def encode_images(self, images: torch.Tensor,
+                      latent_noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Images (B, H, W, 3), in [-1, 1] by the batch contract, -> scaled
+        latents (B, H/8, W/8, 4) fp32: a posterior sample times
+        `latent_scale`. The sample's eps (the latents' shape) is drawn from
+        `generator` unless given. No autograd graph: the towers are
+        frozen, and the encoder's activations are not kept."""
+        if self.vae is None:
+            raise RuntimeError(
+                "batch carries raw images but the frozen VAE/CLIP towers "
+                "were not initialized (init_frozen_towers resolved False — "
+                "precomputed_latents=True with no guidance scales). Either "
+                "feed precomputed-latent batches to every dataloader "
+                "(including eval) or set init_frozen_towers=True.")
+        device = self.device
+        posterior = self.vae.encode(
+            images.to(device, non_blocking=True).permute(0, 3, 1, 2))
+        b, c, h, w = posterior.mean.shape
+        if latent_noise is None:
+            latent_noise = torch.randn((b, h, w, c), generator=generator,
+                                       device=device, dtype=torch.float32)
+        eps = latent_noise.to(device, torch.float32).permute(0, 3, 1, 2)
+        latents = posterior.sample(eps) * self.latent_scale
+        return latents.permute(0, 2, 3, 1).contiguous()
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                timesteps: Optional[torch.Tensor] = None
+                timesteps: Optional[torch.Tensor] = None,
+                latent_noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Diffusion forward pass -> (prediction, target, timesteps), the
-        first two fp32 (B, H/8, W/8, 4). Timesteps, then noise, are drawn
-        from `generator` unless given."""
-        if not (self.precomputed_latents and _LATENTS in batch):
-            raise NotImplementedError(_ENCODER)
+        first two fp32 (B, H/8, W/8, 4). A batch of precomputed latents
+        (on a `precomputed_latents` model) is used as it is; otherwise its
+        `image` and `captions` are encoded by the frozen VAE and CLIP
+        towers. The posterior's eps (raw batches only), then timesteps,
+        then noise are drawn from `generator` unless given."""
         device = self.device
-        latents = batch[_LATENTS].to(device, torch.float32)
-        conditioning = batch[_CAPTIONS].to(device, torch.float32)
+        if self.precomputed_latents and _LATENTS in batch:
+            latents = batch[_LATENTS].to(device, torch.float32)
+            conditioning = batch[_CAPTIONS].to(device, torch.float32)
+        else:
+            latents = self.encode_images(batch[_IMAGE], latent_noise,
+                                         generator)
+            with torch.no_grad():
+                conditioning = self.encode_text(batch[_IDS])
         bsz = latents.shape[0]
         if timesteps is None:
             timesteps = torch.randint(
@@ -152,9 +190,26 @@ class StableDiffusion:
     def loss_fn(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                timesteps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                timesteps: Optional[torch.Tensor] = None,
+                latent_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Scalar training loss; the function the trainer backpropagates."""
-        return self.loss(self.forward(batch, generator, noise, timesteps))
+        return self.loss(self.forward(batch, generator, noise, timesteps,
+                                      latent_noise))
+
+    @torch.no_grad()
+    def eval_forward(self, batch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None,
+                     timesteps: Optional[torch.Tensor] = None,
+                     latent_noise: Optional[torch.Tensor] = None
+                     ) -> Dict[str, Any]:
+        """The eval loop's forward: prediction, target and timesteps for
+        the MSE; `generated` stays empty (generation per val guidance
+        scale comes with ROADMAP.md queue 1 item 8)."""
+        pred, target, t = self.forward(batch, generator, noise, timesteps,
+                                       latent_noise)
+        return {"pred": pred, "target": target, "timesteps": t,
+                "generated": {}}
 
     # ---------------- generation ----------------
     def _towers(self) -> None:
@@ -180,11 +235,22 @@ class StableDiffusion:
 
     def denoise_loop(self, latents: torch.Tensor,
                      text_embeddings: torch.Tensor, guidance_scale: float,
-                     num_inference_steps: int) -> torch.Tensor:
+                     num_inference_steps: int, t_start: int = 0,
+                     inpaint: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]] = None
+                     ) -> torch.Tensor:
         """CFG DDIM loop over NCHW latents (one UNet call on the 2x batch
-        per step)."""
+        per step), from grid entry `t_start` on (img2img enters mid-way,
+        with latents noised to that entry's timestep).
+
+        `inpaint = (lat0, mask, noise)` (NCHW; mask (B, 1, h, w), 1 =
+        regenerate): after every step the region where mask is 0 is
+        replaced by the clean latents `lat0` noised to the step's
+        destination timestep (`noise_to`), and by `lat0` itself after the
+        last step."""
         sched = self.inference_scheduler
-        for t, tp in zip(*sched.timesteps(num_inference_steps)):
+        ts, tps = sched.timesteps(num_inference_steps)
+        for t, tp in zip(ts[t_start:], tps[t_start:]):
             model_in = sched.scale_model_input(
                 torch.cat([latents, latents], dim=0), t)
             tt = torch.full((model_in.shape[0],), int(t), dtype=torch.int64,
@@ -192,7 +258,30 @@ class StableDiffusion:
             uncond, cond = self.unet(model_in, tt, text_embeddings).chunk(2)
             pred = uncond + guidance_scale * (cond - uncond)
             latents = sched.step(pred, int(t), int(tp), latents)
+            if inpaint is not None:
+                lat0, mask, ip_noise = inpaint
+                keep = (sched.noise_to(lat0, ip_noise, int(tp)) if tp >= 0
+                        else lat0)
+                latents = mask * latents + (1.0 - mask) * keep
         return latents
+
+    def _latent_mask(self, mask: torch.Tensor, lh: int, lw: int
+                     ) -> torch.Tensor:
+        """A mask (B, H, W), (B, H, W, 1) or at latent resolution
+        (B, h, w[, 1]) -> fp32 (B, 1, h, w); an image-resolution mask is
+        8x8 average-pooled (soft edges blend)."""
+        m = mask.to(self.device, torch.float32)
+        if m.ndim == 3:
+            m = m[..., None]
+        if m.shape[1] != lh or m.shape[2] != lw:
+            if m.shape[1] % lh or m.shape[2] % lw:
+                raise ValueError(
+                    f"mask spatial dims {tuple(m.shape[1:3])} are neither "
+                    f"latent-resolution ({lh}, {lw}) nor an integer "
+                    f"multiple of it")
+            fh, fw = m.shape[1] // lh, m.shape[2] // lw
+            m = m.reshape(m.shape[0], lh, fh, lw, fw, 1).mean(dim=(2, 4))
+        return m.permute(0, 3, 1, 2)
 
     @torch.inference_mode()
     def generate(self, prompt_ids: torch.Tensor,
@@ -203,13 +292,23 @@ class StableDiffusion:
                  seed: Optional[int] = None,
                  latents: Optional[torch.Tensor] = None,
                  image: Optional[torch.Tensor] = None,
+                 strength: float = 0.8,
                  mask: Optional[torch.Tensor] = None,
+                 latent_noise: Optional[torch.Tensor] = None,
                  guidance_rescale: float = 0.0) -> torch.Tensor:
-        """Text -> images (B, H, W, 3) in [0, 1]. The initial latents are
-        `latents` (B, H/8, W/8, 4) when given, else drawn from a
-        `torch.Generator` seeded with `seed` (`val_seed` by default)."""
-        if image is not None or mask is not None:
-            raise NotImplementedError(_IMG2IMG)
+        """Text -> images (B, H, W, 3) in [0, 1]. The noise is `latents`
+        (B * num_images_per_prompt, H/8, W/8, 4) when given, else drawn
+        from a `torch.Generator` seeded with `seed` (`val_seed` by
+        default).
+
+        img2img (SDEdit): `image` (B, H, W, 3) in [0, 1] and `strength` in
+        (0, 1]. The image is encoded (the posterior's eps is `latent_noise`
+        (B, H/8, W/8, 4), else the generator's first draw), noised to grid
+        entry `steps - int(steps * strength)` with the noise, and only the
+        rest of the loop runs; when `int(steps * strength)` is 0 the output
+        is the VAE reconstruction. Inpainting: also `mask` in [0, 1] (1 =
+        regenerate, 0 = keep), at image or latent resolution (see
+        `denoise_loop`)."""
         if guidance_rescale > 0.0:
             raise NotImplementedError(_RESCALE)
         self._towers()
@@ -223,19 +322,48 @@ class StableDiffusion:
                  cond.repeat_interleave(num_images_per_prompt, dim=0)])
             bsz *= num_images_per_prompt
 
+        sched = self.inference_scheduler
         lat_shape = (bsz, height // 8, width // 8,
                      self.vae.config.latent_channels)
-        if latents is None:
+        if mask is not None and image is None:
+            raise ValueError("mask (inpainting) requires an init image")
+        if image is not None and not 0.0 < strength <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        generator = None
+        if latents is None or (image is not None and latent_noise is None):
             generator = torch.Generator(device=device).manual_seed(
                 self.val_seed if seed is None else seed)
+        lat0 = None
+        if image is not None:
+            img = image.to(device, torch.float32) * 2.0 - 1.0
+            lat0 = self.encode_images(img, latent_noise, generator)
+        if latents is None:
             latents = torch.randn(lat_shape, generator=generator,
                                   device=device, dtype=torch.float32)
         elif tuple(latents.shape) != lat_shape:
             raise ValueError(f"latents {tuple(latents.shape)} != {lat_shape}")
-        latents = latents.to(device, torch.float32)
-        latents = latents * self.inference_scheduler.init_noise_sigma
         # NHWC memory viewed as NCHW: channels_last, no copy
-        lat = self.denoise_loop(latents.permute(0, 3, 1, 2), embeddings,
-                                guidance_scale, num_inference_steps)
+        noise = latents.to(device, torch.float32).permute(0, 3, 1, 2)
+        t_start, inpaint = 0, None
+        if lat0 is None:
+            lat = noise * sched.init_noise_sigma
+        else:
+            lat0 = lat0.repeat_interleave(num_images_per_prompt,
+                                          dim=0).permute(0, 3, 1, 2)
+            # diffusers' Img2Img: keep the last init_timestep grid entries
+            init_timestep = min(int(num_inference_steps * strength),
+                                num_inference_steps)
+            t_start = num_inference_steps - init_timestep
+            if init_timestep == 0:
+                lat = lat0     # nothing to denoise: the reconstruction
+            else:
+                ts, _ = sched.timesteps(num_inference_steps)
+                lat = sched.noise_to(lat0, noise, int(ts[t_start]))
+            if mask is not None:
+                m = self._latent_mask(mask, lat_shape[1], lat_shape[2])
+                inpaint = (lat0, m.repeat_interleave(num_images_per_prompt,
+                                                     dim=0), noise)
+        lat = self.denoise_loop(lat, embeddings, guidance_scale,
+                                num_inference_steps, t_start, inpaint)
         images = self.vae.decode(lat / self.latent_scale)
         return (images * 0.5 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)

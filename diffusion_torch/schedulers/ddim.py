@@ -57,6 +57,15 @@ class DDIMScheduler:
     def scale_model_input(self, sample: torch.Tensor, t) -> torch.Tensor:
         return sample
 
+    def noise_to(self, x0: torch.Tensor, noise: torch.Tensor,
+                 t: int) -> torch.Tensor:
+        """Clean latents noised to timestep t, sqrt(abar_t) x0 +
+        sqrt(1 - abar_t) eps in fp32: the img2img (SDEdit) entry point into
+        the middle of the trajectory."""
+        a2 = self.alphas_cumprod[int(t)]
+        return (float(np.sqrt(a2)) * x0.float()
+                + float(np.sqrt(np.float32(1.0) - a2)) * noise.float())
+
     def timesteps(self, num_inference_steps: int
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """(t, t_prev) int32 arrays, descending; t_prev < 0 means final."""

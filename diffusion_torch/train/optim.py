@@ -5,15 +5,20 @@ dict; `build_optimizer` returns an `AdamW` over the given parameters that
 performs optax's `chain(clip_by_global_norm(c), adamw(lr=schedule))` update
 step for step:
 
-- clipping multiplies the gradients by min(1, c / ||g||) (optax's
-  `clip_by_global_norm`, not `clip_grad_norm_`'s c / (||g|| + 1e-6));
+- clipping, where ||g|| >= c, takes the gradients to g / ||g|| * c
+  (optax's `clip_by_global_norm`, not `clip_grad_norm_`'s
+  c / (||g|| + 1e-6));
 - the moments are ``mu = (1 - b1) g + b1 mu`` and ``nu = (1 - b2) g^2 +
-  b2 nu``, bias-corrected by the update count, and the update is
-  ``mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p`` (eps outside the
-  square root; decoupled weight decay on every parameter);
-- the learning rate is ``lr * schedule(count)`` at optax's own update
-  count, which starts at 0 and advances only when an update is applied (a
-  skipped non-finite step leaves it where it was);
+  b2 nu``, bias-corrected by 1 - b^count computed in fp32, and the update
+  is ``-lr * (mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p)`` (eps
+  outside the square root; decoupled weight decay on every parameter);
+- every product is rounded on its own, in optax's order: no fused
+  multiply-add (torch's ``add(alpha=)`` and ``addcmul`` fuse on the CPU,
+  XLA's CPU code does not), so the update is optax's bit for bit where
+  the gradients are;
+- the learning rate is ``lr * schedule(count)`` in fp32 at optax's own
+  update count, which starts at 0 and advances only when an update is
+  applied (a skipped non-finite step leaves it where it was);
 - ``mu_dtype="bfloat16"`` keeps the first moment in bf16, computing in
   fp32 and casting after the update, as optax does.
 
@@ -102,10 +107,11 @@ class AdamW:
         self.count = int(state["count"])
 
     def lr_at(self, count: int) -> float:
-        """The learning rate an update at optax count `count` uses."""
+        """The learning rate an update at optax count `count` uses: the
+        fp32 product of the base rate and the schedule's factor."""
         if self.schedule is None:
-            return self.lr
-        return self.lr * float(self.schedule(count))
+            return float(np.float32(self.lr))
+        return float(np.float32(self.lr) * np.float32(self.schedule(count)))
 
     @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -117,34 +123,59 @@ class AdamW:
         if self.grad_clip_norm:
             if grad_norm is None:
                 grad_norm = global_norm(grads)
-            torch._foreach_mul_(
-                grads, torch.clamp(self.grad_clip_norm / grad_norm, max=1.0))
+            # g / ||g|| * c where ||g|| >= c, else g / 1 * 1: no host sync
+            clip = grad_norm >= self.grad_clip_norm
+            one = torch.ones_like(grad_norm)
+            torch._foreach_div_(grads, torch.where(clip, grad_norm, one))
+            torch._foreach_mul_(grads, torch.where(
+                clip, torch.full_like(grad_norm, self.grad_clip_norm), one))
         lr = self.lr_at(self.count)
         self.count += 1
         b1, b2 = self.b1, self.b2
+        # nu = (1 - b2) (g g) + b2 nu
+        tmp = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(tmp, 1.0 - b2)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, tmp)
         # mu = (1 - b1) g + b1 mu. JAX's promotion: b1 * mu runs in mu's
         # dtype with b1 rounded to it (a weakly typed scalar), the sum in
         # fp32 even when mu is kept in bf16
+        tmp = torch._foreach_mul(grads, 1.0 - b1)
         if self.mu[0].dtype == torch.float32:
             mu = self.mu
             torch._foreach_mul_(mu, b1)
         else:
             mu = [m.float() for m in torch._foreach_mul(
                 self.mu, torch.tensor(b1, dtype=self.mu[0].dtype).item())]
-        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        update = torch._foreach_div(mu, 1.0 - b1 ** self.count)   # mu_hat
-        denom = torch._foreach_div(self.nu, 1.0 - b2 ** self.count)
-        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(mu, tmp)
+        del tmp
+        # update = mu_hat / (sqrt(nu_hat) + eps), the corrections in fp32
+        update = torch._foreach_div(mu, _bias_correction(b1, self.count))
+        denom = torch._foreach_div(self.nu, _bias_correction(b2, self.count))
+        if denom[0].device.type == "cpu":
+            # torch's vectorized fp32 sqrt on the CPU is not correctly
+            # rounded (XLA's and CUDA's are): round it from fp64
+            for d in denom:
+                d.copy_(d.double().sqrt_())
+        else:
+            torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(update, denom)
         del denom
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-lr)
+        # + weight_decay * p, then * -lr, then p + update
+        torch._foreach_add_(update, torch._foreach_mul(self.params,
+                                                       self.weight_decay))
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(self.params, update)
         if mu is not self.mu:
             for old, new in zip(self.mu, mu):
                 old.copy_(new)
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay ** count in fp32, as optax computes it."""
+    return float(np.float32(1.0) - np.power(np.float32(decay),
+                                            np.float32(count)))
 
 
 def build_optimizer(params: Iterable[torch.Tensor],

@@ -13,10 +13,15 @@ training batch is one step:
   finite changes nothing: parameters, optimizer moments and the LR
   schedule's count, and the EMA, stay as they were;
 - the EMA update follows the optimizer update;
-- timesteps and noise come from a `torch.Generator` derived from `seed` and
-  the step (all microbatches draw from it in turn), unless `noise_hook`
-  hands them over: ``noise_hook(step, micro_index, n_accum, microbatch) ->
-  (noise, timesteps)``, which the tests use to give the port JAX's draws;
+- a batch is precomputed latents or raw images (float32 NHWC `image` and
+  int `captions`, encoded by the model's frozen VAE and CLIP towers, which
+  get no gradient, optimizer state or checkpoint entry);
+- the posterior's eps (raw batches), timesteps and noise come from a
+  `torch.Generator` derived from `seed` and the step (all microbatches
+  draw from it in turn), unless `noise_hook` hands them over:
+  ``noise_hook(step, micro_index, n_accum, microbatch) -> (noise,
+  timesteps[, latent_noise])``, which the tests use to give the port
+  JAX's draws;
 - the metrics are the JAX names: `loss/train/total`, `grad/global_norm`
   and, when skipping is on, `trainer/nonfinite_skipped`; `lr` is logged
   from the schedule at the trainer step, as JAX logs it.
@@ -29,7 +34,8 @@ MSE and the `MeanSquaredError/bin-lo-hi` timestep masks of the model's
 `loss_bins` are summed as numerator/denominator pairs and logged as
 `metrics/<label>/<name>`. Eval timesteps and noise come from a generator
 derived from the model's `val_seed` and the batch index, unless
-`eval_noise_hook(batch_index, batch) -> (noise, timesteps)` hands them over.
+`eval_noise_hook(batch_index, batch) -> (noise, timesteps[,
+latent_noise])` hands them over.
 
 Checkpoints (`train/checkpoint.py`), as the JAX Trainer writes them:
 with `save_folder`, every `save_interval` batches and at the end of `fit`,
@@ -51,8 +57,9 @@ the batch's end with a checkpoint of that batch.
 
 Runs on `device` (CUDA unless the caller asks for the CPU; it raises where
 CUDA is missing), which must be the model's. A mesh or more than one
-process raise NotImplementedError naming ROADMAP.md item 9; `fsdp_config`,
-`image_size` and `precision` are recorded.
+process raise NotImplementedError naming ROADMAP.md item 9, and
+`log_traces=True` (the JAX package's profiler callback) item 11;
+`fsdp_config`, `image_size` and `precision` are recorded.
 """
 
 from __future__ import annotations
@@ -84,9 +91,9 @@ from diffusion_torch.utils.time import Time, Timestamp, time_to_batches
 __all__ = ["Trainer", "Evaluator", "grad_accum_steps"]
 
 NoiseHook = Callable[[int, int, int, Dict[str, torch.Tensor]],
-                     Tuple[torch.Tensor, torch.Tensor]]
+                     Tuple[torch.Tensor, ...]]
 EvalNoiseHook = Callable[[int, Dict[str, torch.Tensor]],
-                         Tuple[torch.Tensor, torch.Tensor]]
+                         Tuple[torch.Tensor, ...]]
 
 
 class Evaluator:
@@ -154,10 +161,14 @@ class Trainer:
         precision: str = "amp_bf16",
         progress_bar: bool = False,
         log_to_console: bool = False,
+        log_traces: bool = False,
         noise_hook: Optional[NoiseHook] = None,
         eval_noise_hook: Optional[EvalNoiseHook] = None,
     ):
         del progress_bar  # yaml parity; the trainer prints no bar
+        if log_traces:
+            raise _unported("log_traces (the profiler callback)", 11,
+                            "other adapters")
         if mesh is not None or mesh_config:
             raise _unported("a device mesh", 9, "multi-device")
         if rank_and_world()[1] > 1:
@@ -281,10 +292,10 @@ class Trainer:
         self.model.unet.train()
         for i in range(n_accum):
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-            noise = timesteps = None
+            draws = ()
             if self.noise_hook is not None:
-                noise, timesteps = self.noise_hook(ts.step, i, n_accum, mb)
-            micro_loss = self.model.loss_fn(mb, gen, noise, timesteps)
+                draws = self.noise_hook(ts.step, i, n_accum, mb)
+            micro_loss = self.model.loss_fn(mb, gen, *draws)
             micro_loss.backward()
             loss += micro_loss.detach()
         grads = [p.grad for p in params]
@@ -427,12 +438,13 @@ class Trainer:
         over one batch: per-example means of the squared error."""
         model = self.model
         num_t = model.noise_scheduler.num_train_timesteps
-        noise = timesteps = gen = None
+        draws, gen = (), None
         if self.eval_noise_hook is not None:
-            noise, timesteps = self.eval_noise_hook(index, batch)
+            draws = self.eval_noise_hook(index, batch)
         else:
             gen = self._generator(model.val_seed, index)
-        pred, target, t = model.forward(batch, gen, noise, timesteps)
+        out = model.eval_forward(batch, gen, *draws)
+        pred, target, t = out["pred"], out["target"], out["timesteps"]
         err = torch.square(pred.float() - target.float())
         per_example = err.mean(dim=tuple(range(1, err.ndim)))
         out = {"MeanSquaredError": (float(per_example.sum()),

@@ -62,9 +62,10 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
 def test_checkpoint_phase_disk_need():
     """Phase 10's peak: two fp32 checkpoints of the 865.9M-parameter UNet
     (params, mu, nu: 10.39 GB each) and the fp16 pretrained directory
-    (UNet, VAE decoder, CLIP text: 2.51 GB), plus the shards."""
+    (UNet, the whole VAE with its 34.2M-parameter encoder, CLIP text:
+    2.58 GB), plus the shards."""
     sizes = chip_smoke._sd2_sizes()
-    assert sizes == (865_910_724, 49_490_199, 340_387_840)
+    assert sizes == (865_910_724, 49_490_199 + 34_163_664, 340_387_840)
     disk = chip_smoke._checkpoint_disk_need(*sizes, shard_bytes=0)
     assert disk["checkpoint"] == 12 * 865_910_724
     assert disk["pretrained"] == 2 * sum(sizes)
@@ -83,3 +84,70 @@ def test_checkpoint_phase_refuses_short_disk(monkeypatch, tmp_path):
         chip_smoke._check_disk(str(tmp_path), need)
     Usage.free = need
     assert chip_smoke._check_disk(str(tmp_path), need) == need
+
+
+def test_online_phase_shards_compose_with_the_wds_yaml(tmp_path):
+    """Phase 8b's tar shards, manifest and filter strategy: the unedited
+    yamls/SD-2-base-256-wds.yaml composes with its overrides into the
+    port's wds reader, whose batches are (32, 256, 256, 3) images in
+    [-1, 1] and token ids; the filter keeps every sample but the flagged
+    eighth."""
+    from diffusion_torch.config import instantiate, load_config
+    from diffusion_torch.data.datapipes import (filter_samples, list_shards,
+                                                tar_samples)
+    from diffusion_torch.data.filters import load_filter_strategy
+
+    overrides, manifest, strategy, flagged = chip_smoke._online_overrides(
+        str(tmp_path), str(tmp_path / "metrics.jsonl"), "no card")
+    config = load_config(os.path.join(chip_smoke._ROOT, "yamls",
+                                      "SD-2-base-256-wds.yaml"), overrides)
+    assert config["model"]["precomputed_latents"] is False
+    assert config["trainer"]["device_train_microbatch_size"] == 16
+    assert config["dataset"]["eval_batch_size"] == 32
+    shards = list_shards([], manifest=manifest)
+    assert len(shards) == 4
+    keys = [s["__key__"] for s in tar_samples(shards)]
+    assert len(keys) == chip_smoke.ONLINE_TRAIN
+    assert len(flagged) == chip_smoke.ONLINE_TRAIN // 8
+    kept = [s["__key__"] for s in filter_samples(
+        tar_samples(shards), load_filter_strategy(strategy))]
+    assert sorted(kept) == sorted(set(keys) - flagged)
+    loader = instantiate(config["dataset"]["train_dataset"], batch_size=32)
+    assert type(loader).__module__ == "diffusion_torch.data.datapipes"
+    batch = next(iter(loader))
+    assert batch["image"].shape == (32, 256, 256, 3)
+    assert -1.0 <= batch["image"].min() and batch["image"].max() <= 1.0
+    assert batch["captions"].shape == (32, 77)
+
+
+def test_composed_phase_evaluates_on_coco_shards(tmp_path):
+    """Phase 8's eval set is the recipe's COCO reader over COCO MDS shards
+    (JPEGs of COCO's sizes, five captions each), with the frozen towers
+    built; phase 10 keeps the LAION eval over precomputed latents."""
+    from diffusion_torch.config import instantiate, load_config
+
+    yaml = os.path.join(chip_smoke._ROOT, "yamls", "SD-2-base-256.yaml")
+    coco = load_config(yaml, chip_smoke._composed_overrides(
+        str(tmp_path / "a"), "composed", "m.jsonl", coco_eval=True))
+    assert coco["model"]["init_frozen_towers"] is True
+    node = coco["dataset"]["eval_dataset"]
+    assert node["_target_"].endswith("coco.build_streaming_cocoval_dataloader")
+    loader = instantiate(node, batch_size=32)
+    batch = next(iter(loader))
+    assert batch["image"].shape == (32, 256, 256, 3)
+    assert 0.0 <= batch["image"].min() and batch["image"].max() <= 1.0
+    laion = load_config(yaml, chip_smoke._composed_overrides(
+        str(tmp_path / "b"), "checkpoint", "m.jsonl"))
+    assert "init_frozen_towers" not in laion["model"]
+    assert laion["dataset"]["eval_dataset"]["_target_"].endswith(
+        "laion.build_streaming_laion_dataloader")
+
+
+def test_inpainting_mask_and_images():
+    import numpy as np
+    mask = chip_smoke._left_half_mask(8, 6)
+    assert mask.dtype == np.uint8 and mask.shape == (8, 6)
+    assert (mask[:, :3] == 255).all() and (mask[:, 3:] == 0).all()
+    img = chip_smoke._smooth_image(np.random.default_rng(0), 24, 40)
+    assert img.shape == (24, 40, 3) and img.dtype == np.uint8
+    assert img.std() > 10

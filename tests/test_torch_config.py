@@ -18,11 +18,11 @@ from diffusion_torch.utils.logging import WandBLogger
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 YAMLS = sorted(glob.glob(os.path.join(ROOT, "yamls", "**", "*.yaml"),
                          recursive=True))
-# what the port composes so far (ROADMAP.md queue 1 items 1-3); the other
-# targets' modules come with later items
+# what the port composes so far (ROADMAP.md queue 1 items 1-3 and 6); the
+# other targets' modules come with later items
 PORTED = {"algorithms.ema", "algorithms.low_precision", "callbacks.monitors",
-          "data.coco", "data.image_caption", "data.laion", "models.models",
-          "train.optim", "utils.logging"}
+          "data.coco", "data.image_caption", "data.laion", "data.wds",
+          "models.models", "train.optim", "utils.logging"}
 
 
 def _targets(node):

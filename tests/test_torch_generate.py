@@ -76,12 +76,23 @@ def test_generate_seeded_and_unsupported(endpoint):
     assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
     c = model.generate(ids, height=32, width=32, num_inference_steps=2, seed=5)
     assert not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(ids, image=torch.zeros(2, 32, 32, 3))
+    # img2img is ported: seeded like text-to-image, a valid image out
+    init = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    d = model.generate(ids, image=init, strength=0.5, height=32, width=32,
+                       num_inference_steps=2, seed=4)
+    e = model.generate(ids, image=init, strength=0.5, height=32, width=32,
+                       num_inference_steps=2, seed=4)
+    torch.testing.assert_close(d, e, rtol=0, atol=0)
+    assert d.shape == (2, 32, 32, 3) and not torch.equal(a, d)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.generate(ids, guidance_rescale=0.7)
-    for extra in ({"scheduler": "dpm++2m"}, {"guidance_rescale": 0.5},
-                  {"image": "abc", "strength": 0.5}):
+    png = io.BytesIO()
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(png, format="PNG")
+    served = endpoint.predict(
+        prompt="x", num_inference_steps=1, strength=0.5,
+        image=base64.b64encode(png.getvalue()).decode("ascii"))
+    assert _png(served[0]).shape == (32, 32, 3)
+    for extra in ({"scheduler": "dpm++2m"}, {"guidance_rescale": 0.5}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             endpoint.predict(prompt="x", num_inference_steps=1, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

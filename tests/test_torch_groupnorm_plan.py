@@ -13,6 +13,8 @@ import torch
 from diffusion_torch.models import layers
 from diffusion_torch.models.unet import (SD2_BASE_UNET, UNet2DCondition,
                                          group_norm_shapes)
+from diffusion_torch.models.vae import (SD2_VAE, AutoencoderKL,
+                                        encoder_group_norm_shapes)
 from diffusion_torch.ops import groupnorm as gn
 
 torch.set_num_threads(1)
@@ -83,6 +85,36 @@ def test_vae_decoder_slabs_split(shape, backward):
     assert p.width * 2 >= 128
     assert p.tiles * p.rows * p.width * 2 <= 64 * 1024
     assert p.scratch(shape[0], shape[2], 32) > 0
+
+
+@pytest.mark.parametrize("batch,height,width", [(16, 256, 256),
+                                                 (2, 512, 512),
+                                                 (1, 64, 64), (1, 40, 72)])
+def test_vae_encoder_shapes_are_planned(monkeypatch, batch, height, width):
+    """`encoder_group_norm_shapes` lists the slabs a full-width VAE encode
+    hands the op (22 calls, recorded on the meta device); each has a valid
+    plan: one launch through a cluster, or two where no cluster holds an
+    image's slice (the slabs of 65,536 rows and more)."""
+    calls = []
+
+    def record(x, scale, bias, groups, eps, act):
+        calls.append((tuple(x.shape[:1]) + (x.shape[1] * x.shape[2],
+                                            x.shape[3]), groups, act))
+        return x
+
+    monkeypatch.setattr(layers, "group_norm", record)
+    with torch.device("meta"):
+        vae = AutoencoderKL(SD2_VAE)
+        vae.encode(torch.empty((batch, 3, height, width)))
+    want = encoder_group_norm_shapes(SD2_VAE, batch, height, width)
+    assert len(want) == 22 and calls == want
+    for backward in (False, True):
+        for (b, l, c), groups, _ in want:
+            p = gn.plan(b, l, c, groups, 2, backward)
+            _assert_valid(p, b, l, c, groups, 2)
+            assert p.launches == (2 if p.path == "split" else 1)
+            assert p.path == ("split" if l >= 65536 else "cluster"), (
+                (b, l, c), p)
 
 
 @pytest.mark.parametrize("shape,groups,itemsize,aligned,path", [

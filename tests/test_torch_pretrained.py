@@ -252,17 +252,34 @@ def test_missing_component_raises(dirs, tmp_path):
         stable_diffusion_tiny(device="cpu", pretrained=True, model_name=root)
 
 
-def test_vae_encoder_keys_are_set_aside_by_name(dirs):
-    """The encoder's keys are in the file and left out by the named rule;
-    a key outside the rule still raises (above)."""
+def test_vae_encoder_keys_are_set_aside_by_name(monkeypatch, dirs, loaded):
+    """No VAE key is set aside any more: the published encoder.* and
+    quant_conv.* keys load from both layouts, and the loaded VAE encodes
+    as JAX's does. The named rule left is transformers' position_ids; a
+    key outside it still raises (above)."""
+    monkeypatch.setenv("DIFFUSION_TPU_PALLAS_INTERPRET", "0")
     sd = tpre.load_component(dirs["safetensors"], "vae")
     published = dirs["sds"]["vae"]
-    aside = sorted(set(published) - set(sd))
-    assert aside and all(k.startswith(("encoder.", "quant_conv."))
-                         for k in aside)
-    assert tpre.SET_ASIDE["vae"][0] == ("encoder.", "quant_conv.")
+    assert sorted(sd) == sorted(published)
+    assert any(k.startswith("encoder.") for k in sd) and \
+        "quant_conv.weight" in sd
+    assert "vae" not in tpre.SET_ASIDE
     text = tpre.load_component(dirs["safetensors"], "text_encoder")
     assert "text_model.embeddings.position_ids" not in text
+    x = np.random.default_rng(2).uniform(-1, 1, (2, 32, 48, 3)).astype(
+        np.float32)
+    for layout in ("msgpack", "safetensors"):
+        jmodel, _, frozen, model = loaded[layout]
+        for k, v in model.vae.state_dict().items():
+            assert torch.equal(v, published[k]), (layout, k)
+        want = jmodel.vae.apply(frozen["vae"], jnp.asarray(x),
+                                method=jmodel.vae.encode)
+        with torch.no_grad():
+            got = model.vae.encode(torch.from_numpy(x).permute(0, 3, 1, 2))
+        # fp32 both ways, the encoder parity tests' tolerance
+        for g, w in ((got.mean, want.mean), (got.logvar, want.logvar)):
+            np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                       np.asarray(w), atol=1e-4, rtol=1e-3)
 
 
 # ------------------------------------------------------------- formats

@@ -94,8 +94,16 @@ def test_unported_training_paths_raise():
     model = stable_diffusion_tiny(device="cpu", precomputed_latents=True)
     raw = {"image": torch.zeros(2, 64, 64, 3),
            "captions": torch.zeros(2, 77, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
+    # a raw batch on a model built without its towers: JAX's RuntimeError
+    with pytest.raises(RuntimeError, match="init_frozen_towers=True"):
         model.loss_fn(raw)
+    towers = stable_diffusion_tiny(device="cpu", precomputed_latents=True,
+                                   init_frozen_towers=True)
+    loss = towers.loss_fn(raw, torch.Generator().manual_seed(0))
+    loss.backward()
+    assert torch.isfinite(loss) and all(
+        p.grad is None for p in (*towers.vae.parameters(),
+                                 *towers.text_encoder.parameters()))
     with pytest.raises(RuntimeError, match="init_frozen_towers"):
         model.generate(torch.zeros(1, 77, dtype=torch.int64))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):

@@ -46,9 +46,11 @@ def test_decoder_matches_jax(monkeypatch, hw):
 
 @pytest.mark.parametrize("name", sorted(VAE_GOLDENS))
 def test_decoder_golden_fixture(name):
+    """The golden VAE's whole state_dict loads (the encoder's keys too;
+    tests/test_torch_vae_encoder.py holds the encode) and decodes."""
     data = np.load(os.path.join(FIXTURES, name), allow_pickle=True)
     weights = {k[2:]: torch.from_numpy(data[k]) for k in data.files
-               if k.startswith(("w:decoder.", "w:post_quant_conv."))}
+               if k.startswith("w:")}
     vae = AutoencoderKL(VAEConfig(**VAE_GOLDENS[name]["spec"]))
     vae.load_state_dict(weights)
     with torch.no_grad():
