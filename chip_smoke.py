@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the port's serving, training and eval paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -49,6 +49,14 @@ Phases, each raising on failure (exit code 1):
      GroupNorm calls; then through `generate` on the card with the same
      draws, an all-ones mask must give the img2img output and an all-zeros
      mask the VAE reconstruction decode(lat0), both bit for bit;
+ 5c. samplers over HTTP on the same endpoint, one at a time: 20-step
+     requests with `scheduler: dpm++2m`, `scheduler: euler`, DDIM with
+     `guidance_rescale: 0.7`, and a dpm++2m img2img request (strength
+     0.5): HTTP 200, 512x512 PNGs, finite latents before the decode, each
+     latency beside phase 5b's 20-step DDIM text request, and launch
+     counts equal to that request's (a sampler changes no UNet work; the
+     img2img request's are its less the 10 steps not run plus the
+     encoder's 22 GroupNorm calls);
   6. gradient reference: the full-width training UNet's loss and gradient
      at 256px, batch 2, on the card (bf16, kernels) against the same
      weights in fp32 on the CPU (plain versions), with the three backward
@@ -115,6 +123,20 @@ Phases, each raising on failure (exit code 1):
      PNG, finite latents, GroupNorm and flash launches). Sizes, copy,
      write and restore times and rates, the request's latency and the
      free disk space are printed with the card's name and power limit.
+ 11. eval job: the full-width InceptionV3 and CLIP ViT-L/14 towers (random
+     weights, seed 0) against fp32 CPU copies of themselves on 2 images
+     (features, logits, image and text embeddings; relative L2 within
+     1e-3, TF32 off), and their times on 32 256px images; then the port's
+     `diffusion_torch.scripts.fid_clip_evaluation.main` (yamls/eval.yaml's
+     job) at full width with `--allow_random_towers` over 64 COCO samples
+     in MDS shards (phase 8's writer): 256px, 2 batches of 16, guidance
+     3.0, dpm++2m at 20 steps. It must give a finite
+     `FrechetInceptionDistance-scale-3p0` and `CLIPScore-scale-3p0` in its
+     results and its `--out` jsonl, ten 256px images from
+     `LogDiffusionImages`, and GroupNorm and flash launches; its wall time,
+     generation time per batch, the host's FID compute() and peak memory
+     are printed. Then `coco_eval.main` at guidance 1.0 and 7.0 (one batch,
+     10 DDIM steps): both scales' FID and CLIPScore finite.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -155,6 +177,12 @@ COMPOSED_EVAL_AT = 3                      # trainer.eval_interval, batches
 ONLINE_TRAIN, ONLINE_EVAL = 256, 64       # wds samples of the online run
 ONLINE_FLAG_EVERY = 8                     # every 8th flagged unsafe
 IMG2IMG_STRENGTH, INPAINT_STRENGTH = 0.5, 0.8
+# phase 5c: (name, request fields) of the four sampler requests
+SAMPLER_REQUESTS = (("dpm++2m", {"scheduler": "dpm++2m"}),
+                    ("euler", {"scheduler": "euler"}),
+                    ("ddim rescaled", {"guidance_rescale": 0.7}),
+                    ("dpm++2m img2img", {"scheduler": "dpm++2m",
+                                         "strength": IMG2IMG_STRENGTH}))
 DEVICE = "cuda:0"
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM peaks (data sheet; dense bf16 tensor cores, HBM3)
@@ -361,7 +389,9 @@ def _unet_group_norm_phase(card: str) -> dict:
     of a 256px microbatch (batch 16) and of a 512px image, with their
     kernel launches (the plans'). Each total beside its summed byte bound
     (x read once and y written once; x and g read once and dx written
-    once). Returns {what: (ms, bound_ms)}."""
+    once), and each forward set beside the same calls through
+    `F.group_norm` + `F.silu` in one CUDA graph (the library, timed only).
+    Returns {what: (ms, bound_ms)}."""
     import torch
 
     from diffusion_torch.models.unet import SD2_BASE_UNET, group_norm_shapes
@@ -407,9 +437,18 @@ def _unet_group_norm_phase(card: str) -> dict:
         ms = _graph_ms(ours)
         kernels = sum(gn.plan(*shape, groups, 2, backward).launches
                       for shape, groups, _ in shapes)
+        library = ""
+        if not backward:
+            # the same calls through F.group_norm + F.silu, timed only
+            lib_ms = _graph_ms(lambda: [
+                _gn_library(x, scale, bias, act)
+                for x, _, scale, bias, _, _, act in calls])
+            library = (f"; F.group_norm + F.silu in a CUDA graph "
+                       f"{lib_ms:.4f} ms")
         print(f"kernel group_norm {what}: {len(calls)} calls ({kernels} "
-              f"kernel launches) in a CUDA graph {ms:.4f} ms; summed byte "
-              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
+              f"kernel launches) in a CUDA graph {ms:.4f} ms{library}; "
+              f"summed byte bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) "
+              f"[{card}]")
         out[what] = (ms, bound)
         del calls
     return out
@@ -800,10 +839,11 @@ def _reference_phase(model, card: str) -> None:
                    f"{name} {part} disagrees with its fp32 CPU reference")
 
 
-def _img2img_phase(endpoint, card: str, merged_s: float) -> dict:
+def _img2img_phase(endpoint, card: str, merged_s: float) -> tuple:
     """Phase 5b: img2img and inpainting on the full-width endpoint (see the
     module docstring). Returns the forward kernels' launches in its three
-    requests."""
+    requests, the 20-step text request's launches and its latency, and
+    the encoder's GroupNorm calls."""
     import numpy as np
     import torch
     from PIL import Image
@@ -928,6 +968,99 @@ def _img2img_phase(endpoint, card: str, merged_s: float) -> dict:
     _check(same_ones and same_zeros and finite,
            "the inpainting blend is not the identity at mask 1 or the "
            "reconstruction at mask 0")
+    return ({k: sum(v[k] for v in launches.values())
+             for k in ("group_norm", "flash_attention")},
+            launches["text"], results["text"][2], n_calls)
+
+
+def _launches_match(got: dict, text: dict, steps_run: int,
+                    unet_gn_per_step: int, encoder_calls: int) -> bool:
+    """Whether a request's forward-kernel launches are those of a
+    `STEPS`-step text-to-image request (`text`) less the UNet steps not
+    run, plus the encoder's GroupNorm calls. The flash kernel runs only in
+    the UNet. A sampler changes no UNet work: a text request's counts must
+    equal the DDIM request's exactly."""
+    skipped = STEPS - steps_run
+    want = {"group_norm": (text["group_norm"] - unet_gn_per_step * skipped
+                           + encoder_calls),
+            "flash_attention": (text["flash_attention"]
+                                - text["flash_attention"] // STEPS * skipped)}
+    return got == want
+
+
+def _sampler_phase(endpoint, card: str, ddim_text: dict, ddim_s: float,
+                   encoder_calls: int) -> dict:
+    """Phase 5c: the samplers over HTTP on the full-width endpoint (see the
+    module docstring). Returns the forward kernels' launches in its four
+    requests."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffusion_torch.inference.serve import make_server
+    from diffusion_torch.models.unet import group_norm_shapes
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+
+    t_phase = time.perf_counter()
+    model = endpoint.model
+    per_step_gn = len(group_norm_shapes(model.unet.config, 2, SIZE // 8))
+    image_b64 = _b64_png(_smooth_image(np.random.default_rng(5), SIZE, SIZE))
+    decoded = []
+    hook = model.vae.post_quant_conv.register_forward_pre_hook(
+        lambda mod, inp: decoded.append(bool(torch.isfinite(inp[0]).all())))
+    server = make_server(endpoint, "127.0.0.1", 0, max_batch_size=1,
+                         batch_wait_ms=0.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    common = {"prompt": "a lighthouse on a cliff at dusk", "guidance_scale":
+              7.5, "seed": 0, "height": SIZE, "width": SIZE,
+              "num_inference_steps": STEPS}
+    results, launches, finite = {}, {}, {}
+    try:
+        for key, extra in SAMPLER_REQUESTS:
+            gn.launches.reset()
+            fa.launches.reset()
+            decoded.clear()
+            payload = dict(common, **extra)
+            if "strength" in extra:
+                payload["image"] = image_b64
+            _post(server.server_address[1], payload, results, key)
+            torch.cuda.synchronize()
+            launches[key] = {"group_norm": gn.launches.value,
+                             "flash_attention": fa.launches.value}
+            finite[key] = list(decoded)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        hook.remove()
+    for key, extra in SAMPLER_REQUESTS:
+        _check(key in results, f"request {key} got no response")
+        status, body, seconds = results[key]
+        _check(status == 200, f"request {key}: HTTP {status} {body}")
+        img = Image.open(io.BytesIO(base64.b64decode(body["images"][0])))
+        img.load()
+        _check(img.size == (SIZE, SIZE) and img.mode == "RGB",
+               f"request {key}: PNG {img.size} {img.mode}")
+        _check(finite[key] == [True],
+               f"request {key}: latents before the decode not finite "
+               f"({finite[key]})")
+        steps_run = int(STEPS * extra.get("strength", 1.0))
+        encoder = encoder_calls if "strength" in extra else 0
+        same = _launches_match(launches[key], ddim_text, steps_run,
+                               per_step_gn, encoder)
+        less = " less the steps not run plus the encoder" if encoder else ""
+        print(f"samplers: request {key} {json.dumps(extra)}: HTTP 200, "
+              f"{img.size[0]}x{img.size[1]} PNG, finite latents, {STEPS} "
+              f"steps ({steps_run} run), {seconds:.3f} s end to end beside "
+              f"phase 5b's {STEPS}-step DDIM text request {ddim_s:.3f} s; "
+              f"launches {json.dumps(launches[key])}, equal to DDIM's "
+              f"{json.dumps(ddim_text)}{less}"
+              f": {same} [{card}]")
+        _check(same, f"request {key}: launches {launches[key]} are not the "
+               f"DDIM request's {ddim_text} for {steps_run} steps")
+    print(f"samplers: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {k: sum(v[k] for v in launches.values())
             for k in ("group_norm", "flash_attention")}
 
@@ -2067,6 +2200,210 @@ _CATEGORIES = (   # kernel-name patterns, first match wins
 )
 
 
+EVAL_SAMPLES = 64      # COCO samples of the eval job (phase 8's count)
+EVAL_BATCH, EVAL_BATCHES = 16, 2
+TOWER_BOUND = 1e-3     # relative L2, fp32 card vs fp32 CPU, TF32 off
+
+
+def _eval_job_args(remote: str, out: str) -> tuple:
+    """The argument lists of phase 11's two runs: the port's
+    fid_clip_evaluation (yamls/eval.yaml's job, with dpm++2m at 20 steps)
+    and coco_eval (two guidance scales, 10 DDIM steps), at full width on
+    the card with random towers."""
+    common = ["--remote", remote, "--size", str(TRAIN_SIZE), "--batch_size",
+              str(EVAL_BATCH), "--allow_random_towers", "--device", DEVICE]
+    fid = common + ["--subset_num_batches", str(EVAL_BATCHES),
+                    "--guidance_scale", "3.0", "--scheduler", "dpm++2m",
+                    "--num_inference_steps", "20", "--out", out]
+    coco = common + ["--subset_num_batches", "1", "--guidance_scales", "1.0",
+                     "7.0", "--num_inference_steps", "10"]
+    return fid, coco
+
+
+def _tower_reference(card: str) -> tuple:
+    """The full-width towers on the card against fp32 CPU copies of
+    themselves on 2 images: InceptionV3 features and logits, CLIP image and
+    text embeddings. Returns the two towers."""
+    import copy
+
+    import torch
+
+    from diffusion_torch.metrics import towers
+    from diffusion_torch.models.inception import preprocess_images
+
+    inception = towers.inception_tower(allow_random_weights=True,
+                                       device=DEVICE)
+    clip = towers.clip_tower(allow_random_weights=True, device=DEVICE)
+    gen = torch.Generator().manual_seed(11)
+    images = torch.rand((2, TRAIN_SIZE, TRAIN_SIZE, 3), generator=gen)
+    ids = torch.randint(1, 49000, (2, 77), generator=gen)
+    ids[:, 12] = 49407                           # EOT, the highest id
+
+    def run(inc, cl, dev):
+        x = preprocess_images(images.to(dev))
+        pixels = towers.clip_pixels(images.to(dev), 224)
+        txt, img = cl(ids.to(dev), pixels)
+        return {"InceptionV3 features": inc(x),
+                "InceptionV3 logits": inc(x, return_logits=True),
+                "CLIP image embeddings": img, "CLIP text embeddings": txt}
+
+    with torch.inference_mode():
+        got = run(inception, clip, DEVICE)
+        want = run(copy.deepcopy(inception).to("cpu"),
+                   copy.deepcopy(clip).to("cpu"), "cpu")
+    for name, out in got.items():
+        err = _rel_l2(out, want[name])
+        print(f"eval: {name} {tuple(out.shape)} fp32 on the card vs fp32 on "
+              f"the CPU: relative L2 error {err:.3e} (bound {TOWER_BOUND:g},"
+              f" TF32 off) [{card}]")
+        _check(bool(torch.isfinite(out).all()) and err <= TOWER_BOUND,
+               f"{name} disagrees with its fp32 CPU copy")
+    return inception, clip
+
+
+def _eval_job_phase(card: str) -> dict:
+    """Phase 11: the offline eval job (see the module docstring). Returns
+    the five kernels' launches during its two runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_torch.metrics import towers
+    from diffusion_torch.metrics.fid import FrechetInceptionDistance
+    from diffusion_torch.models.inception import preprocess_images
+    from diffusion_torch.models.stable_diffusion import StableDiffusion
+    from diffusion_torch.scripts import coco_eval, fid_clip_evaluation
+    from diffusion_torch.utils.logging import LoggerCollection
+
+    t_phase = time.perf_counter()
+    inception, clip = _tower_reference(card)
+    # the towers alone on 32 images (CUDA events)
+    with torch.inference_mode():
+        x = torch.rand((32, TRAIN_SIZE, TRAIN_SIZE, 3), device=DEVICE)
+        ids = torch.randint(1, 49000, (32, 77), device=DEVICE)
+        inc_ms = _time_ms(lambda: inception(preprocess_images(x)), iters=3,
+                          warmup=1)
+        clip_ms = _time_ms(lambda: clip(ids, towers.clip_pixels(x, 224)),
+                           iters=3, warmup=1)
+    del x, ids
+    print(f"eval: towers on 32 {TRAIN_SIZE}px images: InceptionV3 (resize "
+          f"to 299 included) {inc_ms:.2f} ms, CLIP ViT-L/14 image and text "
+          f"(resize to 224 included) {clip_ms:.2f} ms (CUDA events, 3 after "
+          f"1) [{card}]")
+
+    # time each generate, each FID compute and each logged image
+    gens, computes, logged = [], [], []
+    real_generate = StableDiffusion.generate
+    real_compute = FrechetInceptionDistance.compute
+    real_log = LoggerCollection.log_images
+
+    def timed_generate(self, prompt_ids, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_generate(self, prompt_ids, **kw)
+        torch.cuda.synchronize()
+        gens.append((prompt_ids.shape[0], kw.get("num_inference_steps"),
+                     type(self.inference_scheduler).__name__,
+                     time.perf_counter() - t0))
+        return out
+
+    def timed_compute(self):
+        t0 = time.perf_counter()
+        out = real_compute(self)
+        computes.append(time.perf_counter() - t0)
+        return out
+
+    def log_images(self, images, name="image", step=None, **kw):
+        logged.append((name, tuple(np.asarray(images).shape)))
+        return real_log(self, images, name=name, step=step, **kw)
+
+    counters = _counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        remote = os.path.join(tmp, "coco")
+        nbytes = _write_coco_shards(remote, EVAL_SAMPLES,
+                                    np.random.default_rng(6))
+        out = os.path.join(tmp, "eval_metrics.jsonl")
+        fid_args, coco_args = _eval_job_args(remote, out)
+        print(f"eval: wrote {EVAL_SAMPLES} COCO samples ({nbytes / 1e6:.1f} "
+              f"MB of MDS shards, phase 8's writer); python -m "
+              f"diffusion_torch.scripts.fid_clip_evaluation "
+              f"{' '.join(fid_args)}")
+        StableDiffusion.generate = timed_generate
+        FrechetInceptionDistance.compute = timed_compute
+        LoggerCollection.log_images = log_images
+        try:
+            for c in counters.values():
+                c.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fid = fid_clip_evaluation.main(fid_args)
+            torch.cuda.synchronize()
+            fid_wall = time.perf_counter() - t0
+            fid_launches = {n: c.value for n, c in counters.items()}
+            fid_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with open(out) as f:
+                records = [json.loads(line) for line in f]
+            fid_gens, fid_computes = list(gens), list(computes)
+            gens.clear()
+            computes.clear()
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            multi = coco_eval.main(coco_args)
+            torch.cuda.synchronize()
+            coco_wall = time.perf_counter() - t0
+            coco_launches = {n: c.value for n, c in counters.items()}
+        finally:
+            StableDiffusion.generate = real_generate
+            FrechetInceptionDistance.compute = real_compute
+            LoggerCollection.log_images = real_log
+
+    keys = ("metrics/coco-val/FrechetInceptionDistance-scale-3p0",
+            "metrics/coco-val/CLIPScore-scale-3p0")
+    for key in keys:
+        print(f"eval: fid_clip_evaluation {key} = {fid.get(key)!r} (random "
+              f"towers)")
+        _check(key in fid and math.isfinite(fid[key]), f"{key} not finite")
+        _check(any(key in r for r in records), f"{key} not in --out")
+    batch_gens = [g for g in fid_gens if g[0] == EVAL_BATCH]
+    _check(len(batch_gens) == EVAL_BATCHES
+           and all(g[2] == "DPMSolverMultistepScheduler" for g in batch_gens),
+           f"the eval's generate calls {fid_gens} are not one dpm++2m batch "
+           f"per eval batch")
+    _check(len(logged) == 10 and {s for _, s in logged}
+           == {(TRAIN_SIZE, TRAIN_SIZE, 3)},
+           f"LogDiffusionImages logged {logged}, not ten {TRAIN_SIZE}px "
+           f"images")
+    print(f"eval: fid_clip_evaluation: {len(records)} record(s) in --out, "
+          f"{len(logged)} images of {logged[0][1]} from LogDiffusionImages; "
+          f"the job {fid_wall:.2f} s (model and towers built, "
+          f"{EVAL_BATCHES} batches of {EVAL_BATCH}); generation "
+          f"{', '.join(f'{g[3]:.3f}' for g in batch_gens)} s per batch "
+          f"({batch_gens[0][1]} steps of {batch_gens[0][2]}, CFG batch "
+          f"{2 * EVAL_BATCH}, decode included); LogDiffusionImages "
+          f"{sum(g[3] for g in fid_gens if g[0] != EVAL_BATCH):.3f} s; host "
+          f"FID compute() (two 2048x2048 eigh) "
+          f"{', '.join(f'{c * 1e3:.1f}' for c in fid_computes)} ms; peak "
+          f"device memory {fid_peak:.2f} GiB [{card}]")
+    print(f"eval: kernel launches during fid_clip_evaluation "
+          f"{json.dumps(fid_launches)}")
+    for name in ("group_norm", "flash_attention"):
+        _check(fid_launches[name] > 0,
+               f"{name} was not launched during the eval job")
+    for scale in ("1p0", "7p0"):
+        for metric in ("FrechetInceptionDistance", "CLIPScore"):
+            key = f"metrics/coco-val/{metric}-scale-{scale}"
+            print(f"eval: coco_eval {key} = {multi.get(key)!r}")
+            _check(key in multi and math.isfinite(multi[key]),
+                   f"coco_eval: {key} missing or not finite")
+    print(f"eval: coco_eval {coco_wall:.2f} s (2 scales x 1 batch of "
+          f"{EVAL_BATCH}, 10 DDIM steps); kernel launches "
+          f"{json.dumps(coco_launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {n: fid_launches[n] + coco_launches[n] for n in counters}
+
+
 def _device_profile(events, window: str, what: str, card: str) -> None:
     """Print the device's busy time (the union of kernel intervals), the
     idle share of the first-to-last kernel span, and device time by kernel
@@ -2348,7 +2685,11 @@ def main(argv=None) -> int:
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
 
     # 5b. img2img and inpainting on the same endpoint
-    img2img_launches = _img2img_phase(endpoint, card, results["first"][2])
+    img2img_launches, ddim_text, ddim_s, encoder_calls = _img2img_phase(
+        endpoint, card, results["first"][2])
+    # 5c. the samplers over HTTP on the same endpoint
+    sampler_launches = _sampler_phase(endpoint, card, ddim_text, ddim_s,
+                                      encoder_calls)
 
     # 6-7. the training slice, on a model of its own: free the endpoint;
     # its UNet, whose CFG step is profiled last, waits on the CPU so the
@@ -2383,6 +2724,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 10. checkpoint, preempt, resume, and serve the checkpoint
     checkpoint_launches = _checkpoint_phase(card, composed_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 11. the offline eval job
+    eval_launches = _eval_job_phase(card)
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
@@ -2408,6 +2753,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": (launches.get(name, 0)
                          + img2img_launches.get(name, 0)
+                         + sampler_launches.get(name, 0)
+                         + eval_launches[name]
                          + train_launches[name] + composed_launches[name]
                          + online_launches[name]
                          + checkpoint_launches[name]),

@@ -1,1 +1,2 @@
-"""Trainer callbacks: the monitors the yamls declare."""
+"""Trainer callbacks: the monitors the yamls declare, and the eval's
+image logging (`LogDiffusionImages`)."""

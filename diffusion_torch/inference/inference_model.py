@@ -5,8 +5,13 @@ parses prompt/negative_prompt/ints/floats, generates, and returns base64
 PNGs; `predict_many` merges several mergeable requests into one generate
 call, padded to a power-of-two batch. A request with a base64 `image` and
 a `strength` is img2img (SDEdit); with a grayscale `mask` as well (white =
-regenerate), inpainting. PyTorch runs eagerly, so there is no compile
-cache; `generate` runs under `torch.inference_mode()`.
+regenerate), inpainting. A request may name its `scheduler` (`ddim`,
+`dpm++2m` or `dpm`, `euler`) and a `guidance_rescale` in [0, 1]; both join
+the batch key, so requests with different samplers never merge. Each
+sampler other than the model's own is built once, like the model's (its
+betas, prediction type and spacing), over the same modules. PyTorch runs
+eagerly, so there is no compile cache; `generate` runs under
+`torch.inference_mode()`.
 
 Weights are random (flax-like init from `seed`), published ones
 (`pretrained=True, model_name=<local diffusers directory>`, through the
@@ -17,21 +22,22 @@ the UNet's weights with a checkpoint's parameters: a Trainer checkpoint
 directory holding a bare `params.safetensors`; an `s3://`, `gs://` or
 `file://` path is fetched once into a cache (`train/checkpoint.py`). A
 checkpoint holds no frozen towers, so one over random towers raises
-unless `allow_random_frozen=True`. Not ported yet: per-request samplers
-and guidance rescale (each raises NotImplementedError naming its
-ROADMAP.md item).
+unless `allow_random_frozen=True`.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import io
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from diffusion_torch.models.models import stable_diffusion_2
+from diffusion_torch.models.models import (_make_inference_scheduler,
+                                           canonical_scheduler_name,
+                                           stable_diffusion_2)
 from diffusion_torch.models.port_jax import (clip_text_from_jax,
                                              unet_from_jax, vae_from_jax)
 from diffusion_torch.train.checkpoint import fetch_checkpoint_dir, load_params
@@ -86,6 +92,33 @@ class StableDiffusionInference:
                 local, dict(self.model.unet.named_parameters()))
         self.default_size = default_size
         self.seed = seed
+        # sampler name -> the model over that sampler (same modules)
+        self._models: Dict[str, Any] = {}
+
+    def _model_for(self, scheduler: Optional[str]):
+        """The model whose sampler is `scheduler` (a canonical name, None
+        for the model's own), built once per name."""
+        if scheduler is None:
+            return self.model
+        if scheduler not in self._models:
+            self._models[scheduler] = dataclasses.replace(
+                self.model, inference_scheduler=_make_inference_scheduler(
+                    scheduler, like=self.model.inference_scheduler))
+        return self._models[scheduler]
+
+    def _normalize_scheduler(self, requested: Any) -> Optional[str]:
+        """A request's sampler, canonical (lower case, 'dpm' ->
+        'dpm++2m'), or None for the model's own, so equivalent requests
+        share one batch key. An unknown name, or a sampler the model's
+        schedule refuses (zero terminal SNR), raises ValueError here, a
+        client error, not in the batch worker."""
+        if not requested:
+            return None
+        name = canonical_scheduler_name(str(requested))
+        if name == canonical_scheduler_name(self.model.inference_scheduler):
+            return None
+        self._model_for(name)       # built here, once: a refusal raises now
+        return name
 
     def _parse(self, inputs: Dict[str, Any]):
         """-> (prompts, negatives_or_None, images_and_masks, key).
@@ -105,15 +138,6 @@ class StableDiffusionInference:
         if not 0.0 <= g_rescale <= 1.0:
             raise ValueError(
                 f"guidance_rescale must be in [0, 1], got {g_rescale}")
-        if g_rescale > 0.0:
-            raise NotImplementedError(
-                "guidance_rescale comes with ROADMAP.md queue 1 item 7 "
-                "(DPM++/Euler samplers and guidance rescale)")
-        sched = inputs.get("scheduler")
-        if sched and str(sched).lower() != "ddim":
-            raise NotImplementedError(
-                f"sampler {sched!r} comes with ROADMAP.md queue 1 item 7 "
-                f"(DPM++/Euler samplers and guidance rescale)")
         steps = int(inputs.get("num_inference_steps", 50))
         image = inputs.get("image")
         images = masks = strength = None
@@ -150,8 +174,10 @@ class StableDiffusionInference:
                int(inputs.get("seed", self.seed)),
                int(inputs.get("num_images_per_prompt", 1)),
                negatives is not None,
+               self._normalize_scheduler(inputs.get("scheduler")),
                strength,               # None: text-to-image
-               masks is not None)
+               masks is not None,
+               g_rescale)
         return prompts, negatives, (
             (images, masks) if images else None), key
 
@@ -192,8 +218,8 @@ class StableDiffusionInference:
         keys = {p[3] for p in parsed}
         if len(keys) > 1:
             raise ValueError(f"unmergeable requests: {sorted(keys, key=repr)}")
-        (steps, height, width, scale, seed, n_per, has_neg, strength,
-         has_mask) = parsed[0][3]
+        (steps, height, width, scale, seed, n_per, has_neg, sched,
+         strength, has_mask, g_rescale) = parsed[0][3]
         prompts = [p for pr, _, _, _ in parsed for p in pr]
         n = len(prompts)
         padded = 1 << (n - 1).bit_length()
@@ -217,10 +243,11 @@ class StableDiffusionInference:
                          for _, _, im, _ in parsed for b in im[1]]
                 gen_kwargs["mask"] = torch.from_numpy(
                     np.stack(marrs + [marrs[-1]] * (padded - n)))
-        images = self.model.generate(
+        images = self._model_for(sched).generate(
             prompt_ids, negative_ids=negative_ids, height=height, width=width,
             guidance_scale=scale, num_inference_steps=steps,
-            num_images_per_prompt=n_per, seed=seed, **gen_kwargs)
+            num_images_per_prompt=n_per, seed=seed,
+            guidance_rescale=g_rescale, **gen_kwargs)
         # repeat_interleave keeps prompt-major order: prompt i's copies are
         # rows [i*n_per, (i+1)*n_per); padded prompts trail
         arrays = images[:n * n_per].float().cpu().numpy()
@@ -233,7 +260,9 @@ class StableDiffusionInference:
 
     def predict(self, **inputs: Any) -> List[str]:
         """Inputs: prompt (str | list), negative_prompt, height, width,
-        num_inference_steps, guidance_scale, seed, num_images_per_prompt;
+        num_inference_steps, guidance_scale, seed, num_images_per_prompt,
+        scheduler (ddim | dpm++2m | dpm | euler), guidance_rescale in
+        [0, 1];
         `image` (base64 PNG/JPEG, str or list) and `strength` in (0, 1]
         for img2img; with `mask` (grayscale base64, white = regenerate,
         str or list) inpainting: only the white region is synthesized anew,

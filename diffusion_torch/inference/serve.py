@@ -11,6 +11,9 @@ has `close()`, which stops its worker thread, and the server's
 
 POST /predict  {"prompt": "...", "guidance_scale": 7.5, ...}
   -> {"images": ["<base64 png>", ...]}
+  optional: "scheduler" (ddim|dpm++2m|euler), "guidance_rescale" in
+  [0, 1], "image" (base64) + "strength" for img2img, plus "mask"
+  (grayscale base64, white = regenerate) for inpainting
 GET  /health   -> {"status": "ok"}
 GET  /stats    -> batching counters
 """

@@ -1,1 +1,3 @@
-"""Eval metrics: the metric protocol and MeanSquaredError."""
+"""Eval metrics: the metric protocol, MeanSquaredError, and the generation
+metrics (FID, Inception Score, CLIPScore) with their towers and the
+per-guidance-scale hook."""

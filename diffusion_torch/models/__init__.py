@@ -1,1 +1,2 @@
-"""Port modules: layers, UNet, VAE decode, CLIP text, StableDiffusion."""
+"""Port modules: layers, UNet, VAE, the CLIP towers, the FID InceptionV3,
+StableDiffusion and the builders."""

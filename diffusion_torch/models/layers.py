@@ -304,3 +304,7 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, (nn.LayerNorm, GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        # bare parameters flax draws from normal(std), e.g. CLIP's class
+        # token
+        for name, std in getattr(m, "flax_normal_params", {}).items():
+            nn.init.normal_(getattr(m, name), 0.0, std, generator=generator)

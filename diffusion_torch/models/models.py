@@ -6,7 +6,10 @@ and meanings as the yamls pass them: `precomputed_latents`,
 `encode_latents_in_fp16` (bf16 compute, else fp32), `fsdp` (recorded on the
 model), `val_metrics`, `train_metrics`, `val_seed`, `loss_bins`,
 `prediction_type`, `min_snr_gamma`, `rescale_betas_zero_snr`,
-`timestep_spacing`, `init_frozen_towers`. A builder makes the modules on
+`timestep_spacing`, `init_frozen_towers`, `inference_scheduler` (`ddim`,
+`dpm++2m` or its alias `dpm`, `euler`), and the generation eval's
+`val_guidance_scales`, `inception_weights`, `clip_metric_weights` and
+`allow_random_tower_weights`. A builder makes the modules on
 `device` (CUDA unless the caller asks for the CPU; it raises where CUDA is
 missing) and draws their weights as flax's defaults would
 (`init_like_flax_`) from a `torch.Generator` seeded with `seed`. With
@@ -21,11 +24,8 @@ is used.
 The UNet is trainable (fp32 parameters, `.train()` mode). The frozen VAE
 and CLIP towers are `.eval()` without gradients, and are not built when
 `init_frozen_towers` resolves False: by the JAX rule, precomputed latents
-and no generation eval.
-
-Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: a non-empty `val_guidance_scales` (the generation metrics, item 8),
-samplers other than DDIM (item 7).
+and no generation eval (a model with `val_guidance_scales` keeps them: its
+eval generates images).
 """
 
 from __future__ import annotations
@@ -42,23 +42,58 @@ from diffusion_torch.models.pretrained import load_pretrained_params
 from diffusion_torch.models.stable_diffusion import StableDiffusion
 from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition, UNetConfig
 from diffusion_torch.models.vae import SD2_VAE, AutoencoderKL, VAEConfig
-from diffusion_torch.schedulers import DDIMScheduler, DDPMScheduler
+from diffusion_torch.schedulers import (DDIMScheduler, DDPMScheduler,
+                                        DPMSolverMultistepScheduler,
+                                        EulerDiscreteScheduler)
 from diffusion_torch.text.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffusion_torch.utils.device import Device, resolve_device
 
-__all__ = ["stable_diffusion_2", "stable_diffusion_tiny"]
+__all__ = ["stable_diffusion_2", "stable_diffusion_tiny",
+           "canonical_scheduler_name"]
+
+# the samplers a yaml's `model.inference_scheduler` (and a request's
+# `scheduler`) may name; all share the noise schedule they are built like
+_INFERENCE_SCHEDULERS = {
+    "ddim": DDIMScheduler,
+    "dpm++2m": DPMSolverMultistepScheduler,
+    "dpm": DPMSolverMultistepScheduler,
+    "euler": EulerDiscreteScheduler,
+}
 
 
-def _check_ported(inference_scheduler: str,
-                  val_guidance_scales: Optional[Sequence[float]]) -> None:
-    if inference_scheduler.lower() != "ddim":
-        raise NotImplementedError(
-            f"sampler {inference_scheduler!r} comes with ROADMAP.md queue 1 "
-            f"item 7 (DPM++/Euler samplers and guidance rescale)")
-    if val_guidance_scales:
-        raise NotImplementedError(
-            "val_guidance_scales (generation metrics in the eval loop) come "
-            "with ROADMAP.md queue 1 item 8 (metrics)")
+def canonical_scheduler_name(name_or_sched: Any) -> Optional[str]:
+    """The canonical sampler name: case-folded, 'dpm' -> 'dpm++2m'. Takes a
+    name (an unknown one raises ValueError) or a scheduler (None when it
+    is none of the selectable ones)."""
+    if not isinstance(name_or_sched, str):
+        for name in ("ddim", "dpm++2m", "euler"):
+            if type(name_or_sched) is _INFERENCE_SCHEDULERS[name]:
+                return name
+        return None
+    name = name_or_sched.lower()
+    if name == "dpm":
+        return "dpm++2m"
+    if name not in _INFERENCE_SCHEDULERS:
+        raise ValueError(
+            f"unknown inference_scheduler {name_or_sched!r}; choose from "
+            f"{sorted(_INFERENCE_SCHEDULERS)}")
+    return name
+
+
+def _make_inference_scheduler(name: str, like: Any = None):
+    """The named sampler; with `like` (a scheduler), built with its betas,
+    prediction type, steps offset, zero-SNR flag and spacing, so a
+    non-default model keeps the schedule it was trained for."""
+    cls = _INFERENCE_SCHEDULERS[canonical_scheduler_name(name)]
+    kwargs = {}
+    if like is not None:
+        for field in ("num_train_timesteps", "beta_start", "beta_end",
+                      "beta_schedule", "prediction_type", "steps_offset",
+                      "rescale_betas_zero_snr", "timestep_spacing"):
+            value = getattr(like, field, None)
+            if value is not None:
+                kwargs[field] = value
+    return cls(**kwargs)
 
 
 def _pretrained_dir(pretrained: bool, model_name: Optional[str]
@@ -96,21 +131,23 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
            device: Device, seed: int, *, precomputed_latents: bool,
            prediction_type: str, min_snr_gamma: Optional[float],
            rescale_betas_zero_snr: bool, timestep_spacing: Optional[str],
-           init_frozen_towers: Optional[bool],
+           init_frozen_towers: Optional[bool], inference_scheduler: str,
+           val_guidance_scales: Optional[Sequence[float]],
            pretrained_path: Optional[str] = None, **fields: Any
            ) -> StableDiffusion:
     device = resolve_device(device)
+    val_guidance_scales = tuple(float(g) for g in val_guidance_scales or ())
     if init_frozen_towers is None:
-        init_frozen_towers = not precomputed_latents
+        # the JAX rule: a generation eval needs the VAE and CLIP
+        init_frozen_towers = not (precomputed_latents
+                                  and not val_guidance_scales)
     spacing = _spacing(timestep_spacing, rescale_betas_zero_snr)
     noise_scheduler = DDPMScheduler(
         prediction_type=prediction_type,
         rescale_betas_zero_snr=rescale_betas_zero_snr,
         timestep_spacing=spacing)
-    inference_scheduler = DDIMScheduler(
-        prediction_type=prediction_type,
-        rescale_betas_zero_snr=rescale_betas_zero_snr,
-        timestep_spacing=spacing)
+    inference_scheduler = _make_inference_scheduler(inference_scheduler,
+                                                    like=noise_scheduler)
     with torch.device(device):
         unet = UNet2DCondition(unet_cfg, dtype=dtype)
         towers = ((AutoencoderKL(vae_cfg, dtype=dtype),
@@ -130,6 +167,7 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
                             prediction_type=prediction_type,
                             min_snr_gamma=min_snr_gamma,
                             precomputed_latents=precomputed_latents,
+                            val_guidance_scales=val_guidance_scales,
                             pretrained_path=pretrained_path, **fields)
     if pretrained_path:
         load_pretrained_params(model)
@@ -146,6 +184,9 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                        precomputed_latents: bool = False,
                        encode_latents_in_fp16: bool = True,
                        fsdp: bool = True,
+                       inception_weights: Optional[str] = None,
+                       clip_metric_weights: Optional[str] = None,
+                       allow_random_tower_weights: bool = False,
                        init_frozen_towers: Optional[bool] = None,
                        inference_scheduler: str = "ddim",
                        min_snr_gamma: Optional[float] = None,
@@ -158,8 +199,9 @@ def stable_diffusion_2(model_name: Optional[str] = None,
     CLIP text tower, computing in bf16 (`encode_latents_in_fp16`, as the JAX
     builder maps it) or fp32. `model_name` is a local diffusers directory:
     the weights with `pretrained=True`, and the tokenizer where it holds
-    one."""
-    _check_ported(inference_scheduler, val_guidance_scales)
+    one. `inception_weights` and `clip_metric_weights` are the metric
+    towers' `.npz` files (`metrics/towers.py`); random towers are refused
+    unless `allow_random_tower_weights`."""
     pretrained_path = _pretrained_dir(pretrained, model_name)
     return _build(SD2_BASE_UNET, SD2_VAE, SD2_TEXT_CONFIG,
                   _tokenizer(model_name),
@@ -170,6 +212,8 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                   rescale_betas_zero_snr=rescale_betas_zero_snr,
                   timestep_spacing=timestep_spacing,
                   init_frozen_towers=init_frozen_towers,
+                  inference_scheduler=inference_scheduler,
+                  val_guidance_scales=val_guidance_scales,
                   pretrained_path=pretrained_path,
                   val_seed=int(val_seed),
                   loss_bins=tuple(tuple(b) for b in (loss_bins or [(0, 1)])),
@@ -177,7 +221,9 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                                            or ("MeanSquaredError",)),
                   val_metric_names=tuple(val_metrics or (
                       "MeanSquaredError", "FrechetInceptionDistance")),
-                  fsdp=bool(fsdp))
+                  fsdp=bool(fsdp), inception_weights=inception_weights,
+                  clip_metric_weights=clip_metric_weights,
+                  allow_random_tower_weights=bool(allow_random_tower_weights))
 
 
 def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
@@ -185,6 +231,7 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
                           model_name: Optional[str] = None,
                           pretrained: bool = False,
                           val_metrics: Optional[List[Any]] = None,
+                          allow_random_tower_weights: bool = False,
                           inference_scheduler: str = "ddim",
                           min_snr_gamma: Optional[float] = None,
                           prediction_type: str = "epsilon",
@@ -198,7 +245,6 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
     keywords it does not know (a yaml's `loss_bins`, `fsdp`, ...). It takes
     the same `pretrained`/`model_name` contract as `stable_diffusion_2`
     (the tokenizer stays the tiny one)."""
-    _check_ported(inference_scheduler, val_guidance_scales)
     pretrained_path = _pretrained_dir(pretrained, model_name)
     return _build(
         UNetConfig(in_channels=4, out_channels=4, block_out_channels=(32, 64),
@@ -215,5 +261,8 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
         rescale_betas_zero_snr=rescale_betas_zero_snr,
         timestep_spacing=timestep_spacing,
         init_frozen_towers=init_frozen_towers,
+        inference_scheduler=inference_scheduler,
+        val_guidance_scales=val_guidance_scales,
         pretrained_path=pretrained_path,
-        val_metric_names=tuple(val_metrics or ("MeanSquaredError",)))
+        val_metric_names=tuple(val_metrics or ("MeanSquaredError",)),
+        allow_random_tower_weights=bool(allow_random_tower_weights))

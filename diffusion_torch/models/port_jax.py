@@ -1,11 +1,15 @@
 """JAX param trees -> the port's state_dicts.
 
-The port's modules carry the diffusers/transformers parameter names, so
-these functions are the exact inverses of `diffusion_tpu/models/port_hf.py`'s
-`port_unet`, `port_vae` and `port_clip_text`: HWIO -> OIHW for conv
-kernels, (in, out) -> (out, in) for dense kernels, flax `scale` ->
-`weight`, and the GEGLU's `ff/proj_in` + `ff/proj_gate` re-fused into
-diffusers' `ff.net.0.proj` (value rows first, then gate rows).
+The port's modules carry the diffusers/transformers/torchvision parameter
+names, so these functions are the exact inverses of
+`diffusion_tpu/models/port_hf.py`'s `port_unet`, `port_vae`,
+`port_clip_text`, `port_clip_metric` (both CLIP towers and their
+projections) and `port_inception`: HWIO -> OIHW for conv kernels, (in, out)
+-> (out, in) for dense kernels, flax `scale` -> `weight`, BatchNorm's
+`batch_stats` `mean`/`var` -> `running_mean`/`running_var`, and the
+GEGLU's `ff/proj_in` + `ff/proj_gate` re-fused into diffusers'
+`ff.net.0.proj` (value rows first, then gate rows). One weights file then
+serves both packages.
 
 Input: a flax param tree ({"params": {...}} or the inner dict) whose leaves
 are numpy arrays (anything `np.asarray` takes). Output: a state_dict of fp32
@@ -20,20 +24,22 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["unet_from_jax", "vae_from_jax", "clip_text_from_jax"]
+__all__ = ["unet_from_jax", "vae_from_jax", "clip_text_from_jax",
+           "clip_model_from_jax", "inception_from_jax"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "embedding": "weight"}
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    if "params" in tree and not prefix:
+def _flatten(tree: Mapping, prefix: str = "",
+             inner: bool = True) -> Dict[str, np.ndarray]:
+    if inner and "params" in tree and not prefix:
         tree = tree["params"]
     flat: Dict[str, np.ndarray] = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else k
         if isinstance(v, Mapping):
-            flat.update(_flatten(v, path))
+            flat.update(_flatten(v, path, inner))
         else:
             flat[path] = np.asarray(v)
     return flat
@@ -129,3 +135,56 @@ def _clip_name(parts: list) -> str:
 def clip_text_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """`CLIPTextModel` params -> the port's CLIP text state_dict."""
     return _convert(_flatten(tree), _clip_name)
+
+
+def _vision_name(parts: list) -> str:
+    top = parts[0] if parts else ""
+    if top in ("", "patch_embedding"):
+        # bare params (class_embedding, position_embedding) and the conv
+        return "vision_model.embeddings" + (f".{top}" if top else "")
+    if top in ("pre_layrnorm", "post_layernorm"):
+        return f"vision_model.{top}"
+    return "vision_model." + _clip_name(parts).split(".", 1)[1]
+
+
+def clip_model_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """`CLIPModel` params (text_model, vision_model, text_projection,
+    visual_projection) -> the port's CLIPModel state_dict, transformers'
+    CLIPModel names."""
+    flat = _flatten(tree)
+    out = clip_text_from_jax({k.split("/", 1)[1]: v for k, v in flat.items()
+                              if k.startswith("text_model/")})
+    vision = {k.split("/", 1)[1]: v for k, v in flat.items()
+              if k.startswith("vision_model/")}
+    bare = {k: vision.pop(k) for k in ("class_embedding",
+                                       "position_embedding")}
+    out.update(_convert(vision, _vision_name))
+    out["vision_model.embeddings.class_embedding"] = torch.from_numpy(
+        np.array(bare["class_embedding"], dtype=np.float32))
+    out["vision_model.embeddings.position_embedding.weight"] = \
+        torch.from_numpy(np.array(bare["position_embedding"],
+                                  dtype=np.float32))
+    for name in ("text_projection", "visual_projection"):
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.array(flat[f"{name}/kernel"].T, dtype=np.float32))
+    return out
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def inception_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """InceptionV3 variables ({"params": ..., "batch_stats": ...}) -> the
+    port's InceptionV3 state_dict (torchvision names)."""
+    out: Dict[str, np.ndarray] = {}
+    for path, w in _flatten(tree, inner=False).items():
+        collection, *parts = path.split("/")
+        module, leaf = ".".join(parts[:-1]), parts[-1]
+        if collection == "batch_stats":
+            out[f"{module}.{_BN_STATS[leaf]}"] = w
+        elif collection == "params":
+            out[f"{module}.{_LEAF[leaf]}"] = _value(leaf, w)
+        else:
+            raise KeyError(f"unmapped InceptionV3 variable {path}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in out.items()}

@@ -1,7 +1,8 @@
 """StableDiffusion: the training forward and loss (on precomputed latents,
 or on raw images encoded by the frozen VAE and CLIP towers), and
 generation: text-to-image, img2img (SDEdit) and inpainting (CLIP text ->
-CFG DDIM loop over the UNet -> VAE decode).
+CFG loop over the UNet with the model's sampler, DDIM, DPM-Solver++(2M) or
+Euler, optionally with guidance rescale -> VAE decode).
 
 Counterpart of `diffusion_tpu/models/stable_diffusion.py`. The modules own
 their weights, so no param trees are passed around; the denoise loop is a
@@ -18,9 +19,6 @@ in the latents' NHWC layout; `generate` takes latents and noise
 (B, H/8, W/8, 4), images (B, H, W, 3) in [0, 1] and masks (B, H, W[, 1])
 or (B, H/8, W/8[, 1]), and returns images (B, H, W, 3) in [0, 1]. Inside,
 latents are NCHW views of the same memory (channels_last).
-
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-guidance rescale.
 """
 
 from __future__ import annotations
@@ -33,7 +31,7 @@ import torch
 from diffusion_torch.models.clip import CLIPTextModel
 from diffusion_torch.models.unet import UNet2DCondition
 from diffusion_torch.models.vae import AutoencoderKL
-from diffusion_torch.schedulers import DDIMScheduler, DDPMScheduler
+from diffusion_torch.schedulers import DDPMScheduler
 
 __all__ = ["StableDiffusion"]
 
@@ -41,8 +39,6 @@ __all__ = ["StableDiffusion"]
 # VAE and CLIP latents
 _IMAGE, _IDS = "image", "captions"
 _LATENTS, _CAPTIONS = "image_latents", "caption_latents"
-_RESCALE = ("guidance_rescale > 0 comes with ROADMAP.md queue 1 item 7 "
-            "(DPM++/Euler samplers and guidance rescale)")
 
 
 @dataclasses.dataclass
@@ -52,7 +48,9 @@ class StableDiffusion:
     vae: Optional[AutoencoderKL]
     text_encoder: Optional[CLIPTextModel]
     tokenizer: Any
-    inference_scheduler: DDIMScheduler
+    # any sampler of the schedulers' protocol: DDIM, or DPM-Solver++(2M)
+    # (multistep: it has init_state / step_with_state) or Euler
+    inference_scheduler: Any
     noise_scheduler: DDPMScheduler = dataclasses.field(
         default_factory=DDPMScheduler)
     prediction_type: str = "epsilon"
@@ -61,6 +59,8 @@ class StableDiffusion:
     latent_scale: float = 0.18215
     precomputed_latents: bool = False
     val_seed: int = 1138
+    # the eval's generation metrics: one image batch per scale
+    val_guidance_scales: Tuple[float, ...] = ()
     # eval loss bins: [lo, hi) fractions of the training timesteps
     loss_bins: Tuple[Tuple[float, float], ...] = ((0, 1),)
     train_metric_names: Tuple[str, ...] = ("MeanSquaredError",)
@@ -70,6 +70,11 @@ class StableDiffusion:
     fsdp: bool = True
     # the local diffusers directory the builder loaded (pretrained=True)
     pretrained_path: Optional[str] = None
+    # the generation metrics' towers (.npz files of tools/port_weights.py,
+    # local or s3:// gs://); random towers only when allowed
+    inception_weights: Optional[str] = None
+    clip_metric_weights: Optional[str] = None
+    allow_random_tower_weights: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -204,8 +209,9 @@ class StableDiffusion:
                      latent_noise: Optional[torch.Tensor] = None
                      ) -> Dict[str, Any]:
         """The eval loop's forward: prediction, target and timesteps for
-        the MSE; `generated` stays empty (generation per val guidance
-        scale comes with ROADMAP.md queue 1 item 8)."""
+        the MSE; `generated` stays empty (the eval's images per val
+        guidance scale come from `metrics.generation_metrics`'
+        `GenerationMetricsHook`)."""
         pred, target, t = self.forward(batch, generator, noise, timesteps,
                                        latent_noise)
         return {"pred": pred, "target": target, "timesteps": t,
@@ -237,27 +243,48 @@ class StableDiffusion:
                      text_embeddings: torch.Tensor, guidance_scale: float,
                      num_inference_steps: int, t_start: int = 0,
                      inpaint: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]] = None
-                     ) -> torch.Tensor:
-        """CFG DDIM loop over NCHW latents (one UNet call on the 2x batch
-        per step), from grid entry `t_start` on (img2img enters mid-way,
-        with latents noised to that entry's timestep).
+                                             torch.Tensor]] = None,
+                     guidance_rescale: float = 0.0) -> torch.Tensor:
+        """CFG loop over NCHW latents with the model's sampler (one UNet
+        call on the 2x batch per step), from grid entry `t_start` on
+        (img2img enters mid-way, with latents noised to that entry's
+        timestep). A multistep sampler (one with `init_state`) carries its
+        state from step to step.
+
+        `guidance_rescale` > 0 rescales the CFG prediction toward the
+        conditional branch's standard deviation (Lin et al. 2023,
+        arXiv:2305.08891 section 3.4), with the population std (ddof 0,
+        as `jnp.std`).
 
         `inpaint = (lat0, mask, noise)` (NCHW; mask (B, 1, h, w), 1 =
         regenerate): after every step the region where mask is 0 is
         replaced by the clean latents `lat0` noised to the step's
-        destination timestep (`noise_to`), and by `lat0` itself after the
-        last step."""
+        destination timestep in the sampler's own space (`noise_to`), and
+        by `lat0` itself after the last step."""
         sched = self.inference_scheduler
         ts, tps = sched.timesteps(num_inference_steps)
-        for t, tp in zip(ts[t_start:], tps[t_start:]):
+        ts, tps = ts[t_start:], tps[t_start:]
+        state = (sched.init_state(latents) if hasattr(sched, "init_state")
+                 else None)
+        for i, (t, tp) in enumerate(zip(ts, tps)):
             model_in = sched.scale_model_input(
                 torch.cat([latents, latents], dim=0), t)
             tt = torch.full((model_in.shape[0],), int(t), dtype=torch.int64,
                             device=latents.device)
             uncond, cond = self.unet(model_in, tt, text_embeddings).chunk(2)
             pred = uncond + guidance_scale * (cond - uncond)
-            latents = sched.step(pred, int(t), int(tp), latents)
+            if guidance_rescale > 0.0:
+                dims = tuple(range(1, pred.ndim))
+                std_cond = cond.std(dim=dims, keepdim=True, correction=0)
+                std_cfg = pred.std(dim=dims, keepdim=True,
+                                   correction=0).clamp(min=1e-12)
+                pred = (guidance_rescale * (pred * std_cond / std_cfg)
+                        + (1.0 - guidance_rescale) * pred)
+            if state is None:
+                latents = sched.step(pred, int(t), int(tp), latents)
+            else:
+                latents, state = sched.step_with_state(
+                    pred, int(t), int(tp), latents, state, i, len(ts))
             if inpaint is not None:
                 lat0, mask, ip_noise = inpaint
                 keep = (sched.noise_to(lat0, ip_noise, int(tp)) if tp >= 0
@@ -308,9 +335,9 @@ class StableDiffusion:
         rest of the loop runs; when `int(steps * strength)` is 0 the output
         is the VAE reconstruction. Inpainting: also `mask` in [0, 1] (1 =
         regenerate, 0 = keep), at image or latent resolution (see
-        `denoise_loop`)."""
-        if guidance_rescale > 0.0:
-            raise NotImplementedError(_RESCALE)
+        `denoise_loop`). `guidance_rescale` (0 = off) is Lin et al. 2023's
+        CFG std rescale (about 0.7 with zero-terminal-SNR v-prediction
+        models)."""
         self._towers()
         device = self.device
         bsz = prompt_ids.shape[0]
@@ -346,7 +373,11 @@ class StableDiffusion:
         noise = latents.to(device, torch.float32).permute(0, 3, 1, 2)
         t_start, inpaint = 0, None
         if lat0 is None:
-            lat = noise * sched.init_noise_sigma
+            # sigma-space samplers (Euler) scale x_T by the inference
+            # grid's top sigma, not the full grid's
+            lat = noise * (sched.init_sigma(num_inference_steps)
+                           if hasattr(sched, "init_sigma")
+                           else sched.init_noise_sigma)
         else:
             lat0 = lat0.repeat_interleave(num_images_per_prompt,
                                           dim=0).permute(0, 3, 1, 2)
@@ -364,6 +395,7 @@ class StableDiffusion:
                 inpaint = (lat0, m.repeat_interleave(num_images_per_prompt,
                                                      dim=0), noise)
         lat = self.denoise_loop(lat, embeddings, guidance_scale,
-                                num_inference_steps, t_start, inpaint)
+                                num_inference_steps, t_start, inpaint,
+                                guidance_rescale)
         images = self.vae.decode(lat / self.latent_scale)
         return (images * 0.5 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)

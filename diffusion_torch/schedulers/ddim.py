@@ -16,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from diffusion_torch.schedulers.ddpm import (alphas_cumprod_np,
+from diffusion_torch.schedulers.ddpm import (alphas_cumprod_f32,
                                              uniform_timestep_grid)
 
 __all__ = ["DDIMScheduler"]
@@ -46,9 +46,9 @@ class DDIMScheduler:
     @property
     def alphas_cumprod(self) -> np.ndarray:
         """fp32 alpha-bar table (numpy: indexed on the host every step)."""
-        return alphas_cumprod_np(self.beta_schedule, self.num_train_timesteps,
-                                 self.beta_start, self.beta_end,
-                                 self.rescale_betas_zero_snr).astype(np.float32)
+        return alphas_cumprod_f32(self.beta_schedule, self.num_train_timesteps,
+                                  self.beta_start, self.beta_end,
+                                  self.rescale_betas_zero_snr)
 
     @property
     def init_noise_sigma(self) -> float:

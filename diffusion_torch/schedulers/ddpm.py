@@ -12,12 +12,13 @@ return the sample's dtype, as the JAX scheduler does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 __all__ = ["DDPMScheduler", "make_beta_schedule", "alphas_cumprod_np",
-           "uniform_timestep_grid"]
+           "alphas_cumprod_f32", "uniform_timestep_grid"]
 
 
 def make_beta_schedule(schedule: str, num_timesteps: int, beta_start: float,
@@ -50,6 +51,18 @@ def alphas_cumprod_np(schedule: str, num_timesteps: int, beta_start: float,
         s0, sT = s[0], s[-1]
         s = (s - sT) * (s0 / (s0 - sT))
         abar = s ** 2
+    return abar
+
+
+@functools.lru_cache(maxsize=None)
+def alphas_cumprod_f32(schedule: str, num_timesteps: int, beta_start: float,
+                       beta_end: float,
+                       rescale_zero_terminal_snr: bool = False) -> np.ndarray:
+    """`alphas_cumprod_np` cast to float32, built once per schedule and
+    read-only: the samplers index it on the host every step."""
+    abar = alphas_cumprod_np(schedule, num_timesteps, beta_start, beta_end,
+                             rescale_zero_terminal_snr).astype(np.float32)
+    abar.flags.writeable = False
     return abar
 
 

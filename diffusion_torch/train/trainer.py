@@ -37,6 +37,14 @@ derived from the model's `val_seed` and the batch index, unless
 `eval_noise_hook(batch_index, batch) -> (noise, timesteps[,
 latent_noise])` hands them over.
 
+Generation metrics: where the model's `val_guidance_scales` give
+guidance scales and its `val_metric_names` name FID, IS or CLIPScore, a
+`metrics.generation_metrics.GenerationMetricsHook` in `metric_hooks`
+generates one image batch per scale for every eval batch
+(`eval_num_inference_steps` steps, at `image_size`) and adds
+`metrics/<label>/<Metric>-scale-<g>` to `eval()`'s results. An evaluator
+whose metric names name none of the hook's pays for no sampling pass.
+
 Checkpoints (`train/checkpoint.py`), as the JAX Trainer writes them:
 with `save_folder`, every `save_interval` batches and at the end of `fit`,
 with the EMA weights active (swapped out again after the save), the
@@ -78,6 +86,8 @@ import torch
 
 from diffusion_torch.algorithms.ema import (EMA, apply_ema,
                                             ema_smoothing_for_step)
+from diffusion_torch.metrics.generation_metrics import (
+    GENERATION_METRICS, GenerationMetricsHook)
 from diffusion_torch.train import checkpoint as ckpt
 from diffusion_torch.train.events import Algorithm, Callback, Event, EventEngine
 from diffusion_torch.train.optim import (build_optimizer, constant_scheduler,
@@ -151,6 +161,7 @@ class Trainer:
         load_path: Optional[str] = None,
         load_weights_only: bool = False,
         eval_subset_num_batches: int = -1,
+        eval_num_inference_steps: int = 50,
         mesh: Any = None,
         mesh_config: Optional[dict] = None,
         fsdp_config: Optional[dict] = None,
@@ -239,6 +250,20 @@ class Trainer:
 
         self._init_device_state(optimizers, schedulers, grad_clip_norm,
                                 device_train_microbatch_size)
+
+        scales = tuple(getattr(model, "val_guidance_scales", ()))
+        self.metric_hooks: List[Any] = []
+        gen_names = [n for n in getattr(model, "val_metric_names", ())
+                     if n in GENERATION_METRICS]
+        if scales and gen_names and self.evaluators:
+            self.metric_hooks.append(GenerationMetricsHook(
+                model, scales, gen_names,
+                height=image_size, width=image_size,
+                num_inference_steps=eval_num_inference_steps,
+                inception_weights=getattr(model, "inception_weights", None),
+                clip_weights=getattr(model, "clip_metric_weights", None),
+                allow_random_weights=getattr(
+                    model, "allow_random_tower_weights", False)))
         self.state = State(
             model=model, train_state=self.train_state, timestamp=Timestamp(),
             run_name=run_name, seed=self.seed,
@@ -466,6 +491,12 @@ class Trainer:
         for evaluator in self.evaluators:
             accum: Dict[str, Tuple[float, float]] = {}
             state.eval_label = evaluator.label
+            # an evaluator that names no generation metric pays for no
+            # sampling pass (empty metric names: everything)
+            hooks = [h for h in self.metric_hooks
+                     if not evaluator.metric_names
+                     or any(n in evaluator.metric_names
+                            for n in h.metric_names)]
             # every eval scores the same slice of the eval set: a prior
             # subset-limited pass left the loader mid-epoch
             dl = evaluator.dataloader
@@ -481,10 +512,14 @@ class Trainer:
                 for name, (num, den) in self._eval_step(batch, i).items():
                     a, b = accum.get(name, (0.0, 0.0))
                     accum[name] = (a + num, b + den)
+                for hook in hooks:
+                    hook.eval_batch(self, evaluator, state, batch, i)
                 self.engine.run(Event.EVAL_BATCH_END, state, logger)
             for name, (num, den) in accum.items():
                 if den > 0:
                     results[f"metrics/{evaluator.label}/{name}"] = num / den
+            for hook in hooks:
+                results.update(hook.eval_end(self, evaluator, state))
         logger.log_metrics(results, step=state.timestamp.batch)
         self.engine.run(Event.EVAL_END, state, logger)
         return results

@@ -151,3 +151,70 @@ def test_inpainting_mask_and_images():
     img = chip_smoke._smooth_image(np.random.default_rng(0), 24, 40)
     assert img.shape == (24, 40, 3) and img.dtype == np.uint8
     assert img.std() > 10
+
+
+@pytest.mark.parametrize("got,steps_run,encoder,ok", [
+    ({"group_norm": 1250, "flash_attention": 200}, 20, 0, True),
+    ({"group_norm": 1251, "flash_attention": 200}, 20, 0, False),
+    ({"group_norm": 1250, "flash_attention": 190}, 20, 0, False),
+    # img2img at strength 0.5: 10 UNet steps run, plus the encoder's 22
+    ({"group_norm": 1250 - 610 + 22, "flash_attention": 100}, 10, 22, True),
+    ({"group_norm": 1250 - 610, "flash_attention": 100}, 10, 22, False),
+])
+def test_sampler_phase_launch_equality(got, steps_run, encoder, ok):
+    """Phase 5c holds each sampler request's forward launches to phase
+    5b's 20-step DDIM text request's (61 GroupNorm calls and 10 flash
+    calls a UNet step at 512px): equal for text requests, less the steps
+    not run plus the encoder's GroupNorm calls for img2img."""
+    text = {"group_norm": 1250, "flash_attention": 200}
+    assert chip_smoke._launches_match(got, text, steps_run, 61,
+                                      encoder) is ok
+
+
+def test_sampler_phase_requests():
+    """Four 20-step requests: dpm++2m, euler, DDIM with rescale 0.7, and a
+    dpm++2m img2img at strength 0.5, each a valid request of the port's
+    endpoint (its batch keys differ, so none merge)."""
+    import numpy as np
+
+    from diffusion_torch.inference.inference_model import \
+        StableDiffusionInference
+    from diffusion_torch.models.models import stable_diffusion_tiny
+
+    endpoint = StableDiffusionInference(builder=stable_diffusion_tiny,
+                                        device="cpu", default_size=32)
+    names = [k for k, _ in chip_smoke.SAMPLER_REQUESTS]
+    assert names == ["dpm++2m", "euler", "ddim rescaled", "dpm++2m img2img"]
+    image = chip_smoke._b64_png(chip_smoke._smooth_image(
+        np.random.default_rng(0), 32, 32))
+    keys = set()
+    for _, extra in chip_smoke.SAMPLER_REQUESTS:
+        req = dict(prompt="x", num_inference_steps=chip_smoke.STEPS,
+                   **extra)
+        if "strength" in extra:
+            req["image"] = image
+        keys.add(endpoint.batch_key(req))
+    assert len(keys) == 4
+
+
+def test_eval_job_arguments(tmp_path):
+    """Phase 11's two argument lists parse with the port's scripts: the
+    eval job at 256px, 2 batches of 16, guidance 3.0, dpm++2m at 20 steps,
+    random towers, on the card, writing --out; coco_eval at 1.0 and 7.0
+    with 10 DDIM steps."""
+    from diffusion_torch.scripts import coco_eval, fid_clip_evaluation
+
+    fid_args, coco_args = chip_smoke._eval_job_args(
+        str(tmp_path / "coco"), str(tmp_path / "out.jsonl"))
+    a = fid_clip_evaluation.parse_args(fid_args)
+    assert (a.size, a.batch_size, a.subset_num_batches) == (256, 16, 2)
+    assert (a.guidance_scale, a.scheduler, a.num_inference_steps) == (
+        3.0, "dpm++2m", 20)
+    assert a.allow_random_towers and a.device == "cuda:0"
+    assert a.out == str(tmp_path / "out.jsonl")
+    assert a.builder == "diffusion_torch.models.models.stable_diffusion_2"
+    c = coco_eval.parse_args(coco_args)
+    assert c.guidance_scales == [1.0, 7.0] and c.num_inference_steps == 10
+    assert (c.subset_num_batches, c.batch_size, c.device) == (1, 16, "cuda:0")
+    assert chip_smoke.EVAL_SAMPLES >= chip_smoke.EVAL_BATCH * \
+        chip_smoke.EVAL_BATCHES

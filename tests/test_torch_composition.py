@@ -329,10 +329,23 @@ def test_builders_take_the_yaml_keywords(monkeypatch):
     tmodels.stable_diffusion_2(loss_bins=[[0, 0.5], [0.5, 1]], device="cpu")
     assert seen["args"][4] is torch.bfloat16
     assert seen["kwargs"]["loss_bins"] == ((0, 0.5), (0.5, 1))
-    for builder in (tmodels.stable_diffusion_2,
-                    tmodels.stable_diffusion_tiny):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            builder(device="cpu", val_guidance_scales=[7.5])
+    # the generation eval's keywords reach the model
+    tmodels.stable_diffusion_2(device="cpu", val_guidance_scales=[7.5, 3],
+                               inception_weights="i.npz",
+                               clip_metric_weights="c.npz",
+                               allow_random_tower_weights=True)
+    kw = seen["kwargs"]
+    assert kw["val_guidance_scales"] == [7.5, 3]
+    assert (kw["inception_weights"], kw["clip_metric_weights"],
+            kw["allow_random_tower_weights"]) == ("i.npz", "c.npz", True)
+    monkeypatch.undo()
+    # a generation eval keeps the towers on precomputed latents (the JAX
+    # rule)
+    model = tmodels.stable_diffusion_tiny(device="cpu",
+                                          val_guidance_scales=[7.5],
+                                          precomputed_latents=True)
+    assert model.val_guidance_scales == (7.5,)
+    assert model.vae is not None and model.text_encoder is not None
     # pretrained=True: the JAX builders' check that model_name is a local
     # directory, raising what they raise
     from diffusion_tpu.models import models as jmodels

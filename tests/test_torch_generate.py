@@ -20,6 +20,7 @@ from diffusion_tpu.models.models import stable_diffusion_tiny as jax_tiny
 from diffusion_torch.inference.inference_model import StableDiffusionInference
 from diffusion_torch.inference.serve import Batcher, make_server
 from diffusion_torch.models.models import stable_diffusion_tiny
+from diffusion_torch.schedulers import EulerDiscreteScheduler
 
 torch.set_num_threads(1)
 
@@ -84,19 +85,36 @@ def test_generate_seeded_and_unsupported(endpoint):
                        num_inference_steps=2, seed=4)
     torch.testing.assert_close(d, e, rtol=0, atol=0)
     assert d.shape == (2, 32, 32, 3) and not torch.equal(a, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(ids, guidance_rescale=0.7)
+    # guidance rescale is ported: seeded, a valid image, not the plain one
+    r = model.generate(ids, height=32, width=32, num_inference_steps=2,
+                       seed=4, guidance_rescale=0.7)
+    assert r.shape == a.shape and float(r.min()) >= 0.0
+    assert not torch.equal(a, r)
+    torch.testing.assert_close(r, model.generate(
+        ids, height=32, width=32, num_inference_steps=2, seed=4,
+        guidance_rescale=0.7), rtol=0, atol=0)
     png = io.BytesIO()
     Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(png, format="PNG")
     served = endpoint.predict(
         prompt="x", num_inference_steps=1, strength=0.5,
         image=base64.b64encode(png.getvalue()).decode("ascii"))
     assert _png(served[0]).shape == (32, 32, 3)
-    for extra in ({"scheduler": "dpm++2m"}, {"guidance_rescale": 0.5}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            endpoint.predict(prompt="x", num_inference_steps=1, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stable_diffusion_tiny(inference_scheduler="euler", device="cpu")
+    # per-request samplers and guidance rescale are served
+    for extra in ({"scheduler": "dpm++2m"}, {"scheduler": "Euler"},
+                  {"guidance_rescale": 0.5}):
+        served = endpoint.predict(prompt="x", num_inference_steps=1, **extra)
+        assert _png(served[0]).shape == (32, 32, 3)
+    assert isinstance(stable_diffusion_tiny(
+        inference_scheduler="euler", device="cpu").inference_scheduler,
+        EulerDiscreteScheduler)
+    # unknown names and out-of-range rescales stay client errors
+    with pytest.raises(ValueError, match="unknown inference_scheduler"):
+        endpoint.predict(prompt="x", num_inference_steps=1, scheduler="heun")
+    with pytest.raises(ValueError, match="guidance_rescale"):
+        endpoint.predict(prompt="x", num_inference_steps=1,
+                         guidance_rescale=1.5)
+    with pytest.raises(ValueError, match="unknown inference_scheduler"):
+        stable_diffusion_tiny(inference_scheduler="heun", device="cpu")
 
 
 def test_predict_many_merges_and_slices(endpoint):

@@ -188,7 +188,7 @@ def test_predict_img2img(pair):
         req = kw | {"image": b64, "strength": strength}
         want = JaxInference._parse(_Stub(), req, SIZE, 0)[3]
         got = port.batch_key(req)
-        assert got[7] == want[8] and got[8] == want[9] is False
+        assert got == want and got[9] is False
     np.testing.assert_array_equal(
         port._decode_image(b64, SIZE, SIZE),
         JaxInference._decode_image(b64, SIZE, SIZE))

@@ -532,3 +532,42 @@ def test_attention_dispatch_launches_the_kernel_in_bf16(cuda):
     torch.cuda.synchronize()
     assert fa.launches.value == before + 1
     _assert_flash_out_close(out, fa.flash_attention_reference(q, k, v)[0])
+
+
+@pytest.mark.parametrize("tower", ["inception", "clip"])
+def test_metric_towers_on_card_match_cpu(cuda, tower):
+    """The full-width metric towers (random weights, seed 0) on the card
+    against fp32 CPU copies of themselves on 2 images, TF32 off: relative
+    L2 within 1e-3 (InceptionV3 features and logits; CLIP image and text
+    embeddings). Neither runs a hand-written kernel: the towers are fp32,
+    and the attention dispatch keeps fp32 on plain math."""
+    import copy
+
+    from diffusion_torch.metrics import towers
+    from diffusion_torch.models.inception import preprocess_images
+
+    gen = torch.Generator().manual_seed(0)
+    images = torch.rand((2, 256, 256, 3), generator=gen)
+    ids = torch.randint(1, 49000, (2, 77), generator=gen)
+    ids[:, 9] = 49407
+    if tower == "inception":
+        model = towers.inception_tower(allow_random_weights=True,
+                                       device=cuda)
+
+        def run(m, dev):
+            x = preprocess_images(images.to(dev))
+            return m(x), m(x, return_logits=True)
+    else:
+        model = towers.clip_tower(allow_random_weights=True, device=cuda)
+
+        def run(m, dev):
+            return m(ids.to(dev), towers.clip_pixels(images.to(dev), 224))
+    before = fa.launches.value
+    with torch.inference_mode():
+        got = run(model, cuda)
+        want = run(copy.deepcopy(model).to("cpu"), "cpu")
+    assert fa.launches.value == before
+    for g, w in zip(got, want):
+        g = g.float().cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - w).norm() / w.norm()) <= 1e-3
