@@ -136,7 +136,39 @@ Phases, each raising on failure (exit code 1):
      `LogDiffusionImages`, and GroupNorm and flash launches; its wall time,
      generation time per batch, the host's FID compute() and peak memory
      are printed. Then `coco_eval.main` at guidance 1.0 and 7.0 (one batch,
-     10 DDIM steps): both scales' FID and CLIPScore finite.
+     10 DDIM steps): both scales' FID and CLIPScore finite;
+ 12. LoRA: a full-width fp16 diffusers directory (phase 10's writer) and
+     256 raw JPEG + caption samples in MDS shards (and 64 COCO samples);
+     the unedited yamls/SD-2-base-256-lora.yaml (rank 8, adapters only)
+     with dotted overrides (global batch 32 in microbatches of 16,
+     `model.pretrained=true` over the directory, 6 batches, an eval on
+     COCO and a save after batches 3 and 6) through `train(config)`: the
+     trainable parameter count, the base bit-unchanged and the adapters
+     changed (a `LoraRecord` callback), step 1's loss beside the
+     pretrained rank-0 model's on the same batch and draws (bound 1e-3),
+     step time, samples/s and peak memory beside phase 8b's, the
+     checkpoint's size and save, launches; then an endpoint with
+     `lora_rank=8` over the directory and the adapter checkpoint serves
+     one 512px 20-step request over HTTP; then the adapter folded into a
+     rank-0 UNet against the adapter UNet for one CFG step (bf16,
+     relative L2 within 1e-2), trained and with B redrawn;
+ 13. readers: a Pexels JSON manifest (160 JPEG records of four sizes,
+     every 32nd also naming a missing file) with the unedited
+     yamls/SD-2-base-256-pexels.yaml, `trainer.log_traces=true` and a
+     `TorchProfiler(start_batch=1, num_batches=2)` callback (the trace's
+     size and CUDA kernel events); then the unedited
+     yamls/SD-2-base-256-mixdata.yaml over that manifest and three tar
+     shard sources (phase 8b's writer) with an eval on COCO, and the
+     samples drawn per source beside the normalized weights; global
+     batch 32 in microbatches of 16, 4 batches each; loader wait and step
+     time;
+ 14. pixel diffusion: `discrete_pixel_diffusion` and
+     `continuous_pixel_diffusion` at full width (SD2's UNet widths, 3
+     channels, the CLIP ViT-L/14 text tower), 64x64 pixels: 3 steps of
+     batch 16 in microbatches of 8 through `Trainer.fit()`, then 2
+     prompts at 20 steps under DDIM, the SDE and the ODE: step time, peak
+     memory, each request's latency, launches, the flash calls at S =
+     4096, finite images in [0, 1].
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -1692,7 +1724,7 @@ def _online_phase(card: str, composed: dict):
     _check(record.towers_unchanged and record.towers_no_grad,
            "the frozen VAE or CLIP changed or got a gradient")
     del trainer, model
-    return launches
+    return launches, {"step_s": step_s, "peak": peak}
 
 
 def _fp32_unet_phase(card: str) -> None:
@@ -2075,22 +2107,18 @@ def _checkpoint_runs(tmp: str, card: str, composed_steps: list,
     return _pretrained_serving(tmp, card, ba6, launches, safetensors)
 
 
-def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
-                        safetensors) -> dict:
-    """Write a full-width fp16 diffusers directory from seeded random
-    modules, build the endpoint from it with the checkpoint's UNet, and
-    serve one 512px request over HTTP."""
+def _write_pretrained_dir(pre: str, card: str, phase: str) -> tuple:
+    """Write a full-width fp16 diffusers directory (unet/, vae/ with its
+    encoder, text_encoder/) at `pre` from seeded random modules with the
+    port's safetensors writer; returns (bytes, the towers' fp16 state
+    dicts on the host)."""
     import gc
 
     import torch
-    from PIL import Image
 
-    from diffusion_torch.inference.inference_model import \
-        StableDiffusionInference
-    from diffusion_torch.inference.serve import make_server
     from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.utils import safetensors
 
-    pre = os.path.join(tmp, "sd2_fp16")
     source = stable_diffusion_2(device=DEVICE, seed=1)
     t0 = time.perf_counter()
     towers, nbytes = {}, 0
@@ -2107,9 +2135,26 @@ def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
     del source
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"checkpoint: pretrained directory (diffusers layout, fp16: unet/,"
+    print(f"{phase}: pretrained directory (diffusers layout, fp16: unet/,"
           f" vae/ encoder and decoder, text_encoder/) "
           f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s [{card}]")
+    return nbytes, towers
+
+
+def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
+                        safetensors) -> dict:
+    """Write a full-width fp16 diffusers directory from seeded random
+    modules, build the endpoint from it with the checkpoint's UNet, and
+    serve one 512px request over HTTP."""
+    import gc
+
+    import torch
+
+    from diffusion_torch.inference.inference_model import \
+        StableDiffusionInference
+
+    pre = os.path.join(tmp, "sd2_fp16")
+    nbytes, towers = _write_pretrained_dir(pre, card, "checkpoint")
 
     t0 = time.perf_counter()
     endpoint = StableDiffusionInference(
@@ -2137,16 +2182,103 @@ def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
            f"the endpoint does not serve the checkpoint's UNet and the "
            f"pretrained towers: {unet_bad[:5]} {tower_bad[:5]}")
 
+    seconds, served, latents = _serve_once(endpoint)
+    print(f"checkpoint: served one {SIZE}px request ({STEPS} steps) from the "
+          f"checkpoint: HTTP 200, {SIZE}x{SIZE} PNG, latents {latents} "
+          f"finite before the decode, {seconds:.3f} s end to end; kernel "
+          f"launches {json.dumps(served)} [{card}]")
+    for name in ("group_norm", "flash_attention"):
+        _check(served[name] > 0, f"{name} kernel was not launched while "
+               f"serving the checkpoint")
+    free = shutil.disk_usage(tmp).free
+    print(f"checkpoint: disk free at the phase's end (before its directory "
+          f"is deleted) {free / 1e9:.2f} GB")
+    del endpoint, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + served[k] for k in launches}
+
+
+# ---------------- phases 12-14: LoRA, the readers, pixel diffusion --------
+
+LORA_TRAIN, LORA_EVAL = 256, 64          # raw JPEG + caption MDS samples
+READER_STEPS = 4                         # batches of the reader runs
+PEXELS_SAMPLES = 160                     # records of the Pexels manifest
+PEXELS_MISSING_EVERY = 32                # records that also name a lost file
+PIXEL_SIZE, PIXEL_BATCH, PIXEL_MICRO, PIXEL_STEPS = 64, 16, 8, 3
+
+
+def _write_raw_shards(path: str, n: int, rng) -> int:
+    """The image-caption reader's MDS columns (`image` JPEG bytes of the
+    wds sizes, `caption` "raw sample <i>") with the port's MDSWriter;
+    returns the bytes written."""
+    from diffusion_torch.data.mds import MDSWriter
+    with MDSWriter(path, {"image": "bytes", "caption": "str"},
+                   size_limit=1 << 23) as w:
+        for i in range(n):
+            width, height = _WDS_SIZES[i % len(_WDS_SIZES)]
+            w.write({"image": _jpeg(_smooth_image(rng, height, width)),
+                     "caption": f"raw sample {i}"})
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+class LoraRecord(ComposedRecord):
+    """ComposedRecord for the LoRA run, and: the UNet's base and adapter
+    parameters when the fit starts (copies on the card), held against the
+    live ones when it ends; the first training batch."""
+
+    def __init__(self):
+        super().__init__()
+        self.first_batch = None
+        self.base = self.adapters = None
+        self.base_unchanged = self.adapters_changed = None
+        self.trainable = 0
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+
+        from diffusion_torch.models.lora import is_lora_key
+        name = event.value
+        unet = state.model.unet
+        if name == "fit_start":
+            self.base = {n: p.detach().clone()
+                         for n, p in unet.named_parameters()
+                         if not is_lora_key(n)}
+            self.adapters = {n: p.detach().clone()
+                             for n, p in unet.named_parameters()
+                             if is_lora_key(n)}
+            self.trainable = sum(p.numel() for p in
+                                 state.train_state.params.values())
+        elif name == "after_dataloader" and self.first_batch is None:
+            self.first_batch = {k: v.clone() for k, v in state.batch.items()}
+        elif name == "fit_end":
+            live = dict(unet.named_parameters())
+            self.base_unchanged = all(torch.equal(live[n], p)
+                                      for n, p in self.base.items())
+            self.adapters_changed = sum(
+                not torch.equal(live[n], p) for n, p in self.adapters.items())
+            self.base = None
+        super().run_event(event, state, logger)
+
+
+def _serve_once(endpoint) -> tuple:
+    """One 512px 20-step request to `endpoint` over HTTP on localhost:
+    HTTP 200, a 512x512 RGB PNG, finite latents before the decode.
+    Returns (seconds, the five kernels' launches, the decoded latents'
+    shape)."""
+    import torch
+    from PIL import Image
+
+    from diffusion_torch.inference.serve import make_server
     decoded = []
-    model.vae.post_quant_conv.register_forward_pre_hook(
+    hook = endpoint.model.vae.post_quant_conv.register_forward_pre_hook(
         lambda mod, inp: decoded.append(
             (tuple(inp[0].shape), bool(torch.isfinite(inp[0]).all()))))
     server = make_server(endpoint, "127.0.0.1", 0, max_batch_size=1,
                          batch_wait_ms=0.0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    counters = _counters()
-    results: dict = {}
+    counters, results = _counters(), {}
     try:
         for c in counters.values():
             c.reset()
@@ -2155,8 +2287,9 @@ def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
             "num_inference_steps": STEPS, "guidance_scale": 7.5, "seed": 0,
             "height": SIZE, "width": SIZE}, results, "request")
         torch.cuda.synchronize()
-        served = {name: c.value for name, c in counters.items()}
+        launches = {name: c.value for name, c in counters.items()}
     finally:
+        hook.remove()
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
@@ -2169,20 +2302,689 @@ def _pretrained_serving(tmp: str, card: str, ba6: str, launches: dict,
            f"PNG {img.size} {img.mode}")
     _check(len(decoded) == 1 and decoded[0][1],
            f"latents before the decode not finite: {decoded}")
-    print(f"checkpoint: served one {SIZE}px request ({STEPS} steps) from the "
-          f"checkpoint: HTTP 200, {img.size[0]}x{img.size[1]} PNG, latents "
-          f"{decoded[0][0]} finite before the decode, {seconds:.3f} s end to "
-          f"end; kernel launches {json.dumps(served)} [{card}]")
-    for name in ("group_norm", "flash_attention"):
-        _check(served[name] > 0, f"{name} kernel was not launched while "
-               f"serving the checkpoint")
-    free = shutil.disk_usage(tmp).free
-    print(f"checkpoint: disk free at the phase's end (before its directory "
-          f"is deleted) {free / 1e9:.2f} GB")
-    del endpoint, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    return seconds, launches, decoded[0][0]
+
+
+def _lora_overrides(pre: str, raw: str, coco: str, save: str,
+                    metrics_file: str) -> list:
+    """The dotted overrides of phase 12's run of
+    yamls/SD-2-base-256-lora.yaml: global batch 32 in microbatches of 16,
+    the pretrained directory `pre`, raw JPEG + caption MDS shards `raw`,
+    the COCO eval over `coco`, 6 batches with an eval and a save every 3
+    into `save`, a FileLogger and the LoraRecord callback."""
+    return [
+        f"batch_size={TRAIN_BATCH}",
+        f"trainer.device_train_microbatch_size={TRAIN_MICRO}",
+        "model.pretrained=true", f"model.model_name={pre}",
+        f"dataset.train_dataset.remote={raw}",
+        f"dataset.train_dataset.local={raw}",
+        "dataset.train_dataset.num_workers=2",
+        f"dataset.eval_dataset.remote={coco}",
+        f"dataset.eval_dataset.local={coco}",
+        "dataset.eval_dataset.num_workers=2",
+        f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
+        f"dataset.eval_batch_size={TRAIN_BATCH}",
+        f"trainer.max_duration={TRAIN_STEPS}ba",
+        f"trainer.eval_interval={COMPOSED_EVAL_AT}ba",
+        f"trainer.save_folder={save}",
+        f"trainer.save_interval={COMPOSED_EVAL_AT}ba",
+        "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
+        f"+logger.file.filename={metrics_file}",
+        f"+callbacks.chip_smoke._target_={__name__}.LoraRecord"]
+
+
+def _pexels_overrides(manifest: str, traces: str) -> list:
+    """Phase 13's overrides of yamls/SD-2-base-256-pexels.yaml: global
+    batch 32 in microbatches of 16 over the Pexels `manifest`, 4 batches,
+    `log_traces`, a TorchProfiler of batches 1-2 into `traces`, the
+    ReaderRecord callback."""
+    return [
+        f"batch_size={TRAIN_BATCH}",
+        f"trainer.device_train_microbatch_size={TRAIN_MICRO}",
+        f"dataset.train_dataset.meta_json={manifest}",
+        f"dataset.eval_dataset.meta_json={manifest}",
+        f"trainer.max_duration={READER_STEPS}ba",
+        "trainer.log_traces=true",
+        "+callbacks.trace._target_="
+        "diffusion_torch.utils.profiler.TorchProfiler",
+        f"+callbacks.trace.trace_dir={traces}",
+        "+callbacks.trace.start_batch=1",
+        "+callbacks.trace.num_batches=2",
+        f"+callbacks.chip_smoke._target_={__name__}.ReaderRecord"]
+
+
+def _mix_overrides(manifest: str, sources: dict, coco: str) -> list:
+    """Phase 13's overrides of yamls/SD-2-base-256-mixdata.yaml: global
+    batch 32 (its microbatch is 16), the Pexels `manifest` and the tar
+    shard directories of `sources` (laion, coyo, cc), the COCO eval over
+    `coco` after batch 2 of 4, the ReaderRecord callback."""
+    return [
+        f"batch_size={TRAIN_BATCH}",
+        f"dataset.train_dataset.datapipes.pexels.meta_json={manifest}",
+        *[f"dataset.train_dataset.datapipes.{name}.urls={path}"
+          for name, path in sources.items()],
+        f"dataset.eval_dataset.remote={coco}",
+        f"dataset.eval_dataset.local={coco}",
+        "+dataset.eval_dataset.num_workers=2",
+        f"dataset.eval_dataset.batch_size={TRAIN_BATCH}",
+        f"dataset.eval_batch_size={TRAIN_BATCH}",
+        f"trainer.max_duration={READER_STEPS}ba",
+        "trainer.eval_interval=2ba",
+        f"+callbacks.chip_smoke._target_={__name__}.ReaderRecord"]
+
+
+def _lora_phase(card: str, online: dict) -> dict:
+    """Phase 12: yamls/SD-2-base-256-lora.yaml unedited through the port's
+    loader and `train(config)` over a pretrained directory, then an
+    endpoint serving the adapter checkpoint, then the folded adapter;
+    returns the five kernels' launches in the phase."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.inference.inference_model import \
+        StableDiffusionInference
+    from diffusion_torch.models.lora import (fold_lora, is_lora_key,
+                                             lora_parameters)
+    from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition
+    from diffusion_torch.train import checkpoint as ckpt
+    from diffusion_torch.train.train import train
+    from diffusion_torch.utils import safetensors
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lora_",
+                                     dir=os.path.join(_ROOT, "build")) as tmp:
+        pre = os.path.join(tmp, "sd2_fp16")
+        _write_pretrained_dir(pre, card, "lora")
+        rng = np.random.default_rng(12)
+        t0 = time.perf_counter()
+        raw, coco = os.path.join(tmp, "raw"), os.path.join(tmp, "coco")
+        nb = _write_raw_shards(raw, LORA_TRAIN, rng)
+        nb_eval = _write_coco_shards(coco, LORA_EVAL, rng)
+        print(f"lora: wrote {LORA_TRAIN} raw JPEG + caption samples and "
+              f"{LORA_EVAL} COCO samples ({nb / 1e6:.1f} + "
+              f"{nb_eval / 1e6:.1f} MB of MDS shards) in "
+              f"{time.perf_counter() - t0:.1f} s on the host [{card}]")
+        save = os.path.join(tmp, "ckpt")
+        metrics_file = os.path.join(tmp, "metrics.jsonl")
+        overrides = _lora_overrides(pre, raw, coco, save, metrics_file)
+        config = load_config(os.path.join(_ROOT, "yamls",
+                                          "SD-2-base-256-lora.yaml"),
+                             overrides)
+        print(f"lora: yamls/SD-2-base-256-lora.yaml with {len(overrides)} "
+              f"dotted overrides: {' '.join(overrides)}")
+        counters = _counters()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        save_stats = ckpt.last_save_stats()
+        with open(metrics_file) as f:
+            records = [json.loads(line) for line in f]
+        record = next(c for c in trainer.engine.callbacks
+                      if type(c).__name__ == "LoraRecord")
+        model = trainer.model
+        ba6 = os.path.join(save, f"ba{TRAIN_STEPS}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ba6) for f in fs)
+        n_adapter = sum(p.numel() for p in lora_parameters(model.unet).values())
+        print(f"lora: model {type(model).__name__}, UNet lora_rank "
+              f"{model.unet.config.lora_rank} (alpha "
+              f"{model.unet.config.lora_alpha}), train_lora_only "
+              f"{model.train_lora_only}; trainable parameters "
+              f"{record.trainable:,} ({len(trainer.train_state.params)} "
+              f"tensors; the adapters hold {n_adapter:,}) of "
+              f"{sum(p.numel() for p in model.unet.parameters()):,} in the "
+              f"UNet; optimizer moments {len(trainer.train_state.optimizer.mu)}"
+              f" tensors")
+        _check(record.trainable == n_adapter and all(
+            is_lora_key(n) for n in trainer.train_state.params),
+            "the trainer trains more than the adapters")
+        for i, (m, _, lr, own) in enumerate(record.steps):
+            print(f"lora: step {i}: loss {m['loss/train/total']:.6f}, grad "
+                  f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+                  f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
+                  f"{own * 1e3:.1f} ms to the step's metrics [{card}]")
+        _check(len(record.steps) == TRAIN_STEPS and all(
+            math.isfinite(v) for m, *_ in record.steps for v in m.values()),
+            "the LoRA run's steps are missing or not finite")
+        print(f"lora: base parameters bit-unchanged after the run "
+              f"{record.base_unchanged}; adapter tensors changed "
+              f"{record.adapters_changed} of {len(record.adapters)}")
+        _check(record.base_unchanged and record.adapters_changed > 0,
+               "the base changed or the adapters did not")
+        evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
+        _check(len(evals) == 1 and math.isfinite(
+            evals[0]["metrics/eval/MeanSquaredError"]),
+            f"expected one finite eval: {evals}")
+
+        # step 1's loss against the pretrained model without adapters, on
+        # the same batch and the Trainer's draws for step 0
+        batch, n_accum = record.first_batch, TRAIN_BATCH // TRAIN_MICRO
+        gen = trainer._generator(trainer.seed, 0)
+        del trainer, model
+        gc.collect()
+        plain = stable_diffusion_2(pretrained=True, model_name=pre,
+                                   device=DEVICE)
+        with torch.no_grad():
+            loss0 = sum(float(plain.loss_fn(
+                {k: v[i * TRAIN_MICRO:(i + 1) * TRAIN_MICRO]
+                 for k, v in batch.items()}, gen)) for i in range(n_accum))
+        loss0 /= n_accum
+        got0 = record.steps[0][0]["loss/train/total"]
+        rel0 = abs(got0 - loss0) / abs(loss0)
+        print(f"lora: step 1's loss {got0!r} beside the pretrained model's "
+              f"without adapters on the same batch and draws {loss0!r}: "
+              f"relative difference {rel0:.3e} (bound 1e-3; bit-equal "
+              f"{got0 == loss0})")
+        _check(rel0 < 1e-3, "a fresh adapter is not the pretrained model")
+        del plain, batch
+        record.first_batch = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+        train_times = [t for i, t in enumerate(times)
+                       if i + 1 not in (COMPOSED_EVAL_AT,)]
+        step_s = sum(train_times) / len(train_times)
+        wait_s = sum(record.waits[1:]) / (len(record.waits) - 1)
+        _, eval_s, eval_launches = record.evals[0]
+        fit_launches = {k: launches[k] - eval_launches[k] for k in launches}
+        print(f"lora: SD-2-base {TRAIN_SIZE}px from raw images, adapters "
+              f"only, global batch {TRAIN_BATCH} in microbatches of "
+              f"{TRAIN_MICRO}: run {wall:.2f} s (the build and the "
+              f"pretrained load included); step time after the first "
+              f"{step_s * 1e3:.1f} ms (steps: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms, the one "
+              f"after the eval and its save left out), "
+              f"{TRAIN_BATCH / step_s:.2f} samples/s, against phase 8b's "
+              f"{online['step_s'] * 1e3:.1f} ms and "
+              f"{TRAIN_BATCH / online['step_s']:.2f} samples/s; loader wait "
+              f"{wait_s * 1e3:.1f} ms a step; peak device memory {peak:.2f} "
+              f"GiB against phase 8b's {online['peak']:.2f} GiB "
+              f"({online['peak'] - peak:.2f} GiB less) [{card}]")
+        print(f"lora: checkpoint ba{TRAIN_STEPS} (adapter params, mu, nu) "
+              f"{ckpt_bytes / 1e6:.2f} MB; its save: "
+              f"{json.dumps(save_stats)} [{card}]")
+        _check(ckpt_bytes < 50e6, "the adapter checkpoint is not small")
+        print(f"lora: kernel launches during the fit "
+              f"{json.dumps(fit_launches)} (per step " + json.dumps(
+                  {k: v / TRAIN_STEPS for k, v in fit_launches.items()})
+              + f"); during the eval {json.dumps(eval_launches)} in "
+              f"{eval_s * 1e3:.1f} ms [{card}]")
+        for name in launches:
+            _check(fit_launches[name] > 0,
+                   f"{name} kernel was not launched during the LoRA fit")
+
+        # serve the adapter checkpoint over the pretrained base
+        t0 = time.perf_counter()
+        endpoint = StableDiffusionInference(
+            model_name=pre, pretrained=True, checkpoint_path=ba6,
+            lora_rank=8, train_lora_only=True, default_size=SIZE,
+            device=DEVICE, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        unet = endpoint.model.unet
+        want = safetensors.load_file(os.path.join(ba6, "state",
+                                                  "params.safetensors"))
+        bad = [n for n, p in lora_parameters(unet).items()
+               if not torch.equal(p, want[n].to(p.device))]
+        print(f"lora: endpoint (lora_rank 8, the pretrained directory, "
+              f"ba{TRAIN_STEPS}) built in {build_s:.2f} s; adapter tensors "
+              f"unequal to the checkpoint's: {len(bad)} of {len(want)} "
+              f"[{card}]")
+        _check(not bad and sorted(want) == sorted(lora_parameters(unet)),
+               f"the endpoint does not serve the checkpoint's adapters: "
+               f"{bad[:5]}")
+        seconds, served, latents = _serve_once(endpoint)
+        print(f"lora: served one {SIZE}px request ({STEPS} steps) with the "
+              f"adapter: HTTP 200, {SIZE}x{SIZE} PNG, latents {latents} "
+              f"finite before the decode, {seconds:.3f} s end to end; kernel "
+              f"launches {json.dumps(served)} [{card}]")
+        for name in ("group_norm", "flash_attention"):
+            _check(served[name] > 0, f"{name} kernel was not launched while "
+                   f"serving the adapter")
+
+        # fold the adapter into a rank-0 UNet: one CFG step against the
+        # adapter UNet's, for the trained adapter and for one whose B is
+        # redrawn (a few warm-up steps leave the trained B near zero); in
+        # bf16 (the served dtype, held to phase 4's bf16 bound: a 1-ulp
+        # change anywhere moves this random-weight UNet's output by about
+        # 2e-2) and in fp32 (TF32 off: the fold's own error)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        lat = torch.randn((2, 4, SIZE // 8, SIZE // 8), generator=gen,
+                          device=DEVICE).contiguous(
+                              memory_format=torch.channels_last)
+        t = torch.full((2,), 500, device=DEVICE, dtype=torch.int64)
+        ctx = torch.randn((2, 77, 1024), generator=gen, device=DEVICE)
+        with torch.device(DEVICE):
+            folded_unet = UNet2DCondition(SD2_BASE_UNET,
+                                          dtype=torch.bfloat16).eval()
+        b_params = {n: p for n, p in lora_parameters(unet).items()
+                    if n.endswith("_lora_b.weight")}
+        trained_b = {n: p.detach().clone() for n, p in b_params.items()}
+        bounds = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+
+        def cfg_step(module, dtype):
+            module.dtype = dtype         # the compute dtype; weights stay fp32
+            try:
+                with torch.inference_mode():
+                    return module(lat, t, ctx).float()
+            finally:
+                module.dtype = torch.bfloat16
+
+        with torch.no_grad():
+            for p in b_params.values():
+                p.zero_()
+        base_out = {d: cfg_step(unet, d) for d in bounds}
+        for label in ("trained", "B redrawn ~ N(0, 0.02)"):
+            with torch.no_grad():
+                for n, p in b_params.items():
+                    if label == "trained":
+                        p.copy_(trained_b[n])
+                    else:
+                        p.normal_(0.0, 0.02, generator=gen)
+            folded_unet.load_state_dict(fold_lora(unet, config=unet.config))
+            for dtype, bound in bounds.items():
+                want_out = cfg_step(unet, dtype)
+                err = _rel_l2(cfg_step(folded_unet, dtype), want_out)
+                print(f"lora: folded rank-0 UNet vs the adapter UNet, one "
+                      f"CFG step at {SIZE}px batch 2, {dtype}, adapter "
+                      f"{label}: relative L2 {err:.3e} (bound {bound:g}; "
+                      f"the adapter moves the output by "
+                      f"{_rel_l2(want_out, base_out[dtype]):.3e} from the "
+                      f"base's) [{card}]")
+                _check(err < bound,
+                       "the folded UNet disagrees with the adapter UNet")
+        del endpoint, unet, folded_unet, b_params, trained_b
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"lora: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {k: launches[k] + served[k] for k in launches}
+
+
+def _write_pexels_manifest(path: str, n: int, rng) -> tuple:
+    """JPEGs of the wds sizes under `path` and a JSON manifest of per-sample
+    records (`local_paths`, two `prompts`, up to 7 `tags`); every
+    PEXELS_MISSING_EVERY-th record also names a file that does not exist,
+    so the reader's random choice among `local_paths` drops it about half
+    the time (after its retries). Returns (manifest, bytes)."""
+    os.makedirs(path, exist_ok=True)
+    records, nbytes = [], 0
+    for i in range(n):
+        w, h = _WDS_SIZES[i % len(_WDS_SIZES)]
+        jpg = os.path.join(path, f"{i:06d}.jpg")
+        with open(jpg, "wb") as f:
+            f.write(_jpeg(_smooth_image(rng, h, w)))
+        nbytes += os.path.getsize(jpg)
+        paths = [jpg]
+        if i % PEXELS_MISSING_EVERY == 7:
+            paths.append(os.path.join(path, f"missing-{i:06d}.jpg"))
+        records.append({"local_paths": paths,
+                        "prompts": [f"pexels photo {i}", f"pexels shot {i}"],
+                        "tags": [f"tag{j}" for j in range(i % 8)]})
+    manifest = os.path.join(path, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump({"samples": records}, f)
+    return manifest, nbytes
+
+
+class ReaderRecord(ComposedRecord):
+    """ComposedRecord for the reader runs, and, for a mixture loader, the
+    samples each source yields (counted where the multiplexer pulls
+    them)."""
+
+    def __init__(self):
+        super().__init__()
+        self.drawn = {}
+
+    loader = None    # the run's train loader, set when the trainer is built
+
+    def run_event(self, event, state, logger) -> None:
+        if event.value == "fit_start":
+            for child in getattr(self.loader, "pipes_to_weights", {}):
+                self.drawn[child.name] = 0
+                child.pipe = _Counted(child.pipe, self.drawn, child.name)
+        super().run_event(event, state, logger)
+
+
+class _Counted:
+    """An iterable that counts what it yields into `counts[name]`."""
+
+    def __init__(self, pipe, counts: dict, name: str):
+        self.pipe, self.counts, self.name = pipe, counts, name
+
+    def __iter__(self):
+        for item in self.pipe:
+            self.counts[self.name] += 1
+            yield item
+
+
+def _reader_run(card: str, label: str, yaml_name: str, overrides: list):
+    """One reader yaml composed and run by `train(config)`; returns (the
+    trainer, its ReaderRecord, the five kernels' launches, wall s, peak
+    GiB)."""
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.train.train import train
+    from diffusion_torch.train import train as train_mod
+
+    config = load_config(os.path.join(_ROOT, "yamls", yaml_name), overrides)
+    print(f"{label}: yamls/{yaml_name} with {len(overrides)} dotted "
+          f"overrides: {' '.join(overrides)}")
+    built = []
+    real = train_mod.build_trainer
+
+    def build(cfg):
+        # hand the loader to the record before fit() starts pulling
+        tr = real(cfg)
+        for c in tr.engine.callbacks:
+            if isinstance(c, ReaderRecord):
+                c.loader = tr.train_dataloader
+        built.append(tr)
+        return tr
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.build_trainer = build
+    t0 = time.perf_counter()
+    try:
+        trainer = train(config)
+    finally:
+        train_mod.build_trainer = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.value for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    record = next(c for c in trainer.engine.callbacks
+                  if isinstance(c, ReaderRecord))
+    for i, (m, _, lr, own) in enumerate(record.steps):
+        print(f"{label}: step {i}: loss {m['loss/train/total']:.6f}, grad "
+              f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
+              f"{own * 1e3:.1f} ms to the step's metrics [{card}]")
+    _check(len(record.steps) == READER_STEPS and all(
+        math.isfinite(v) for m, *_ in record.steps for v in m.values()),
+        f"the {label} run's steps are missing or not finite")
+    for name in launches:
+        _check(launches[name] > 0,
+               f"{name} kernel was not launched during the {label} run")
+    return trainer, record, launches, wall, peak
+
+
+def _step_line(label: str, record, wall: float, peak: float,
+               launches: dict, card: str, skip=()) -> None:
+    times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+    kept = [t for i, t in enumerate(times) if i + 1 not in skip]
+    step_s = sum(kept) / len(kept)
+    waits = record.waits[1:]
+    print(f"{label}: SD-2-base {TRAIN_SIZE}px, global batch {TRAIN_BATCH} in "
+          f"microbatches of {TRAIN_MICRO}: run {wall:.2f} s (build "
+          f"included); step time after the first {step_s * 1e3:.1f} ms "
+          f"(steps: {', '.join(f'{x * 1e3:.1f}' for x in times)} ms), "
+          f"{TRAIN_BATCH / step_s:.2f} samples/s; loader wait a step after "
+          f"the first {', '.join(f'{w * 1e3:.1f}' for w in waits)} ms "
+          f"(first {record.waits[0] * 1e3:.1f} ms); peak device memory "
+          f"{peak:.2f} GiB; kernel launches {json.dumps(launches)} [{card}]")
+
+
+def _readers_phase(card: str) -> dict:
+    """Phase 13: yamls/SD-2-base-256-pexels.yaml (with `log_traces` and a
+    profiler callback from batch 1) and yamls/SD-2-base-256-mixdata.yaml,
+    unedited, over data written here; returns the five kernels' launches
+    in the phase."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_torch.utils.profiler import TorchProfiler
+
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_readers_") as tmp:
+        rng = np.random.default_rng(13)
+        t0 = time.perf_counter()
+        manifest, nb = _write_pexels_manifest(os.path.join(tmp, "pexels"),
+                                              PEXELS_SAMPLES, rng)
+        sources = {}
+        for k, name in enumerate(("laion", "coyo", "cc")):
+            sources[name], _, nb_src = _write_wds_shards(
+                os.path.join(tmp, name), ONLINE_TRAIN, rng,
+                start=10000 * (k + 1))
+            nb += nb_src
+        coco = os.path.join(tmp, "coco")
+        nb += _write_coco_shards(coco, COMPOSED_EVAL, rng)
+        print(f"readers: wrote a Pexels manifest of {PEXELS_SAMPLES} "
+              f"records (1 in {PEXELS_MISSING_EVERY} also names a missing "
+              f"file), three tar-shard sources of {ONLINE_TRAIN} samples "
+              f"each and {COMPOSED_EVAL} COCO samples ({nb / 1e6:.1f} MB) "
+              f"in {time.perf_counter() - t0:.1f} s on the host [{card}]")
+
+        # the Pexels run, with log_traces and a trace of batches 1-2
+        traces = os.path.join(tmp, "traces")
+        trainer, record, launches, wall, peak = _reader_run(
+            card, "pexels", "SD-2-base-256-pexels.yaml",
+            _pexels_overrides(manifest, traces))
+        _step_line("pexels", record, wall, peak, launches, card)
+        profs = [c for c in trainer.engine.callbacks
+                 if isinstance(c, TorchProfiler)]
+        default = [p for p in profs if p.start_batch == 10]
+        ours = [p for p in profs if p.start_batch == 1]
+        _check(len(default) == 1 and default[0].trace_path is None
+               and len(ours) == 1 and ours[0].trace_path,
+               "log_traces did not add the default profiler, or the "
+               "batch-1 profiler wrote no trace")
+        path = ours[0].trace_path
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        ours_k = sum(1 for e in kernels
+                     if any(k in e["name"] for k in ("gn_fwd", "gn_bwd",
+                                                     "flash_")))
+        print(f"pexels: log_traces added TorchProfiler(start_batch=10, "
+              f"num_batches=3), which a {READER_STEPS}-batch run never "
+              f"starts; TorchProfiler(start_batch=1, num_batches=2) wrote "
+              f"{os.path.relpath(path, tmp)} ({os.path.getsize(path) / 1e6:.2f}"
+              f" MB, {len(events)} events, {len(kernels)} CUDA kernel "
+              f"events, {ours_k} of them the GroupNorm and flash kernels); "
+              f"the traced steps 2-3 carry the profiler's own cost and the "
+              f"trace's export [{card}]")
+        _check(ours_k > 0, "the trace holds none of the port's kernels")
+        total = dict(launches)
+        del trainer, record
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the mixture run: the manifest and the three tar sources
+        trainer, record, launches, wall, peak = _reader_run(
+            card, "mixdata", "SD-2-base-256-mixdata.yaml",
+            _mix_overrides(manifest, {k: os.path.dirname(m)
+                                      for k, m in sources.items()}, coco))
+        _step_line("mixdata", record, wall, peak, launches, card, skip=(2,))
+        weights = {child.name: w for child, w in
+                   trainer.train_dataloader.pipes_to_weights.items()}
+        drawn = record.drawn
+        n = sum(drawn.values())
+        print(f"mixdata: samples drawn per source "
+              + ", ".join(f"{k} {drawn[k]} ({drawn[k] / max(n, 1):.4f})"
+                          for k in weights)
+              + f" of {n}, beside the normalized weights "
+              + ", ".join(f"{k} {w:.4f}" for k, w in weights.items()))
+        _check(n >= READER_STEPS * TRAIN_BATCH and drawn["laion"] > 0
+               and abs(sum(weights.values()) - 1.0) < 1e-9,
+               f"the mixture drew too few samples: {drawn}")
+        _check(len(record.evals) == 1, "expected one eval on COCO")
+        total = {k: total[k] + launches[k] for k in total}
+        del trainer, record
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"readers: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
+
+
+def _pixel_phase(card: str) -> dict:
+    """Phase 14: both pixel-space models at full width and 64x64 pixels:
+    3 training steps each through `Trainer.fit()`, then 2 prompts sampled
+    at 20 steps (DDIM; the SDE and the ODE); returns the five kernels'
+    launches in the phase."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from diffusion_torch.models.models import (continuous_pixel_diffusion,
+                                               discrete_pixel_diffusion)
+    from diffusion_torch.ops import attention as attn_mod
+    from diffusion_torch.schedulers import ContinuousTimeScheduler
+    from diffusion_torch.train.events import Callback
+    from diffusion_torch.train.optim import adamw
+    from diffusion_torch.train.trainer import Trainer
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps = []
+
+        def batch_end(self, state, logger):
+            m = {k: float(v) for k, v in state.metrics.items()}
+            self.steps.append((m, time.perf_counter()))
+
+    t_phase = time.perf_counter()
+    total = {}
+    flash_shapes = []
+    real_flash = attn_mod.flash_attention
+
+    def flash_spy(q, k, v):
+        flash_shapes.append((tuple(q.shape), tuple(k.shape)))
+        return real_flash(q, k, v)
+
+    attn_mod.flash_attention = flash_spy
+    try:
+        for label, build in (("discrete", discrete_pixel_diffusion),
+                             ("continuous", continuous_pixel_diffusion)):
+            t0 = time.perf_counter()
+            model = build(device=DEVICE, seed=0)
+            n_unet = sum(p.numel() for p in model.unet.parameters())
+            n_text = sum(p.numel() for p in model.text_encoder.parameters())
+            print(f"pixel {label}: built in {time.perf_counter() - t0:.1f} s:"
+                  f" UNet {n_unet / 1e6:.1f}M ({model.unet.config.in_channels}"
+                  f" channels, cross-attention "
+                  f"{model.unet.config.cross_attention_dim}), CLIP ViT-L/14 "
+                  f"text {n_text / 1e6:.1f}M, compute {model.unet.dtype}; "
+                  f"schedulers {type(model.noise_scheduler).__name__} / "
+                  f"{type(model.inference_scheduler).__name__} [{card}]")
+            gen = torch.Generator(device=DEVICE).manual_seed(14)
+            prompts = [f"a pixel-space photo number {i}"
+                       for i in range(PIXEL_BATCH)]
+            ids = torch.from_numpy(
+                model.tokenizer(prompts)["input_ids"]).to(DEVICE)
+            batches = [{"image": torch.rand(
+                (PIXEL_BATCH, PIXEL_SIZE, PIXEL_SIZE, 3), generator=gen,
+                device=DEVICE) * 2 - 1, "captions": ids}
+                for _ in range(PIXEL_STEPS)]
+            record = Record()
+            trainer = Trainer(model=model, train_dataloader=batches,
+                              optimizers=adamw(lr=1e-4, weight_decay=0.01),
+                              callbacks=[record],
+                              max_duration=f"{PIXEL_STEPS}ba",
+                              device_train_microbatch_size=PIXEL_MICRO,
+                              seed=17, image_size=PIXEL_SIZE, device=DEVICE)
+            counters = _counters()
+            for c in counters.values():
+                c.reset()
+            flash_shapes.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = {name: c.value for name, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            top = sorted({q[1] for q, _ in flash_shapes})
+            for i, (m, _) in enumerate(record.steps):
+                print(f"pixel {label}: step {i}: loss "
+                      f"{m['loss/train/total']:.6f}, grad norm "
+                      f"{m['grad/global_norm']:.6f}")
+            _check(len(record.steps) == PIXEL_STEPS and all(
+                math.isfinite(v) for m, _ in record.steps
+                for v in m.values()), f"pixel {label}: steps not finite")
+            times = [b[1] - a[1] for a, b in zip(record.steps,
+                                                  record.steps[1:])]
+            step_s = sum(times) / len(times)
+            print(f"pixel {label}: {PIXEL_SIZE}x{PIXEL_SIZE} pixels, batch "
+                  f"{PIXEL_BATCH} in microbatches of {PIXEL_MICRO}: "
+                  f"{PIXEL_STEPS} steps in {fit_s:.2f} s, step time after "
+                  f"the first {step_s * 1e3:.1f} ms "
+                  f"({PIXEL_BATCH / step_s:.2f} samples/s), peak device "
+                  f"memory {peak:.2f} GiB; kernel launches "
+                  f"{json.dumps(launches)}; flash query lengths {top} "
+                  f"[{card}]")
+            for name in launches:
+                _check(launches[name] > 0, f"pixel {label}: {name} kernel "
+                       f"was not launched during the fit")
+            _check(PIXEL_SIZE * PIXEL_SIZE in top,
+                   f"pixel {label}: no flash call at S = 4096: {top}")
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            del trainer, batches
+            gc.collect()
+
+            samplers = [("ddim" if label == "discrete" else "sde", model)]
+            if label == "continuous":
+                sched = model.inference_scheduler
+                samplers.append(("ode", dataclasses.replace(
+                    model, inference_scheduler=ContinuousTimeScheduler(
+                        t_max=sched.t_max,
+                        prediction_type=sched.prediction_type,
+                        use_ode=True))))
+            model.unet.eval()
+            for name, m in samplers:
+                m.generate(ids[:2], height=PIXEL_SIZE, width=PIXEL_SIZE,
+                           num_inference_steps=1, seed=0)     # warm-up
+                for c in counters.values():
+                    c.reset()
+                flash_shapes.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                images = m.generate(ids[:2], height=PIXEL_SIZE,
+                                    width=PIXEL_SIZE, guidance_scale=3.0,
+                                    num_inference_steps=STEPS, seed=0)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                served = {k: c.value for k, c in counters.items()}
+                ok = bool(torch.isfinite(images).all()) and float(
+                    images.min()) >= 0.0 and float(images.max()) <= 1.0
+                print(f"pixel {label} {name}: 2 prompts, {STEPS} steps, "
+                      f"guidance 3.0: {tuple(images.shape)} images, finite "
+                      f"in [0, 1] {ok}, {seconds:.3f} s; kernel launches "
+                      f"{json.dumps(served)}, flash at S = "
+                      f"{sorted({q[1] for q, _ in flash_shapes})} [{card}]")
+                _check(ok and images.shape == (2, PIXEL_SIZE, PIXEL_SIZE, 3),
+                       f"pixel {label} {name}: bad images")
+                _check(served["group_norm"] > 0 and
+                       served["flash_attention"] > 0,
+                       f"pixel {label} {name}: a forward kernel was not "
+                       f"launched")
+                total = {k: total[k] + v for k, v in served.items()}
+            del model, samplers, m
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        attn_mod.flash_attention = real_flash
+    print(f"pixel: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
 
 
 _CATEGORIES = (   # kernel-name patterns, first match wins
@@ -2716,7 +3518,7 @@ def main(argv=None) -> int:
         card, train_step_s)
     gc.collect()
     torch.cuda.empty_cache()
-    online_launches = _online_phase(card, composed)
+    online_launches, online = _online_phase(card, composed)
     gc.collect()
     torch.cuda.empty_cache()
     _fp32_unet_phase(card)
@@ -2728,6 +3530,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 11. the offline eval job
     eval_launches = _eval_job_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 12-14. LoRA fine-tuning and serving, the Pexels and mixture readers,
+    # pixel-space diffusion
+    lora_launches = _lora_phase(card, online)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reader_launches = _readers_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pixel_launches = _pixel_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
@@ -2757,7 +3572,9 @@ def main(argv=None) -> int:
                          + eval_launches[name]
                          + train_launches[name] + composed_launches[name]
                          + online_launches[name]
-                         + checkpoint_launches[name]),
+                         + checkpoint_launches[name]
+                         + lora_launches[name] + reader_launches[name]
+                         + pixel_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

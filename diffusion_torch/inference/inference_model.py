@@ -22,7 +22,11 @@ the UNet's weights with a checkpoint's parameters: a Trainer checkpoint
 directory holding a bare `params.safetensors`; an `s3://`, `gs://` or
 `file://` path is fetched once into a cache (`train/checkpoint.py`). A
 checkpoint holds no frozen towers, so one over random towers raises
-unless `allow_random_frozen=True`.
+unless `allow_random_frozen=True`. A LoRA model (`lora_rank=8,
+train_lora_only=True` among the builder's keywords, as the JAX endpoint
+passes them) takes an adapter checkpoint: its parameters are the
+adapters', and they load into the adapters over the base that
+`pretrained=True` loaded, as JAX's partial restore of the trainable tree.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from diffusion_torch.models.models import (_make_inference_scheduler,
                                            canonical_scheduler_name,
                                            stable_diffusion_2)
+from diffusion_torch.models.lora import lora_parameters
 from diffusion_torch.models.port_jax import (clip_text_from_jax,
                                              unet_from_jax, vae_from_jax)
 from diffusion_torch.train.checkpoint import fetch_checkpoint_dir, load_params
@@ -88,8 +93,12 @@ class StableDiffusionInference:
         self.checkpoint_file = None
         if checkpoint_path:
             local = fetch_checkpoint_dir(checkpoint_path)
-            self.checkpoint_file = load_params(
-                local, dict(self.model.unet.named_parameters()))
+            # a checkpoint holds what the Trainer trained: the adapters
+            # alone when only they required grad
+            params = (lora_parameters(self.model.unet)
+                      if getattr(self.model, "train_lora_only", False)
+                      else dict(self.model.unet.named_parameters()))
+            self.checkpoint_file = load_params(local, params)
         self.default_size = default_size
         self.seed = seed
         # sampler name -> the model over that sampler (same modules)

@@ -12,8 +12,14 @@ Precision, as in the JAX package: parameters are fp32 and the compute dtype
 is the dtype of the activations (bf16 at full width). `Linear` and
 `Conv2d` cast their weights to the input's dtype on every call (a
 differentiable cast, so gradients land on the fp32 parameters); norms
-compute their statistics in fp32 and return the input's dtype. LoRA and
-dropout > 0 are not ported (ROADMAP.md queue 1 items 11 and 5).
+compute their statistics in fp32 and return the input's dtype. Dropout
+> 0 is not ported (ROADMAP.md queue 1 item 5).
+
+LoRA (`Attention(lora_rank=r)`): bias-free `Linear` siblings
+`to_q_lora_a`/`to_q_lora_b` (and the same for `to_k`, `to_v`, `to_out`)
+beside each projection, so the base names, and a diffusers checkpoint,
+stay as they are. `init_like_flax_` draws A ~ N(0, 0.02) and B = 0, as
+flax's `kernel_init` does, so a fresh adapter is the base model exactly.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from diffusion_torch.ops.groupnorm import group_norm
 
 __all__ = [
     "Linear", "Conv2d", "LayerNorm", "GroupNorm", "timestep_embedding",
-    "TimestepEmbedding", "ResnetBlock", "Attention", "FeedForwardGEGLU",
+    "TimestepEmbedding", "ResnetBlock", "LoRALinear", "Attention",
+    "FeedForwardGEGLU",
     "BasicTransformerBlock", "Transformer2D", "Downsample", "Upsample",
     "Container", "init_like_flax_",
 ]
@@ -152,12 +159,27 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
+class LoRALinear(Linear):
+    """A bias-free LoRA factor: `*_lora_a` (in -> rank, A ~ N(0, 0.02)) or
+    `*_lora_b` (rank -> out, zeros), as `init_like_flax_` draws them."""
+
+    def __init__(self, in_features: int, out_features: int, zero: bool):
+        super().__init__(in_features, out_features, bias=False)
+        self.zero_init = zero
+
+
 class Attention(nn.Module):
     """Multi-head attention over (B, S, C) tokens; cross-attention when a
-    context is given. Dispatches through `ops.attention`."""
+    context is given. Dispatches through `ops.attention`.
+
+    `lora_rank > 0` adds y = W x + (alpha / r) B(A(x)) to each projection,
+    after its base product and at its compute dtype (the JAX module's
+    order): q's branch reads x, k's and v's the context, to_out's the
+    attention output. `lora_alpha=None` means scale 1.0."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 cross_dim: Optional[int] = None):
+                 cross_dim: Optional[int] = None, lora_rank: int = 0,
+                 lora_alpha: Optional[float] = None):
         super().__init__()
         inner = heads * dim_head
         ctx = cross_dim or query_dim
@@ -166,17 +188,39 @@ class Attention(nn.Module):
         self.to_k = Linear(ctx, inner, bias=False)
         self.to_v = Linear(ctx, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, query_dim), nn.Identity()])
+        self.lora_rank = int(lora_rank)
+        if self.lora_rank > 0:
+            self.lora_scale = (float(lora_alpha) if lora_alpha is not None
+                               else float(lora_rank)) / float(lora_rank)
+            for name, fan_in, fan_out in (("to_q", query_dim, inner),
+                                          ("to_k", ctx, inner),
+                                          ("to_v", ctx, inner),
+                                          ("to_out", inner, query_dim)):
+                setattr(self, f"{name}_lora_a",
+                        LoRALinear(fan_in, self.lora_rank, zero=False))
+                setattr(self, f"{name}_lora_b",
+                        LoRALinear(self.lora_rank, fan_out, zero=True))
+
+    def _lora(self, name: str, y: torch.Tensor,
+              inp: torch.Tensor) -> torch.Tensor:
+        if self.lora_rank == 0:
+            return y
+        a = getattr(self, f"{name}_lora_a")(inp)
+        return y + getattr(self, f"{name}_lora_b")(a) * self.lora_scale
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
         b, sq, _ = x.shape
         sk = ctx.shape[1]
-        q = self.to_q(x).view(b, sq, self.heads, self.dim_head)
-        k = self.to_k(ctx).view(b, sk, self.heads, self.dim_head)
-        v = self.to_v(ctx).view(b, sk, self.heads, self.dim_head)
-        o = multi_head_attention(q, k, v)
-        return self.to_out[0](o.reshape(b, sq, -1))
+        q = self._lora("to_q", self.to_q(x), x)
+        k = self._lora("to_k", self.to_k(ctx), ctx)
+        v = self._lora("to_v", self.to_v(ctx), ctx)
+        o = multi_head_attention(q.view(b, sq, self.heads, self.dim_head),
+                                 k.view(b, sk, self.heads, self.dim_head),
+                                 v.view(b, sk, self.heads, self.dim_head))
+        o = o.reshape(b, sq, -1)
+        return self._lora("to_out", self.to_out[0](o), o)
 
 
 class _GEGLU(nn.Module):
@@ -207,12 +251,15 @@ class FeedForwardGEGLU(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, cross_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_dim: int,
+                 lora_rank: int = 0, lora_alpha: Optional[float] = None):
         super().__init__()
+        lora = {"lora_rank": lora_rank, "lora_alpha": lora_alpha}
         self.norm1 = LayerNorm(dim)
-        self.attn1 = Attention(dim, heads, dim_head)
+        self.attn1 = Attention(dim, heads, dim_head, **lora)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = Attention(dim, heads, dim_head, cross_dim=cross_dim)
+        self.attn2 = Attention(dim, heads, dim_head, cross_dim=cross_dim,
+                               **lora)
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForwardGEGLU(dim)
 
@@ -228,7 +275,8 @@ class Transformer2D(nn.Module):
 
     def __init__(self, channels: int, heads: int, cross_dim: int,
                  groups: int = 32, depth: int = 1,
-                 use_linear_projection: bool = True):
+                 use_linear_projection: bool = True, lora_rank: int = 0,
+                 lora_alpha: Optional[float] = None):
         super().__init__()
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm(groups, channels, eps=1e-6)
@@ -236,7 +284,8 @@ class Transformer2D(nn.Module):
             lambda i, o: Conv2d(i, o, 1))
         self.proj_in = proj(channels, channels)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, channels // heads, cross_dim)
+            BasicTransformerBlock(channels, heads, channels // heads,
+                                  cross_dim, lora_rank, lora_alpha)
             for _ in range(depth)])
         self.proj_out = proj(channels, channels)
 
@@ -287,9 +336,15 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights as flax's defaults draw them, so random-weight serving
     behaves like the JAX package's `init_params`: lecun-normal (truncated)
     kernels, zero biases, unit/zero norms, 1/sqrt(dim) embeddings (or the
-    module's `flax_init_std`)."""
+    module's `flax_init_std`); LoRA factors as the JAX Attention's
+    `kernel_init`: A ~ N(0, 0.02), B zeros."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, LoRALinear):
+            if m.zero_init:
+                m.weight.zero_()
+            else:
+                nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             # flax truncates at 2 standard units and rescales so the
             # truncated distribution has variance 1/fan_in

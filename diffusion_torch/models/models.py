@@ -1,6 +1,8 @@
-"""Model builders: full-width SD-2-base and the tiny test geometry.
+"""Model builders: full-width SD-2-base, the tiny test geometry, and the
+two pixel-space diffusion models.
 
-Counterparts of `stable_diffusion_2` and `stable_diffusion_tiny` in
+Counterparts of `stable_diffusion_2`, `stable_diffusion_tiny`,
+`discrete_pixel_diffusion` and `continuous_pixel_diffusion` in
 `diffusion_tpu/models/models.py`, with the JAX builders' keywords, defaults
 and meanings as the yamls pass them: `precomputed_latents`,
 `encode_latents_in_fp16` (bf16 compute, else fp32), `fsdp` (recorded on the
@@ -9,7 +11,9 @@ model), `val_metrics`, `train_metrics`, `val_seed`, `loss_bins`,
 `timestep_spacing`, `init_frozen_towers`, `inference_scheduler` (`ddim`,
 `dpm++2m` or its alias `dpm`, `euler`), and the generation eval's
 `val_guidance_scales`, `inception_weights`, `clip_metric_weights` and
-`allow_random_tower_weights`. A builder makes the modules on
+`allow_random_tower_weights`, and LoRA's `lora_rank`, `lora_alpha` and
+`train_lora_only` (default: `lora_rank > 0`; only the adapters then
+require grad, `models/lora.py`). A builder makes the modules on
 `device` (CUDA unless the caller asks for the CPU; it raises where CUDA is
 missing) and draws their weights as flax's defaults would
 (`init_like_flax_`) from a `torch.Generator` seeded with `seed`. With
@@ -30,25 +34,32 @@ eval generates images).
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from diffusion_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
-                                         SD2_TEXT_CONFIG)
+                                         SD2_TEXT_CONFIG,
+                                         VIT_L14_TEXT_CONFIG)
 from diffusion_torch.models.layers import init_like_flax_
+from diffusion_torch.models.lora import freeze_base
+from diffusion_torch.models.pixel_diffusion import PixelDiffusion
 from diffusion_torch.models.pretrained import load_pretrained_params
 from diffusion_torch.models.stable_diffusion import StableDiffusion
-from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition, UNetConfig
+from diffusion_torch.models.unet import (PIXEL_UNET, SD2_BASE_UNET,
+                                         UNet2DCondition, UNetConfig)
 from diffusion_torch.models.vae import SD2_VAE, AutoencoderKL, VAEConfig
-from diffusion_torch.schedulers import (DDIMScheduler, DDPMScheduler,
+from diffusion_torch.schedulers import (ContinuousTimeScheduler,
+                                        DDIMScheduler, DDPMScheduler,
                                         DPMSolverMultistepScheduler,
                                         EulerDiscreteScheduler)
 from diffusion_torch.text.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffusion_torch.utils.device import Device, resolve_device
 
 __all__ = ["stable_diffusion_2", "stable_diffusion_tiny",
+           "discrete_pixel_diffusion", "continuous_pixel_diffusion",
            "canonical_scheduler_name"]
 
 # the samplers a yaml's `model.inference_scheduler` (and a request's
@@ -126,6 +137,19 @@ def _spacing(timestep_spacing: Optional[str],
     return "trailing" if rescale_betas_zero_snr else "leading"
 
 
+def _with_lora(unet_cfg: UNetConfig, lora_rank: int,
+               lora_alpha: Optional[float],
+               train_lora_only: Optional[bool]) -> Tuple[UNetConfig, bool]:
+    """The UNet config with its adapters, and `train_lora_only` resolved
+    (default: adapters only where there are adapters)."""
+    if train_lora_only is None:
+        train_lora_only = lora_rank > 0
+    if lora_rank:
+        unet_cfg = dataclasses.replace(unet_cfg, lora_rank=int(lora_rank),
+                                       lora_alpha=lora_alpha)
+    return unet_cfg, bool(train_lora_only)
+
+
 def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
            text_cfg: CLIPTextConfig, tokenizer, dtype: torch.dtype,
            device: Device, seed: int, *, precomputed_latents: bool,
@@ -133,7 +157,8 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
            rescale_betas_zero_snr: bool, timestep_spacing: Optional[str],
            init_frozen_towers: Optional[bool], inference_scheduler: str,
            val_guidance_scales: Optional[Sequence[float]],
-           pretrained_path: Optional[str] = None, **fields: Any
+           pretrained_path: Optional[str] = None,
+           train_lora_only: bool = False, **fields: Any
            ) -> StableDiffusion:
     device = resolve_device(device)
     val_guidance_scales = tuple(float(g) for g in val_guidance_scales or ())
@@ -156,6 +181,8 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
     gen = torch.Generator(device=device).manual_seed(seed)
     init_like_flax_(unet, gen)
     unet.train()
+    if train_lora_only:
+        freeze_base(unet)        # raises where the UNet has no adapter
     for module in towers:
         if module is not None:
             init_like_flax_(module, gen)
@@ -168,7 +195,8 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
                             min_snr_gamma=min_snr_gamma,
                             precomputed_latents=precomputed_latents,
                             val_guidance_scales=val_guidance_scales,
-                            pretrained_path=pretrained_path, **fields)
+                            pretrained_path=pretrained_path,
+                            train_lora_only=train_lora_only, **fields)
     if pretrained_path:
         load_pretrained_params(model)
     return model
@@ -193,6 +221,9 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                        prediction_type: str = "epsilon",
                        rescale_betas_zero_snr: bool = False,
                        timestep_spacing: Optional[str] = None,
+                       lora_rank: int = 0,
+                       lora_alpha: Optional[float] = None,
+                       train_lora_only: Optional[bool] = None,
                        device: Device = None, seed: int = 0
                        ) -> StableDiffusion:
     """SD-2-base at full width: 866M-parameter UNet, SD2 VAE, 23-layer
@@ -201,9 +232,13 @@ def stable_diffusion_2(model_name: Optional[str] = None,
     the weights with `pretrained=True`, and the tokenizer where it holds
     one. `inception_weights` and `clip_metric_weights` are the metric
     towers' `.npz` files (`metrics/towers.py`); random towers are refused
-    unless `allow_random_tower_weights`."""
+    unless `allow_random_tower_weights`. `lora_rank > 0` adds LoRA adapters
+    to every attention projection and, by default, trains only them (with
+    `pretrained=True`, over the directory's base)."""
     pretrained_path = _pretrained_dir(pretrained, model_name)
-    return _build(SD2_BASE_UNET, SD2_VAE, SD2_TEXT_CONFIG,
+    unet_cfg, train_lora_only = _with_lora(SD2_BASE_UNET, lora_rank,
+                                           lora_alpha, train_lora_only)
+    return _build(unet_cfg, SD2_VAE, SD2_TEXT_CONFIG,
                   _tokenizer(model_name),
                   torch.bfloat16 if encode_latents_in_fp16 else torch.float32,
                   device, seed,
@@ -215,6 +250,7 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                   inference_scheduler=inference_scheduler,
                   val_guidance_scales=val_guidance_scales,
                   pretrained_path=pretrained_path,
+                  train_lora_only=train_lora_only,
                   val_seed=int(val_seed),
                   loss_bins=tuple(tuple(b) for b in (loss_bins or [(0, 1)])),
                   train_metric_names=tuple(train_metrics
@@ -238,6 +274,9 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
                           rescale_betas_zero_snr: bool = False,
                           timestep_spacing: Optional[str] = None,
                           init_frozen_towers: Optional[bool] = None,
+                          lora_rank: int = 0,
+                          lora_alpha: Optional[float] = None,
+                          train_lora_only: Optional[bool] = None,
                           device: Device = None, seed: int = 0,
                           **_: Any) -> StableDiffusion:
     """The JAX package's tiny geometry (fp32): real architecture, small
@@ -246,11 +285,14 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
     the same `pretrained`/`model_name` contract as `stable_diffusion_2`
     (the tokenizer stays the tiny one)."""
     pretrained_path = _pretrained_dir(pretrained, model_name)
-    return _build(
+    unet_cfg, train_lora_only = _with_lora(
         UNetConfig(in_channels=4, out_channels=4, block_out_channels=(32, 64),
                    layers_per_block=1, block_has_attention=(True, False),
                    attention_head_dim=(2, 4), cross_attention_dim=32,
                    norm_num_groups=8),
+        lora_rank, lora_alpha, train_lora_only)
+    return _build(
+        unet_cfg,
         VAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
                   norm_num_groups=4),
         CLIPTextConfig(vocab_size=514, hidden_size=32, intermediate_size=64,
@@ -263,6 +305,79 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
         init_frozen_towers=init_frozen_towers,
         inference_scheduler=inference_scheduler,
         val_guidance_scales=val_guidance_scales,
-        pretrained_path=pretrained_path,
+        pretrained_path=pretrained_path, train_lora_only=train_lora_only,
         val_metric_names=tuple(val_metrics or ("MeanSquaredError",)),
         allow_random_tower_weights=bool(allow_random_tower_weights))
+
+
+def _pixel_schedulers(prediction_type: str
+                      ) -> Tuple[DDPMScheduler, DDIMScheduler]:
+    """The JAX builder's hard-coded pixel schedulers: scaled-linear betas
+    0.00085 -> 0.012 over 1000 steps, DDIM with steps offset 1, no sample
+    clipping and the last step on alpha-bar[0] (the port's DDIM's fixed
+    settings)."""
+    return (DDPMScheduler(num_train_timesteps=1000, beta_start=0.00085,
+                          beta_end=0.012, beta_schedule="scaled_linear",
+                          variance_type="fixed_small",
+                          prediction_type=prediction_type),
+            DDIMScheduler(num_train_timesteps=1000, beta_start=0.00085,
+                          beta_end=0.012, beta_schedule="scaled_linear",
+                          steps_offset=1, prediction_type=prediction_type))
+
+
+def _pixel(unet_cfg: UNetConfig, text_cfg: CLIPTextConfig, tokenizer,
+           dtype: torch.dtype, device: Device, seed: int,
+           **fields: Any) -> PixelDiffusion:
+    device = resolve_device(device)
+    with torch.device(device):
+        unet = UNet2DCondition(unet_cfg, dtype=dtype)
+        text_encoder = CLIPTextModel(text_cfg, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init_like_flax_(unet, gen)
+    init_like_flax_(text_encoder, gen)
+    unet.train()
+    text_encoder.eval().requires_grad_(False)
+    return PixelDiffusion(unet=unet, text_encoder=text_encoder,
+                          tokenizer=tokenizer, **fields)
+
+
+def discrete_pixel_diffusion(clip_model_name: Optional[str] = None,
+                             prediction_type: str = "epsilon",
+                             encode_in_bf16: bool = True,
+                             device: Device = None, seed: int = 0
+                             ) -> PixelDiffusion:
+    """Pixel-space diffusion with discrete DDPM training and DDIM sampling:
+    `PIXEL_UNET` (SD2's widths and heads, 3 -> 3 channels, cross-attention
+    768) and the CLIP ViT-L/14 text tower, bf16 compute (`encode_in_bf16`)
+    or fp32. `clip_model_name` is where a CLIP tokenizer is read from, when
+    it holds one."""
+    train, infer = _pixel_schedulers(prediction_type)
+    return _pixel(PIXEL_UNET, VIT_L14_TEXT_CONFIG,
+                  _tokenizer(clip_model_name),
+                  torch.bfloat16 if encode_in_bf16 else torch.float32,
+                  device, seed, noise_scheduler=train,
+                  inference_scheduler=infer, prediction_type=prediction_type)
+
+
+def continuous_pixel_diffusion(clip_model_name: Optional[str] = None,
+                               prediction_type: str = "epsilon",
+                               use_ode: bool = False,
+                               train_t_max: float = 1.570795,
+                               inference_t_max: float = 1.56,
+                               encode_in_bf16: bool = True,
+                               device: Device = None, seed: int = 0
+                               ) -> PixelDiffusion:
+    """Continuous-time VP diffusion in pixel space: the same UNet and text
+    tower, the tangent-schedule scheduler for training (t in [0,
+    `train_t_max`)) and sampling (from `inference_t_max`), by the reverse
+    SDE or, with `use_ode`, the probability-flow ODE."""
+    return _pixel(PIXEL_UNET, VIT_L14_TEXT_CONFIG,
+                  _tokenizer(clip_model_name),
+                  torch.bfloat16 if encode_in_bf16 else torch.float32,
+                  device, seed,
+                  noise_scheduler=ContinuousTimeScheduler(
+                      t_max=train_t_max, prediction_type=prediction_type),
+                  inference_scheduler=ContinuousTimeScheduler(
+                      t_max=inference_t_max, prediction_type=prediction_type,
+                      use_ode=use_ode),
+                  prediction_type=prediction_type, continuous_time=True)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 __all__ = ["unet_from_jax", "vae_from_jax", "clip_text_from_jax",
-           "clip_model_from_jax", "inception_from_jax"]
+           "clip_model_from_jax", "inception_from_jax", "lora_jax_path"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "embedding": "weight"}
@@ -103,9 +103,32 @@ def _convert(flat: Dict[str, np.ndarray],
 
 
 def unet_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """`UNet2DCondition` params -> the port's UNet state_dict."""
+    """`UNet2DCondition` params -> the port's UNet state_dict. LoRA
+    adapters (`*_lora_a`/`*_lora_b` kernels, (in, out)) land on the port's
+    sibling `Linear`s of the same names, (out, in)."""
     return _convert(_flatten(tree),
                     lambda parts: ".".join(_block_name(p) for p in parts))
+
+
+_JAX_SCOPES = (
+    (r"(down|up)_blocks\.(\d+)\.resnets\.(\d+)", r"\1_\2_res_\3"),
+    (r"(down|up)_blocks\.(\d+)\.attentions\.(\d+)", r"\1_\2_attn_\3"),
+    (r"mid_block\.attentions\.0", "mid_attn"),
+    (r"transformer_blocks\.(\d+)", r"blocks_\1"),
+)
+
+
+def lora_jax_path(name: str) -> str:
+    """The port's UNet adapter parameter name -> its JAX param path, e.g.
+    `down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q_lora_a.
+    weight` -> `down_0_attn_0/blocks_0/attn1/to_q_lora_a/kernel` (the
+    inverse of `unet_from_jax` on adapter keys)."""
+    if not name.endswith(("_lora_a.weight", "_lora_b.weight")):
+        raise KeyError(f"not a LoRA adapter parameter: {name}")
+    path = name[:-len(".weight")]
+    for pattern, repl in _JAX_SCOPES:
+        path = re.sub(pattern, repl, path)
+    return path.replace(".", "/") + "/kernel"
 
 
 def vae_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:

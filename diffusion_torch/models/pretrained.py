@@ -16,6 +16,12 @@ ValueError. Keys the port has no place for are set aside by a named rule
 (`SET_ASIDE`), never by a catch-all. The values are cast to the module's
 dtype (an fp16 checkpoint becomes fp32 master weights) and copied into
 the existing tensors, so the `Parameter` objects stay the same.
+
+A `train_lora_only` model takes its UNet base from the directory (which
+holds no adapters) and starts its adapters fresh as the JAX loader's
+`_init_lora_numpy` draws them: `numpy.random.default_rng(0)`, A ~ N(0,
+0.02) in JAX's sorted param-path order, B = 0, so step 0 is the
+pretrained model exactly.
 """
 
 from __future__ import annotations
@@ -23,14 +29,17 @@ from __future__ import annotations
 import os
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from diffusion_torch.models.lora import is_lora_key, lora_parameters
 from diffusion_torch.models.port_jax import (clip_text_from_jax,
-                                             unet_from_jax, vae_from_jax)
+                                             lora_jax_path, unet_from_jax,
+                                             vae_from_jax)
 from diffusion_torch.utils import flax_msgpack, safetensors
 
 __all__ = ["load_component", "load_pretrained_params", "load_state_into",
-           "copy_into", "validate", "SET_ASIDE"]
+           "copy_into", "validate", "init_lora_numpy", "SET_ASIDE"]
 
 _PORTERS: Dict[str, Callable] = {"unet": unet_from_jax, "vae": vae_from_jax,
                                  "text_encoder": clip_text_from_jax}
@@ -90,6 +99,24 @@ def load_state_into(name: str, module: torch.nn.Module,
               state)
 
 
+@torch.no_grad()
+def init_lora_numpy(unet: torch.nn.Module, seed: int = 0) -> None:
+    """Fresh adapters in place, as the JAX loader's `_init_lora_numpy`
+    draws them: one `numpy.random.default_rng(seed)`, each `*_lora_a`
+    kernel ~ N(0, 0.02) in its JAX (in, rank) shape, in the sorted order of
+    JAX's param paths; every `*_lora_b` zero (no draw)."""
+    rng = np.random.default_rng(seed)
+    params = lora_parameters(unet)
+    by_path = sorted(params, key=lambda n: lora_jax_path(n).split("/"))
+    for name in by_path:
+        p = params[name]
+        if name.endswith("_lora_b.weight"):
+            p.zero_()
+        else:
+            kernel = rng.normal(0.0, 0.02, tuple(p.shape[::-1]))
+            p.copy_(torch.from_numpy(kernel.astype(np.float32).T.copy()))
+
+
 def load_component(path: str, name: str) -> Dict[str, torch.Tensor]:
     """One component's state_dict: `<path>/<name>.msgpack`, else the
     `<path>/<name>/` safetensors, with the keys of `SET_ASIDE` left out."""
@@ -122,7 +149,16 @@ def load_pretrained_params(model, path: Optional[str] = None,
     if want_frozen and (model.vae is None or model.text_encoder is None):
         raise ValueError("want_frozen=True but the model was built without "
                          "its frozen VAE and text towers")
-    load_state_into("unet", model.unet, load_component(path, "unet"))
+    unet_state = load_component(path, "unet")
+    if getattr(model, "train_lora_only", False):
+        # a published directory holds the base alone: it loads under the
+        # base's names, and the adapters start fresh
+        base = {k: v for k, v in model.unet.state_dict(keep_vars=True).items()
+                if not is_lora_key(k)}
+        copy_into("pretrained unet weights", base, unet_state)
+        init_lora_numpy(model.unet)
+    else:
+        load_state_into("unet", model.unet, unet_state)
     if want_frozen:
         load_state_into("vae", model.vae, load_component(path, "vae"))
         load_state_into("text_encoder", model.text_encoder,

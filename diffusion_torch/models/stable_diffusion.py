@@ -75,6 +75,9 @@ class StableDiffusion:
     inception_weights: Optional[str] = None
     clip_metric_weights: Optional[str] = None
     allow_random_tower_weights: bool = False
+    # LoRA fine-tuning (models/lora.py): only the UNet's adapters require
+    # grad, so the Trainer trains, EMAs and checkpoints them alone
+    train_lora_only: bool = False
 
     @property
     def device(self) -> torch.device:

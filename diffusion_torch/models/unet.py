@@ -6,13 +6,14 @@ UNet2DConditionModel state_dict loads as it is. NCHW in and out (the JAX
 module is NHWC); the activations are kept in channels_last memory, whose
 layout is the JAX one. Trains with autograd through the GroupNorm and flash
 kernels' backward halves; `remat` and dropout > 0 raise (ROADMAP.md queue 1
-item 5).
+item 5). `UNetConfig.lora_rank > 0` adds LoRA adapters to every attention
+projection (`layers.Attention`, `models/lora.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,7 +23,7 @@ from diffusion_torch.models.layers import (CHANNELS_LAST, Container, Conv2d, Dow
                                            TimestepEmbedding, Transformer2D,
                                            Upsample, timestep_embedding)
 
-__all__ = ["UNetConfig", "UNet2DCondition", "SD2_BASE_UNET",
+__all__ = ["UNetConfig", "UNet2DCondition", "SD2_BASE_UNET", "PIXEL_UNET",
            "group_norm_shapes"]
 
 
@@ -43,9 +44,15 @@ class UNetConfig:
     freq_shift: float = 0.0
     norm_num_groups: int = 32
     dropout: float = 0.0
+    # LoRA adapters on every attention projection: 0 = none
+    lora_rank: int = 0
+    lora_alpha: Optional[float] = None
 
 
 SD2_BASE_UNET = UNetConfig()
+# the pixel-space UNet: SD2's widths and heads, 3 channels, cross-attention
+# over ViT-L/14's 768-wide text states
+PIXEL_UNET = UNetConfig(in_channels=3, out_channels=3, cross_attention_dim=768)
 
 
 def group_norm_shapes(config: UNetConfig, batch: int, side: int):
@@ -111,7 +118,8 @@ class UNet2DCondition(nn.Module):
         def transformer(ch, n_heads):
             return Transformer2D(ch, n_heads, cross, groups,
                                  config.transformer_depth,
-                                 config.use_linear_projection)
+                                 config.use_linear_projection,
+                                 config.lora_rank, config.lora_alpha)
 
         self.conv_in = Conv2d(config.in_channels, chans[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(chans[0], temb_dim)

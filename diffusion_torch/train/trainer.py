@@ -65,9 +65,15 @@ the batch's end with a checkpoint of that batch.
 
 Runs on `device` (CUDA unless the caller asks for the CPU; it raises where
 CUDA is missing), which must be the model's. A mesh or more than one
-process raise NotImplementedError naming ROADMAP.md item 9, and
-`log_traces=True` (the JAX package's profiler callback) item 11;
-`fsdp_config`, `image_size` and `precision` are recorded.
+process raise NotImplementedError naming ROADMAP.md item 9;
+`fsdp_config`, `image_size` and `precision` are recorded. `log_traces`
+appends a `utils.profiler.TorchProfiler` (a torch.profiler trace of
+batches 10-12 into `traces/`), as the JAX Trainer appends its profiler.
+
+The model is a `StableDiffusion` (with `train_lora_only`, only its UNet's
+adapters require grad, so they alone are trained, EMA'd and checkpointed)
+or a `PixelDiffusion`; the trainer takes the UNet parameters that require
+grad.
 """
 
 from __future__ import annotations
@@ -96,6 +102,7 @@ from diffusion_torch.train.state import State, TrainState
 from diffusion_torch.utils.device import Device, rank_and_world, resolve_device
 from diffusion_torch.utils.logging import (ConsoleLogger, Logger,
                                            LoggerCollection)
+from diffusion_torch.utils.profiler import TorchProfiler
 from diffusion_torch.utils.time import Time, Timestamp, time_to_batches
 
 __all__ = ["Trainer", "Evaluator", "grad_accum_steps"]
@@ -177,9 +184,6 @@ class Trainer:
         eval_noise_hook: Optional[EvalNoiseHook] = None,
     ):
         del progress_bar  # yaml parity; the trainer prints no bar
-        if log_traces:
-            raise _unported("log_traces (the profiler callback)", 11,
-                            "other adapters")
         if mesh is not None or mesh_config:
             raise _unported("a device mesh", 9, "multi-device")
         if rank_and_world()[1] > 1:
@@ -234,7 +238,10 @@ class Trainer:
         elif isinstance(loggers, Logger):
             loggers = [loggers]
         self.logger = LoggerCollection(loggers)
-        self.engine = EventEngine(algorithms or [], callbacks or [])
+        callbacks = list(callbacks or [])
+        if log_traces:
+            callbacks.append(TorchProfiler())
+        self.engine = EventEngine(algorithms or [], callbacks)
         self.ema_algorithm: Optional[EMA] = next(
             (a for a in self.engine.algorithms if isinstance(a, EMA)), None)
 
@@ -462,7 +469,8 @@ class Trainer:
         """(numerator, denominator) of the MSE and of each loss bin's MSE
         over one batch: per-example means of the squared error."""
         model = self.model
-        num_t = model.noise_scheduler.num_train_timesteps
+        # a continuous-time model has neither bins nor a timestep count
+        num_t = getattr(model.noise_scheduler, "num_train_timesteps", 1000)
         draws, gen = (), None
         if self.eval_noise_hook is not None:
             draws = self.eval_noise_hook(index, batch)
@@ -474,7 +482,7 @@ class Trainer:
         per_example = err.mean(dim=tuple(range(1, err.ndim)))
         out = {"MeanSquaredError": (float(per_example.sum()),
                                     float(per_example.numel()))}
-        for lo, hi in model.loss_bins:
+        for lo, hi in getattr(model, "loss_bins", ()) or ():
             mask = ((t >= lo * num_t) & (t < hi * num_t)).float()
             out[f"MeanSquaredError/bin-{lo}-{hi}"] = (
                 float((per_example * mask).sum()), float(mask.sum()))

@@ -218,3 +218,127 @@ def test_eval_job_arguments(tmp_path):
     assert (c.subset_num_batches, c.batch_size, c.device) == (1, 16, "cuda:0")
     assert chip_smoke.EVAL_SAMPLES >= chip_smoke.EVAL_BATCH * \
         chip_smoke.EVAL_BATCHES
+
+
+_TINY = ["model._target_=diffusion_tpu.models.models.stable_diffusion_tiny",
+         "+model.device=cpu", "+trainer.device=cpu"]
+
+
+def _tiny_train(yaml, overrides):
+    """Compose a phase's overrides with the tiny model on the CPU (a
+    rehearsal of the phase without the card) and return the Trainer."""
+    from diffusion_torch.config import load_config
+    from diffusion_torch.train.train import build_trainer
+    config = load_config(os.path.join(chip_smoke._ROOT, "yamls", yaml),
+                         overrides + _TINY)
+    return config, build_trainer(config)
+
+
+def test_lora_phase_composes_and_records(tmp_path):
+    """Phase 12's data and overrides: the unedited
+    yamls/SD-2-base-256-lora.yaml composes (rank 8, adapters only, the
+    pretrained directory, raw JPEG + caption MDS shards, the COCO eval, a
+    save every 3 batches); at the tiny geometry on the CPU (random base) 2
+    batches of 4 train only the adapters and LoraRecord sees the base
+    bit-unchanged and the adapters changed."""
+    import numpy as np
+
+    from diffusion_torch.models.lora import is_lora_key
+    rng = np.random.default_rng(0)
+    raw, coco = str(tmp_path / "raw"), str(tmp_path / "coco")
+    assert chip_smoke._write_raw_shards(raw, 16, rng) > 0
+    chip_smoke._write_coco_shards(coco, 8, rng)
+    overrides = chip_smoke._lora_overrides(
+        str(tmp_path / "pre"), raw, coco, str(tmp_path / "ckpt"),
+        str(tmp_path / "m.jsonl"))
+    from diffusion_torch.config import load_config
+    full = load_config(os.path.join(chip_smoke._ROOT, "yamls",
+                                    "SD-2-base-256-lora.yaml"), overrides)
+    assert full["model"]["lora_rank"] == 8 and full["model"]["pretrained"]
+    assert full["trainer"]["save_interval"] == "3ba"
+    assert full["batch_size"] == 32
+    config, tr = _tiny_train("SD-2-base-256-lora.yaml", overrides + [
+        "model.pretrained=false", "batch_size=4",
+        "trainer.device_train_microbatch_size=2",
+        "trainer.max_duration=2ba", "dataset.train_dataset.num_workers=0",
+        "dataset.train_dataset.resize_size=32", "trainer.image_size=32"])
+    assert tr.model.train_lora_only
+    assert all(is_lora_key(n) for n in tr.train_state.params)
+    record = next(c for c in tr.engine.callbacks
+                  if isinstance(c, chip_smoke.LoraRecord))
+    try:
+        tr.fit()
+    finally:
+        tr.close()
+    assert record.trainable == sum(p.numel() for p in
+                                   tr.train_state.params.values())
+    assert record.base_unchanged and record.adapters_changed > 0
+    assert record.first_batch["image"].shape == (4, 32, 32, 3)
+    assert len(record.steps) == 2
+    assert os.path.isdir(tmp_path / "ckpt" / "ba2")
+
+
+def test_reader_phase_composes_and_counts_sources(tmp_path):
+    """Phase 13's data and overrides: the Pexels manifest (a record that
+    names a missing file among them) and three tar-shard sources compose
+    with the unedited pexels and mixdata yamls; log_traces adds the default
+    profiler beside the phase's own; ReaderRecord counts the samples each
+    mixture source yields (a tiny CPU run of 1 batch)."""
+    import numpy as np
+
+    from diffusion_torch.utils.profiler import TorchProfiler
+    rng = np.random.default_rng(1)
+    manifest, nbytes = chip_smoke._write_pexels_manifest(
+        str(tmp_path / "pexels"), 40, rng)
+    with open(manifest) as f:
+        records = __import__("json").load(f)["samples"]
+    missing = [r for r in records if len(r["local_paths"]) == 2]
+    assert len(missing) == 2 and not os.path.exists(
+        missing[0]["local_paths"][1])
+    _, tr = _tiny_train("SD-2-base-256-pexels.yaml",
+                        chip_smoke._pexels_overrides(
+                            manifest, str(tmp_path / "traces")))
+    profs = sorted((p.start_batch, p.num_batches) for p in
+                   tr.engine.callbacks if isinstance(p, TorchProfiler))
+    assert profs == [(1, 2), (10, 3)]
+    assert type(tr.train_dataloader).__module__ == \
+        "diffusion_torch.data.pexels"
+    assert tr.micro_size == 16 and tr.max_batches == chip_smoke.READER_STEPS
+    tr.close()
+    sources = {}
+    for k, name in enumerate(("laion", "coyo", "cc")):
+        m, _, _ = chip_smoke._write_wds_shards(
+            str(tmp_path / name), 8, rng, start=10000 * (k + 1))
+        sources[name] = os.path.dirname(m)
+    chip_smoke._write_coco_shards(str(tmp_path / "coco"), 4, rng)
+    _, tr = _tiny_train("SD-2-base-256-mixdata.yaml", chip_smoke._mix_overrides(
+        manifest, sources, str(tmp_path / "coco")) + [
+            "batch_size=4", "trainer.device_train_microbatch_size=2",
+            "trainer.max_duration=1ba", "~algorithms",
+            "dataset.train_dataset.resize_size=32", "trainer.image_size=32"])
+    loader = tr.train_dataloader
+    assert type(loader).__module__ == "diffusion_torch.data.mix"
+    assert [c.name for c in loader.pipes_to_weights] == [
+        "pexels", "laion", "coyo", "cc"]
+    record = next(c for c in tr.engine.callbacks
+                  if isinstance(c, chip_smoke.ReaderRecord))
+    record.loader = loader
+    try:
+        tr.fit()
+    finally:
+        tr.close()
+    assert sorted(record.drawn) == ["cc", "coyo", "laion", "pexels"]
+    assert sum(record.drawn.values()) >= 4 and record.drawn["laion"] > 0
+
+
+def test_pixel_phase_constants():
+    """Phase 14 trains at 64x64 pixels, batch 16 in microbatches of 8: its
+    top UNet stage attends over 4096 tokens, a flash shape (the 512px
+    serving shape)."""
+    from diffusion_torch.ops.attention import flash_eligible
+    s = chip_smoke.PIXEL_SIZE ** 2
+    assert s == 4096 and chip_smoke.PIXEL_BATCH % chip_smoke.PIXEL_MICRO == 0
+    assert flash_eligible("cuda", torch.bfloat16, (8, s, 5, 64),
+                          (8, s, 5, 64), False)
+    assert not flash_eligible("cuda", torch.bfloat16, (8, s, 5, 64),
+                              (8, 77, 5, 64), False)

@@ -293,8 +293,9 @@ def test_evals_match_jax(runs):
                                   "SD-2-base-256-pexels.yaml"])
 def test_yaml_trainer_sections_reach_the_trainer(name):
     """The online-encode yamls' `trainer:` sections, with `log_traces:
-    false`, build a Trainer (tiny model, CPU); `log_traces: true` (the JAX
-    package's profiler callback) raises, naming its ROADMAP.md item."""
+    false`, build a Trainer (tiny model, CPU) without a profiler;
+    `log_traces: true` appends a `TorchProfiler`, as the JAX Trainer
+    appends its `JaxProfiler`."""
     import os
     from diffusion_torch.config import load_config
     from diffusion_torch.train.train import build_trainer
@@ -305,9 +306,16 @@ def test_yaml_trainer_sections_reach_the_trainer(name):
     config = {"seed": full["seed"], "trainer": section, "model": {
         "_target_": "diffusion_tpu.models.models.stable_diffusion_tiny",
         "device": "cpu"}}
+    from diffusion_torch.utils.profiler import TorchProfiler
     tr = build_trainer(config)
     assert tr.max_batches == 550000 and tr.model.vae is not None
+    assert not any(isinstance(c, TorchProfiler) for c in tr.engine.callbacks)
     tr.close()
     config["trainer"] = dict(section, log_traces=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_trainer(config)
+    tr = build_trainer(config)
+    profilers = [c for c in tr.engine.callbacks
+                 if isinstance(c, TorchProfiler)]
+    assert len(profilers) == 1
+    assert (profilers[0].trace_dir, profilers[0].start_batch,
+            profilers[0].num_batches) == ("traces", 10, 3)
+    tr.close()
