@@ -20,7 +20,9 @@ Phases, each raising on failure (exit code 1):
      time alone (launches replayed from a CUDA graph; with --parent, the
      parent's dQ kernel in turns) and the wrapper's host time per call;
      for the flash kernels also TFLOP/s, and dQ + dK/dV beside SDPA's
-     flash backward in a CUDA graph. The GroupNorm forward also at the
+     flash backward in a CUDA graph (the backward at 256px batch 16 and
+     at 512px batch 4 and 8, the 512 recipe's microbatch). The GroupNorm
+     forward also at the
      VAE encoder's largest slabs (256px, microbatch 16). Then all 61
      GroupNorm calls of one UNet forward (256px batch 16, 512px batch 4)
      and backward (256px batch 16), and all 22 of one VAE encode (256px
@@ -168,7 +170,35 @@ Phases, each raising on failure (exit code 1):
      batch 16 in microbatches of 8 through `Trainer.fit()`, then 2
      prompts at 20 steps under DDIM, the SDE and the ODE: step time, peak
      memory, each request's latency, launches, the flash calls at S =
-     4096, finite images in [0, 1].
+     4096, finite images in [0, 1];
+ 15. the main recipe end to end: a full-width fp16 pretrained directory
+     (phase 10's writer), 128 raw JPEG + caption samples in MDS shards
+     (every short side >= 512, the bucket the recipe precomputes) and a
+     COCO captions json with 16 JPEGs; `python -m
+     diffusion_torch.scripts.convert_coco` makes the eval MDS; `python -m
+     diffusion_torch.scripts.precompute_latents --sizes 256 512
+     --model-name <the directory>` in a subprocess writes the latent
+     shards (its wall time and images/s, GroupNorm launches, output bytes,
+     no cached input shard left); in this process the job's encode at
+     batch 32 per size (CUDA events) and its GroupNorm calls per encode,
+     then two written samples' `latents_256` and `caption_latents`
+     against an fp32 CPU encode with the same weights and eps (relative L2
+     within 5e-2). Then the unedited yamls/SD-2-base-256.yaml for 3
+     batches of 32 on the job's shards with a save after the last, and
+     the unedited yamls/SD-2-base-512.yaml warm-started from that
+     checkpoint (`trainer.load_path`; the yaml's `load_weights_only`):
+     global batch 16 in the yaml's microbatches of 8, 4 batches, the
+     yaml's COCO eval (batch 8) after batch 2. The 512 yaml's precomputed
+     latents and `val_guidance_scales: []` build no VAE, so its raw COCO
+     eval needs `+model.init_frozen_towers=true` (reference fault 9, as
+     for the 256 yaml). Before step 1 the UNet equals the saved parameters
+     bit for bit, Adam's count and moments are fresh, the clock is at 0
+     and the EMA equals the loaded weights; the EMA equals the weights
+     after every step (`ema_start: 800000ba`); finite losses, grad norms
+     and eval MSE; all five kernels launched in both fits, a flash call
+     at (8, 4096, 5, 64); step time, samples/s, data wait, peak memory,
+     the weights-only load time, the eval's wall time and launches per
+     step.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -654,8 +684,9 @@ def _kernel_phase(card: str, parent=None):
                f"flash_attention disagrees with its plain version at {shape}")
         results["flash_attention"].append(case)
 
-    # flash backward: 256px training (first stage, batch 16), then 512px
-    for shape in ((16, 1024, 5, 64), (4, 4096, 5, 64)):
+    # flash backward: 256px training (first stage, batch 16), then 512px:
+    # batch 4, and the 512 recipe's microbatch of 8
+    for shape in ((16, 1024, 5, 64), (4, 4096, 5, 64), (8, 4096, 5, 64)):
         q, k, v, do = (randn(*shape) for _ in range(4))
         out, lse = fa.flash_attention_cuda(q, k, v)
         dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
@@ -2987,6 +3018,489 @@ def _pixel_phase(card: str) -> dict:
     return total
 
 
+# ---------------- phase 15: the main recipe end to end ----------------
+
+RECIPE_RAW = 128          # raw JPEG + caption samples, short sides >= 512
+RECIPE_COCO = 16          # COCO images of phase 2's 512px eval
+RECIPE_SIDES = ((512, 512), (640, 512), (512, 704), (768, 576))
+RECIPE_JOB_BATCH = 32     # the precompute job's --batch-size (its default)
+RECIPE_P1_STEPS = 3       # phase 1 (256px) batches, saved after the last
+RECIPE_P2_BATCH = 16      # phase 2's global batch (2048 cut); microbatch 8
+RECIPE_P2_STEPS = 4
+RECIPE_P2_EVAL_AT = 2
+RECIPE_P2_EVAL_BATCH = 8  # the 512 yaml's COCO reader batch
+
+
+def _write_recipe_sources(tmp: str, rng) -> dict:
+    """The recipe's inputs under `tmp`: a LAION-style MDS of raw JPEGs and
+    captions (`jpg`, `caption`; every short side >= 512, the bucket the
+    recipe precomputes) and a COCO-style `captions_val2014.json` with its
+    image directory. Returns their paths and sizes."""
+    from diffusion_torch.data.mds import MDSWriter
+    raw = os.path.join(tmp, "raw")
+    with MDSWriter(raw, {"jpg": "bytes", "caption": "str"},
+                   size_limit=1 << 23) as w:
+        for i in range(RECIPE_RAW):
+            width, height = RECIPE_SIDES[i % len(RECIPE_SIDES)]
+            w.write({"jpg": _jpeg(_smooth_image(rng, height, width)),
+                     "caption": f"a photo of recipe sample {i}"})
+    images = os.path.join(tmp, "val2014")
+    os.makedirs(images)
+    anns = {"images": [], "annotations": []}
+    for i in range(RECIPE_COCO):
+        name = f"COCO_val2014_{i:012d}.jpg"
+        width, height = RECIPE_SIDES[i % len(RECIPE_SIDES)]
+        with open(os.path.join(images, name), "wb") as f:
+            f.write(_jpeg(_smooth_image(rng, height, width)))
+        anns["images"].append({"id": i, "file_name": name})
+        anns["annotations"] += [{"id": 5 * i + k, "image_id": i,
+                                 "caption": f"coco image {i}, caption {k}"}
+                                for k in range(5)]
+    annotations = os.path.join(tmp, "captions_val2014.json")
+    with open(annotations, "w") as f:
+        json.dump(anns, f)
+    return {"raw": raw, "images": images, "annotations": annotations,
+            "raw_bytes": _dir_bytes(raw), "coco_bytes": _dir_bytes(images)}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def _precompute_args(src: dict, tmp: str, pre: str) -> list:
+    """`python -m diffusion_torch.scripts.precompute_latents`'s arguments:
+    the raw shards through a local cache (released as consumed), the 256
+    and 512 sizes, the towers from the pretrained directory `pre`."""
+    return ["--remote", src["raw"], "--local", os.path.join(tmp, "cache"),
+            "--out", os.path.join(tmp, "latents"), "--sizes", "256", "512",
+            "--batch-size", str(RECIPE_JOB_BATCH), "--model-name", pre]
+
+
+def _recipe_overrides(phase: int, shards: str, ckpt_dir: str, coco: str,
+                      metrics_file: str) -> list:
+    """The dotted overrides of phase 15's two runs. Phase 1
+    (yamls/SD-2-base-256.yaml): global batch 32 over the job's shards, 3
+    batches, no eval, a save after the last into `ckpt_dir`. Phase 2
+    (yamls/SD-2-base-512.yaml): global batch 16 in the yaml's microbatches
+    of 8, warm-started from `ckpt_dir`/ba3 (the yaml's
+    `load_weights_only: true`), 4 batches, the yaml's COCO eval (batch 8)
+    over the convert_coco shards `coco` after batch 2, with
+    `+model.init_frozen_towers=true`: the yaml's precomputed latents and
+    `val_guidance_scales: []` build no VAE (reference fault 9). Both log
+    to `metrics_file` and record through a callback."""
+    common = [f"dataset.train_dataset.remote={shards}",
+              f"dataset.train_dataset.local={shards}",
+              "dataset.train_dataset.num_workers=2",
+              "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
+              f"+logger.file.filename={metrics_file}"]
+    if phase == 1:
+        return common + [
+            f"batch_size={TRAIN_BATCH}", "~dataset.eval_dataset",
+            f"trainer.max_duration={RECIPE_P1_STEPS}ba",
+            f"trainer.save_folder={ckpt_dir}",
+            f"trainer.save_interval={RECIPE_P1_STEPS}ba",
+            f"+callbacks.chip_smoke._target_={__name__}.ComposedRecord"]
+    return common + [
+        f"batch_size={RECIPE_P2_BATCH}",
+        f"trainer.load_path={os.path.join(ckpt_dir, f'ba{RECIPE_P1_STEPS}')}",
+        "+model.init_frozen_towers=true",
+        f"dataset.eval_dataset.remote={coco}",
+        f"dataset.eval_dataset.local={coco}",
+        "dataset.eval_dataset.num_workers=2",
+        f"dataset.eval_batch_size={RECIPE_P2_EVAL_BATCH}",
+        f"trainer.max_duration={RECIPE_P2_STEPS}ba",
+        f"trainer.eval_interval={RECIPE_P2_EVAL_AT}ba",
+        f"+callbacks.chip_smoke._target_={__name__}.RecipeRecord",
+        f"+callbacks.chip_smoke.load_path="
+        f"{os.path.join(ckpt_dir, f'ba{RECIPE_P1_STEPS}')}"]
+
+
+class RecipeRecord(ComposedRecord):
+    """ComposedRecord for phase 2, and, when the fit starts: whether the
+    UNet holds `load_path`'s saved parameters bit for bit, the optimizer's
+    count and moments are fresh, the clock is at 0 and the EMA equals the
+    loaded weights; after each batch, whether the EMA equals the weights
+    (it copies them until `ema_start`)."""
+
+    def __init__(self, load_path: str = None):
+        super().__init__()
+        self.load_path = load_path
+        self.warm = {}
+        self.ema_tracks = []
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+        name = event.value
+        ts = state.train_state
+        if name == "fit_start" and self.load_path:
+            from diffusion_torch.utils import safetensors
+            saved = safetensors.load_file(os.path.join(
+                self.load_path, "state", "params.safetensors"))
+            self.warm = {
+                "params_equal_saved": sorted(saved) == sorted(ts.params)
+                and all(torch.equal(p, saved[n].to(p.device, p.dtype))
+                        for n, p in ts.params.items()),
+                "count": ts.optimizer.count,
+                "moments_zero": all(not m.any() for m in
+                                    ts.optimizer.mu + ts.optimizer.nu),
+                "batch": state.timestamp.batch, "step": ts.step,
+                "ema_equal_params": ts.ema_params is not None and all(
+                    torch.equal(ts.ema_params[n], p)
+                    for n, p in ts.params.items())}
+            del saved
+        elif name == "batch_end":
+            self.ema_tracks.append(all(
+                torch.equal(ts.ema_params[n], p)
+                for n, p in ts.params.items()))
+        super().run_event(event, state, logger)
+
+
+def _recipe_job(src: dict, tmp: str, pre: str, card: str) -> dict:
+    """Run the precompute job in a subprocess and return its summary."""
+    args = _precompute_args(src, tmp, pre)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "diffusion_torch.scripts.precompute_latents",
+         *args], cwd=_ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    tail = "\n".join(proc.stdout.strip().splitlines()[-3:])
+    _check(proc.returncode == 0, f"the precompute job failed "
+           f"({proc.returncode}): {proc.stderr[-3000:]}")
+    m = re.search(r"rank 0: wrote (\d+) samples to (\S+) in ([\d.]+) s "
+                  r"\(([\d.]+) images/s, (\w+) towers, (\d+) GroupNorm "
+                  r"kernel launches\)", proc.stdout)
+    _check(m is not None, f"no summary line from the precompute job: {tail}")
+    out = {"samples": int(m.group(1)), "out": m.group(2),
+           "loop_s": float(m.group(3)), "images_per_s": float(m.group(4)),
+           "towers": m.group(5), "group_norm": int(m.group(6)),
+           "wall_s": wall}
+    out["bytes"] = _dir_bytes(out["out"])
+    cache = os.path.join(tmp, "cache")
+    left = [f for f in os.listdir(cache) if f.endswith(".mds")] \
+        if os.path.isdir(cache) else []
+    print(f"recipe: python -m diffusion_torch.scripts.precompute_latents "
+          f"{' '.join(args)}: {out['samples']} samples at 256 and 512 px in "
+          f"{wall:.2f} s of process wall time ({out['samples'] / wall:.2f} "
+          f"images/s, start-up and the model's build included); the "
+          f"encode loop {out['loop_s']:.2f} s ({out['images_per_s']:.2f} "
+          f"images/s, decode, crops, encode and writes); {out['towers']} "
+          f"towers; {out['group_norm']} GroupNorm kernel launches; output "
+          f"{out['bytes'] / 1e6:.2f} MB of MDS shards; cached input shards "
+          f"left {len(left)} [{card}]")
+    _check(out["samples"] == RECIPE_RAW and out["towers"] == "loaded"
+           and out["group_norm"] > 0 and not left,
+           f"the precompute job's summary is off: {out}, {left} left")
+    return out
+
+
+def _recipe_encode_check(src: dict, job: dict, pre: str, card: str) -> None:
+    """The job's encode in this process: its time per size (CUDA events,
+    batch 32) and GroupNorm launches per encode; then two written samples'
+    `latents_256` and `caption_latents` against an fp32 CPU encode of the
+    same weights with the job's eps."""
+    import copy
+    import types
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffusion_torch.data.streaming import StreamingDataset
+    from diffusion_torch.data.transforms import (LargestCenterSquare,
+                                                 sd_normalize)
+    from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.ops import groupnorm as gn
+    from diffusion_torch.scripts.precompute_latents import (encode_batch,
+                                                            load_towers,
+                                                            posterior_eps)
+
+    model = stable_diffusion_2(model_name=pre, init_frozen_towers=True,
+                               device=DEVICE)
+    _check(load_towers(model, pre), "the towers did not load")
+    towers = types.SimpleNamespace(vae=model.vae,
+                                   text_encoder=model.text_encoder,
+                                   latent_scale=model.latent_scale)
+    tokenizer = model.tokenizer
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    source = StreamingDataset(remote=src["raw"], shuffle=False)
+    raws = [source.get_sample(i) for i in range(RECIPE_JOB_BATCH)]
+    pils = [Image.open(io.BytesIO(r["jpg"])).convert("RGB") for r in raws]
+    images = {s: torch.from_numpy(np.stack(
+        [sd_normalize(LargestCenterSquare(s)(p)) for p in pils]))
+        for s in (256, 512)}
+    ids = torch.from_numpy(np.asarray(tokenizer(
+        [r["caption"] for r in raws])["input_ids"]))
+    eps = posterior_eps(0, 0, RECIPE_JOB_BATCH, (256, 512))
+    gpu = {s: x.to(DEVICE) for s, x in images.items()}
+    before = gn.launches.value
+    encode_batch(towers, gpu, ids, eps)
+    torch.cuda.synchronize()
+    per_encode = gn.launches.value - before
+    times = {s: _time_ms(lambda s=s: encode_batch(
+        towers, {s: gpu[s]}, ids, {s: eps[s]}), iters=5, warmup=2)
+        for s in (256, 512)}
+    text_ms = _time_ms(lambda: encode_batch(towers, {}, ids, {}),
+                       iters=5, warmup=2)
+    print(f"recipe: the job's encode_batch at batch {RECIPE_JOB_BATCH}: "
+          f"VAE 256px + CLIP text {times[256]:.2f} ms "
+          f"({RECIPE_JOB_BATCH / times[256] * 1e3:.1f} images/s), VAE 512px"
+          f" + CLIP text {times[512]:.2f} ms ({RECIPE_JOB_BATCH / times[512] * 1e3:.1f}"
+          f" images/s), CLIP text alone {text_ms:.2f} ms; "
+          f"{per_encode} GroupNorm wrapper calls per two-size encode "
+          f"(22 a size) [{card}]")
+    _check(per_encode == 44, f"GroupNorm calls per encode {per_encode}")
+    # two written samples against an fp32 CPU encode of the same weights
+    cpu = types.SimpleNamespace(
+        vae=copy.deepcopy(towers.vae).to("cpu"),
+        text_encoder=copy.deepcopy(towers.text_encoder).to("cpu"),
+        latent_scale=towers.latent_scale)
+    cpu.vae.dtype = cpu.text_encoder.dtype = torch.float32
+    want = encode_batch(cpu, {256: images[256][:2]}, ids[:2],
+                        {256: eps[256][:2]}, dtype=torch.float32)
+    written = StreamingDataset(remote=job["out"], shuffle=False)
+    for i in range(2):
+        row = written.get_sample(i)
+        _check(row["jpg"] == raws[i]["jpg"] and
+               row["caption"] == raws[i]["caption"],
+               f"sample {i} of the output is not the source's")
+        for key, shape, ref in (
+                ("latents_256", (4, 32, 32),
+                 want["latents_256"][i].permute(2, 0, 1)),
+                ("caption_latents", (77, 1024), want["caption_latents"][i])):
+            got = torch.from_numpy(np.frombuffer(
+                row[key], np.float16).reshape(shape).copy())
+            err = _rel_l2(got, ref)
+            finite = bool(torch.isfinite(got).all())
+            print(f"recipe: sample {i} {key} {shape} written fp16 (bf16 "
+                  f"encode on the card) vs fp32 on the CPU, same weights and"
+                  f" eps: relative L2 error {err:.3e} (bound 5e-2), finite "
+                  f"{finite} [{card}]")
+            _check(finite and err <= 5e-2,
+                   f"sample {i} {key} disagrees with the CPU encode")
+    del towers, cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _recipe_run(card: str, label: str, yaml_name: str, overrides: list,
+                flash_shapes: list):
+    """One composed run of phase 15 with the launch counters set to 0
+    right before it; returns (trainer, record, launches, peak GiB, wall s,
+    metrics records, the weights-only load's seconds)."""
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.train import checkpoint as ckpt
+    from diffusion_torch.train.train import train
+
+    config = load_config(os.path.join(_ROOT, "yamls", yaml_name), overrides)
+    print(f"recipe {label}: yamls/{yaml_name} with {len(overrides)} dotted "
+          f"overrides: {' '.join(overrides)}")
+    loads = []
+    real_load = ckpt.load_checkpoint
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_load(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    del flash_shapes[:]
+    torch.cuda.reset_peak_memory_stats()
+    ckpt.load_checkpoint = timed_load
+    try:
+        t0 = time.perf_counter()
+        trainer = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ckpt.load_checkpoint = real_load
+    launches = {name: c.value for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics_file = config["logger"]["file"]["filename"]
+    with open(metrics_file) as f:
+        records = [json.loads(line) for line in f]
+    record = next(c for c in trainer.engine.callbacks
+                  if isinstance(c, ComposedRecord))
+    for i, (m, _, lr, own) in enumerate(record.steps):
+        print(f"recipe {label}: step {i}: loss {m['loss/train/total']:.6f}, "
+              f"grad norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
+              f"{own * 1e3:.1f} ms to the step's metrics [{card}]")
+    _check(all(math.isfinite(v) for m, *_ in record.steps
+               for v in m.values()),
+           f"recipe {label}: a loss or grad norm is not finite")
+    return trainer, record, launches, peak, wall, records, loads
+
+
+def _recipe_phase(card: str) -> dict:
+    """Phase 15: the main recipe end to end (see the module docstring);
+    returns the five kernels' launches in the phase, the precompute job's
+    GroupNorm launches (counted by its own process) included."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_torch.ops import attention as attn_mod
+
+    t_phase = time.perf_counter()
+    build = os.path.join(_ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    sizes = _sd2_sizes()
+    disk = _checkpoint_disk_need(*sizes)
+    need = disk["checkpoint"] + disk["pretrained"] + disk["shards"]
+    free = _check_disk(build, need)
+    print(f"recipe: disk: {free / 1e9:.2f} GB free under build/; the phase "
+          f"needs {need / 1e9:.2f} GB (one checkpoint of "
+          f"{disk['checkpoint'] / 1e9:.2f} GB, the fp16 pretrained "
+          f"directory, shards) [{card}]")
+    flash_shapes = []
+    real_flash = attn_mod.flash_attention
+
+    def flash_spy(q, k, v):
+        flash_shapes.append((tuple(q.shape), tuple(k.shape)))
+        return real_flash(q, k, v)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_",
+                                     dir=build) as tmp:
+        pre = os.path.join(tmp, "sd2_fp16")
+        _write_pretrained_dir(pre, card, "recipe")
+        t0 = time.perf_counter()
+        src = _write_recipe_sources(tmp, np.random.default_rng(15))
+        print(f"recipe: wrote {RECIPE_RAW} raw JPEG + caption samples "
+              f"(short sides >= 512; {src['raw_bytes'] / 1e6:.1f} MB of MDS "
+              f"shards) and {RECIPE_COCO} COCO JPEGs with their captions "
+              f"json ({src['coco_bytes'] / 1e6:.1f} MB) in "
+              f"{time.perf_counter() - t0:.1f} s on the host [{card}]")
+        coco = os.path.join(tmp, "coco")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "diffusion_torch.scripts.convert_coco",
+             "--annotations", src["annotations"], "--image-dir",
+             src["images"], "--out", coco, "--num-samples", str(RECIPE_COCO)],
+            cwd=_ROOT, capture_output=True, text=True, timeout=300)
+        _check(proc.returncode == 0 and
+               f"wrote {RECIPE_COCO} samples" in proc.stdout,
+               f"convert_coco failed: {proc.stdout[-500:]} "
+               f"{proc.stderr[-2000:]}")
+        print(f"recipe: python -m diffusion_torch.scripts.convert_coco: "
+              f"{proc.stdout.strip()} in {time.perf_counter() - t0:.2f} s "
+              f"({_dir_bytes(coco) / 1e6:.2f} MB) [{card}]")
+        job = _recipe_job(src, tmp, pre, card)
+        _recipe_encode_check(src, job, pre, card)
+
+        # phase 1 at 256px on the job's shards, saved after its last batch
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        trainer, record, launches1, peak1, wall1, _, _ = _recipe_run(
+            card, "phase 1", "SD-2-base-256.yaml", _recipe_overrides(
+                1, job["out"], ckpt_dir, coco,
+                os.path.join(tmp, "p1.jsonl")), flash_shapes)
+        ba = os.path.join(ckpt_dir, f"ba{RECIPE_P1_STEPS}")
+        _check(len(record.steps) == RECIPE_P1_STEPS
+               and os.path.exists(os.path.join(ba, "meta.json")),
+               f"phase 1 did not take {RECIPE_P1_STEPS} batches and save "
+               f"{ba}")
+        steps1 = [m for m, *_ in record.steps]
+        print(f"recipe phase 1: {RECIPE_P1_STEPS} batches of {TRAIN_BATCH} "
+              f"at 256px on the job's latents in {wall1:.2f} s (build and "
+              f"the save included), peak {peak1:.2f} GiB; checkpoint "
+              f"{_dir_bytes(ba) / 1e9:.2f} GB at {ba} [{card}]")
+        del trainer, record
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 2 at 512px, warm-started from phase 1's checkpoint
+        attn_mod.flash_attention = flash_spy
+        try:
+            trainer, record, launches2, peak2, wall2, records, loads = \
+                _recipe_run(card, "phase 2", "SD-2-base-512.yaml",
+                            _recipe_overrides(2, job["out"], ckpt_dir, coco,
+                                              os.path.join(tmp, "p2.jsonl")),
+                            flash_shapes)
+        finally:
+            attn_mod.flash_attention = real_flash
+        model = trainer.model
+        _check(model.vae is not None and trainer.max_batches ==
+               RECIPE_P2_STEPS and trainer.micro_size == 8
+               and trainer.state.ema_start_batch == 800000
+               and trainer.train_dataloader.dataset.image_size == 512,
+               "phase 2 did not compose as the 512 yaml says")
+        warm = record.warm
+        print(f"recipe phase 2: warm start from {ba}: weights-only load "
+              f"{', '.join(f'{s:.2f}' for s in loads)} s; before step 1 the "
+              f"UNet equals the saved parameters bit for bit "
+              f"{warm.get('params_equal_saved')}, optimizer count "
+              f"{warm.get('count')} with zero moments "
+              f"{warm.get('moments_zero')}, batch {warm.get('batch')}, step "
+              f"{warm.get('step')}, EMA equal to the loaded weights "
+              f"{warm.get('ema_equal_params')}; phase 1's last loss "
+              f"{steps1[-1]['loss/train/total']:.6f} [{card}]")
+        _check(len(loads) == 1 and warm.get("params_equal_saved")
+               and warm.get("count") == 0 and warm.get("moments_zero")
+               and warm.get("batch") == 0 and warm.get("step") == 0
+               and warm.get("ema_equal_params"),
+               f"the warm start is off: {warm}, loads {loads}")
+        _check(len(record.steps) == RECIPE_P2_STEPS
+               and all(record.ema_tracks),
+               f"phase 2 steps {len(record.steps)}, the EMA tracking the "
+               f"weights before ema_start: {record.ema_tracks}")
+        times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+        train_times = [t for i, t in enumerate(times)
+                       if i + 1 != RECIPE_P2_EVAL_AT]
+        step_s = sum(train_times) / len(train_times)
+        wait_s = sum(record.waits[1:]) / len(record.waits[1:])
+        evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
+        _check(len(evals) == 1 and len(record.evals) == 1
+               and evals[0]["step"] == RECIPE_P2_EVAL_AT,
+               f"expected one eval after batch {RECIPE_P2_EVAL_AT}: {evals}")
+        mse = evals[0]["metrics/eval/MeanSquaredError"]
+        _, eval_s, eval_launches = record.evals[0]
+        fit = {k: launches2[k] - eval_launches[k] for k in launches2}
+        top = sorted({q for q, _ in flash_shapes if q[1] == 4096})
+        print(f"recipe phase 2: SD-2-base 512px, global batch "
+              f"{RECIPE_P2_BATCH} in microbatches of {trainer.micro_size}: "
+              f"run {wall2:.2f} s (build and load included); step time "
+              f"after the first {step_s * 1e3:.1f} ms (steps: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms, the one "
+              f"after the eval left out), {RECIPE_P2_BATCH / step_s:.2f} "
+              f"samples/s; dataloader wait {wait_s * 1e3:.1f} ms a step "
+              f"after the first; peak device memory {peak2:.2f} GiB; eval "
+              f"after batch {RECIPE_P2_EVAL_AT} on COCO at 512px "
+              f"({RECIPE_COCO // RECIPE_P2_EVAL_BATCH} batches of "
+              f"{RECIPE_P2_EVAL_BATCH}): MSE {mse:.6f} in {eval_s:.2f} s; "
+              f"flash query shapes at S = 4096 {top} [{card}]")
+        _check(math.isfinite(mse), "phase 2's eval MSE is not finite")
+        _check((trainer.micro_size, 4096, 5, 64) in top,
+               f"no flash call at ({trainer.micro_size}, 4096, 5, 64): {top}")
+        print(f"recipe phase 2: kernel launches during the fit "
+              f"{json.dumps(fit)} (per step " + json.dumps(
+                  {k: v / RECIPE_P2_STEPS for k, v in fit.items()})
+              + f"); during the eval {json.dumps(eval_launches)} [{card}]")
+        for name in fit:
+            _check(fit[name] > 0, f"{name} kernel was not launched during "
+                   f"phase 2's fit")
+            _check(launches1[name] > 0, f"{name} kernel was not launched "
+                   f"during phase 1's fit")
+        del trainer, record, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {k: launches1[k] + launches2[k] for k in launches1}
+    total["group_norm"] += job["group_norm"]
+    print(f"recipe: phase {time.perf_counter() - t_phase:.1f} s; kernel "
+          f"launches {json.dumps(total)} (the job's "
+          f"{job['group_norm']} GroupNorm launches counted in its own "
+          f"process) [{card}]")
+    return total
+
+
 _CATEGORIES = (   # kernel-name patterns, first match wins
     # this tree's gn_fwd_kernel / gn_bwd_kernel, and the parent's kernels
     ("GroupNorm kernels", ("gn_fwd", "gn_bwd", "gn_partial", "gn_merge",
@@ -3543,6 +4057,10 @@ def main(argv=None) -> int:
     pixel_launches = _pixel_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
+    # 15. the main recipe: precompute, phase 1, phase 2 warm-started
+    recipe_launches = _recipe_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
@@ -3574,7 +4092,7 @@ def main(argv=None) -> int:
                          + online_launches[name]
                          + checkpoint_launches[name]
                          + lora_launches[name] + reader_launches[name]
-                         + pixel_launches[name]),
+                         + pixel_launches[name] + recipe_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -8,7 +8,10 @@ and the batch's caption ids into CLIPScore).
 
 `Trainer.eval` calls `eval_batch` for every eval batch and `eval_end` once
 per evaluator, which computes and resets. The towers come from
-`metrics/towers.py` on the model's device, each built once. The initial
+`metrics/towers.py` on the model's device, each loaded once per hook (one
+InceptionV3 for FID and IS) and held only by the hook's metrics, as the
+JAX hook holds its tower functions: `close()` (which `Trainer.close`
+calls) or dropping the hook frees them. The initial
 noise of a batch is `latents_fn(batch_index, shape)` where given (the
 tests hand it the JAX package's draws: JAX draws
 `normal(key(val_seed), shape)` for every batch, and threefry is not
@@ -55,10 +58,13 @@ class GenerationMetricsHook:
         kw = dict(allow_random_weights=allow_random_weights,
                   device=model.device)
         feature_fn = logits_fn = embed_fn = None
-        if "FrechetInceptionDistance" in want:
-            feature_fn = towers.inception_feature_fn(inception_weights, **kw)
-        if "InceptionScore" in want:
-            logits_fn = towers.inception_logits_fn(inception_weights, **kw)
+        if want & {"FrechetInceptionDistance", "InceptionScore"}:
+            # one InceptionV3 for the features and the logits
+            inception = towers.inception_tower(inception_weights, **kw)
+            if "FrechetInceptionDistance" in want:
+                feature_fn = towers.inception_feature_fn(tower=inception)
+            if "InceptionScore" in want:
+                logits_fn = towers.inception_logits_fn(tower=inception)
         if "CLIPScore" in want:
             embed_fn = towers.clip_embed_fn(clip_weights, **kw)
         self.metrics: Dict[float, Dict[str, Any]] = {}
@@ -103,6 +109,11 @@ class GenerationMetricsHook:
                 copies["InceptionScore"].update(fake)
             if "CLIPScore" in copies:
                 copies["CLIPScore"].update(fake, captions)
+
+    def close(self) -> None:
+        """Drop the metrics and, with them, the towers: nothing of the
+        hook keeps a tower after this."""
+        self.metrics = {}
 
     def eval_end(self, trainer, evaluator, state) -> Dict[str, float]:
         out: Dict[str, float] = {}

@@ -15,9 +15,13 @@ towers are noise. `allow_random_weights=True` (or
 shapes and the path, not the values; the random weights are drawn as
 flax's defaults would, from seed 0.
 
-Each tower is built once per process for a (weights, device) pair and
-shared by every function that needs it (the features and the logits of one
-InceptionV3; every guidance scale). The functions run under
+No tower is cached for the process: `inception_tower` and `clip_tower`
+build one each call, and it lives as long as something holds it, as in
+the JAX package. The generation-metric hook loads each tower once and
+hands it to every function that needs it (the features and the logits of
+one InceptionV3 through `tower=`; every guidance scale), and dropping the
+hook frees them. Each function keeps its tower as `fn.tower`. The functions
+run under
 `torch.inference_mode()` on the tower's device (CUDA unless the caller
 asks for the CPU; it raises where CUDA is missing) and return host numpy
 float32 arrays: the metrics accumulate on the host in float64. Each forward
@@ -29,7 +33,6 @@ full fp32 on the card as on the CPU.
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
 import tempfile
 from typing import Callable, Optional
@@ -96,10 +99,9 @@ def _refuse(tower: str, env_var: str):
         f"tests that exercise shapes, not values.")
 
 
-@functools.lru_cache(maxsize=None)
 def _tower(kind: str, path: Optional[str], device: torch.device):
-    """The tower, fp32, in eval mode, without gradients: from `path`, or
-    random (seed 0) when `path` is None. Cached per process."""
+    """A new tower, fp32, in eval mode, without gradients: from `path`, or
+    random (seed 0) when `path` is None."""
     with torch.device(device):
         model = InceptionV3() if kind == "inception" else CLIPModel(
             VIT_L14_TEXT_CONFIG, VIT_L14_VISION_CONFIG)
@@ -160,9 +162,13 @@ def _images(images, device: torch.device) -> torch.Tensor:
 
 def inception_feature_fn(weights_path: Optional[str] = None,
                          allow_random_weights: bool = False,
-                         device: Device = None) -> Callable:
-    """[0, 1] NHWC images of any size -> (B, 2048) features."""
-    model = inception_tower(weights_path, allow_random_weights, device)
+                         device: Device = None,
+                         tower: Optional[torch.nn.Module] = None
+                         ) -> Callable:
+    """[0, 1] NHWC images of any size -> (B, 2048) features, from `tower`
+    where given, else from an InceptionV3 loaded here."""
+    model = tower if tower is not None else inception_tower(
+        weights_path, allow_random_weights, device)
     dev = model.fc.weight.device
 
     @torch.inference_mode()
@@ -170,14 +176,19 @@ def inception_feature_fn(weights_path: Optional[str] = None,
     def fn(images) -> np.ndarray:
         return model(preprocess_images(_images(images, dev))).cpu().numpy()
 
+    fn.tower = model
     return fn
 
 
 def inception_logits_fn(weights_path: Optional[str] = None,
                         allow_random_weights: bool = False,
-                        device: Device = None) -> Callable:
-    """[0, 1] NHWC images of any size -> (B, 1008) logits."""
-    model = inception_tower(weights_path, allow_random_weights, device)
+                        device: Device = None,
+                        tower: Optional[torch.nn.Module] = None
+                        ) -> Callable:
+    """[0, 1] NHWC images of any size -> (B, 1008) logits, from `tower`
+    where given, else from an InceptionV3 loaded here."""
+    model = tower if tower is not None else inception_tower(
+        weights_path, allow_random_weights, device)
     dev = model.fc.weight.device
 
     @torch.inference_mode()
@@ -186,6 +197,7 @@ def inception_logits_fn(weights_path: Optional[str] = None,
         return model(preprocess_images(_images(images, dev)),
                      return_logits=True).cpu().numpy()
 
+    fn.tower = model
     return fn
 
 
@@ -216,4 +228,5 @@ def clip_embed_fn(weights_path: Optional[str] = None,
                          pixels)
         return img.cpu().numpy(), txt.cpu().numpy()
 
+    fn.tower = model
     return fn

@@ -44,6 +44,7 @@ generates one image batch per scale for every eval batch
 (`eval_num_inference_steps` steps, at `image_size`) and adds
 `metrics/<label>/<Metric>-scale-<g>` to `eval()`'s results. An evaluator
 whose metric names name none of the hook's pays for no sampling pass.
+`close()` drops the hooks, and with them the metric towers.
 
 Checkpoints (`train/checkpoint.py`), as the JAX Trainer writes them:
 with `save_folder`, every `save_interval` batches and at the end of `fit`,
@@ -622,6 +623,10 @@ class Trainer:
     def close(self) -> None:
         self._finish_checkpoints()
         self.logger.close()
+        # the generation metrics' towers go with their hooks
+        for hook in self.metric_hooks:
+            hook.close()
+        self.metric_hooks = []
         # persistent-worker loaders keep a process or thread pool alive
         for loader in [self.train_dataloader] + [
                 e.dataloader for e in self.evaluators]:

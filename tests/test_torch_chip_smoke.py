@@ -342,3 +342,82 @@ def test_pixel_phase_constants():
                           (8, s, 5, 64), False)
     assert not flash_eligible("cuda", torch.bfloat16, (8, s, 5, 64),
                               (8, 77, 5, 64), False)
+
+
+def test_recipe_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 15 at the tiny geometry on the CPU: the sources it writes, the
+    precompute job over them with phase 15's arguments (the tiny towers
+    saved as a diffusers directory), convert_coco, then the unedited
+    256 and 512 yamls with phase 15's overrides (cut to batches of 4):
+    phase 1 saves ba3, phase 2 warm-starts from it, and RecipeRecord sees
+    the saved weights, a fresh optimizer and clock, and the EMA copying the
+    weights."""
+    import numpy as np
+
+    from diffusion_torch.models import models as tmodels
+    from diffusion_torch.scripts import convert_coco, precompute_latents
+    from diffusion_torch.train.train import train
+    from diffusion_torch.utils import safetensors
+
+    # the records synchronise the card around an eval; here there is none
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "RECIPE_RAW", 12)
+    monkeypatch.setattr(chip_smoke, "RECIPE_COCO", 8)
+    monkeypatch.setattr(tmodels, "stable_diffusion_2",
+                        tmodels.stable_diffusion_tiny)
+    tmp = str(tmp_path)
+    src = chip_smoke._write_recipe_sources(tmp, np.random.default_rng(0))
+    pre = tmp_path / "pre"
+    towers = tmodels.stable_diffusion_tiny(device="cpu",
+                                           init_frozen_towers=True, seed=3)
+    for name, fname in (("vae", "diffusion_pytorch_model.safetensors"),
+                        ("text_encoder", "model.safetensors")):
+        os.makedirs(pre / name)
+        safetensors.save_file(getattr(towers, name).state_dict(),
+                              str(pre / name / fname))
+    args = chip_smoke._precompute_args(src, tmp, str(pre))
+    assert args[args.index("--sizes") + 1:][:2] == ["256", "512"]
+    job = precompute_latents.main(args + ["--device", "cpu"])
+    assert job["samples"] == 12 and job["towers"] == "loaded"
+    assert not [f for f in os.listdir(tmp_path / "cache")
+                if f.endswith(".mds")]
+    coco = str(tmp_path / "coco")
+    assert convert_coco.main(["--annotations", src["annotations"],
+                              "--image-dir", src["images"], "--out", coco,
+                              "--num-samples", "8"]) == 8
+    cut = _TINY + ["batch_size=4", "trainer.device_train_microbatch_size=2",
+                   "dataset.train_dataset.num_workers=0",
+                   "+dataset.train_dataset.caption_latent_dim=32"]
+    from diffusion_torch.config import load_config
+    ckpt_dir = str(tmp_path / "ckpt")
+    configs = {}
+    for phase, yaml in ((1, "SD-2-base-256.yaml"), (2, "SD-2-base-512.yaml")):
+        overrides = chip_smoke._recipe_overrides(
+            phase, job["out"], ckpt_dir, coco, str(tmp_path / f"{phase}.jsonl"))
+        full = load_config(os.path.join(chip_smoke._ROOT, "yamls", yaml),
+                           overrides)
+        configs[phase] = full
+        extra = [] if phase == 1 else ["dataset.eval_dataset.num_workers=0"]
+        tr = train(load_config(os.path.join(chip_smoke._ROOT, "yamls", yaml),
+                               overrides + cut + extra))
+        record = next(c for c in tr.engine.callbacks
+                      if isinstance(c, chip_smoke.ComposedRecord))
+        assert all(np.isfinite(v) for m, *_ in record.steps
+                   for v in m.values())
+        if phase == 1:
+            assert len(record.steps) == 3
+            assert os.path.exists(os.path.join(ckpt_dir, "ba3", "meta.json"))
+    assert configs[1]["batch_size"] == 32 and "eval_dataset" not in \
+        configs[1]["dataset"]
+    assert configs[2]["batch_size"] == 16
+    assert configs[2]["trainer"]["device_train_microbatch_size"] == 8
+    assert configs[2]["trainer"]["load_weights_only"] is True
+    assert configs[2]["model"]["init_frozen_towers"] is True
+    assert configs[2]["dataset"]["eval_batch_size"] == 8
+    assert isinstance(record, chip_smoke.RecipeRecord)
+    assert record.warm == {"params_equal_saved": True, "count": 0,
+                           "moments_zero": True, "batch": 0, "step": 0,
+                           "ema_equal_params": True}
+    assert len(record.steps) == 4 and record.ema_tracks == [True] * 4
+    assert len(record.evals) == 1 and record.evals[0][0] == 2
+    assert tr.train_dataloader.dataset.image_size == 512

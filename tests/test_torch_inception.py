@@ -141,9 +141,11 @@ def test_tower_fns_load_the_npz(variables, images, tmp_path, monkeypatch):
     np.savez(npz, **flat)
     monkeypatch.setenv("DIFFUSION_TPU_INCEPTION_WEIGHTS", str(npz))
     feats = towers.inception_feature_fn(device="cpu")
-    logits = towers.inception_logits_fn(device="cpu")
-    assert towers.inception_tower(device="cpu") is towers.inception_tower(
-        device="cpu")
+    logits = towers.inception_logits_fn(device="cpu", tower=feats.tower)
+    # one module shared by hand (`tower=`), as the hook shares it; no
+    # tower is cached for the process
+    assert logits.tower is feats.tower
+    assert towers.inception_tower(device="cpu") is not feats.tower
     f = feats(images[256])
     lg = logits(torch.from_numpy(images[256]))
     assert f.dtype == np.float32 and f.shape == (2, 2048)

@@ -571,3 +571,61 @@ def test_metric_towers_on_card_match_cpu(cuda, tower):
         g = g.float().cpu()
         assert torch.isfinite(g).all()
         assert float((g - w).norm() / w.norm()) <= 1e-3
+
+
+def test_metric_towers_release_card_memory(cuda, tmp_path):
+    """Port fault 13 on the card: the full-width InceptionV3 and CLIP
+    ViT-L/14 (random, fp32, about 1.8 GB) of a Trainer's generation-metric
+    hook, and of the offline eval job, are freed once the Trainer is
+    closed and once the job returns: `memory_allocated` comes back within
+    64 MiB of its value before."""
+    import gc
+    import io
+
+    from PIL import Image
+
+    from diffusion_torch.data.coco import build_streaming_cocoval_dataloader
+    from diffusion_torch.data.mds import MDSWriter
+    from diffusion_torch.models.models import stable_diffusion_tiny
+    from diffusion_torch.scripts import fid_clip_evaluation
+    from diffusion_torch.train.trainer import Evaluator, Trainer
+
+    coco = str(tmp_path / "coco")
+    rng = np.random.default_rng(0)
+    with MDSWriter(coco, {"image": "bytes", "captions": "json"}) as w:
+        for i in range(4):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 255, (40, 48, 3), np.uint8)).save(
+                buf, format="JPEG")
+            w.write({"image": buf.getvalue(), "captions": [f"photo {i}"]})
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(cuda)
+
+    before = allocated()
+    model = stable_diffusion_tiny(
+        device=cuda, val_guidance_scales=[3.0], allow_random_tower_weights=True,
+        val_metrics=["FrechetInceptionDistance", "InceptionScore",
+                     "CLIPScore"])
+    loader = build_streaming_cocoval_dataloader(remote=coco, batch_size=4,
+                                                resize_size=32, num_workers=0)
+    trainer = Trainer(model=model, device=cuda, image_size=32,
+                      max_duration="1ba",
+                      eval_dataloader=[Evaluator("coco-val", loader,
+                                                 model.val_metric_names)])
+    with_towers = allocated()
+    assert with_towers - before > 1 << 30          # the two fp32 towers
+    trainer.close()
+    del model, loader
+    assert abs(allocated() - before) <= 64 << 20, "towers kept after close"
+    del trainer
+    before = allocated()
+    fid_clip_evaluation.main([
+        "--remote", coco, "--allow_random_towers", "--size", "32",
+        "--batch_size", "4", "--num_inference_steps", "2",
+        "--subset_num_batches", "1", "--builder",
+        "diffusion_torch.models.models.stable_diffusion_tiny",
+        "--out", str(tmp_path / "eval.jsonl")])
+    assert abs(allocated() - before) <= 64 << 20, "towers kept after the job"

@@ -125,9 +125,7 @@ def test_hook_refuses_random_towers(monkeypatch):
     # one InceptionV3 serves the features and the logits of every scale
     fid = hook.metrics[1.0]["FrechetInceptionDistance"].feature_fn
     assert fid is hook.metrics[3.0]["FrechetInceptionDistance"].feature_fn
-    from diffusion_torch.metrics import towers
-    assert towers.inception_tower(allow_random_weights=True, device="cpu") \
-        is towers.inception_tower(allow_random_weights=True, device="cpu")
+    assert fid.tower is hook.metrics[3.0]["InceptionScore"].logits_fn.tower
 
 
 def test_hook_drops_padded_rows():

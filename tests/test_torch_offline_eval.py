@@ -280,3 +280,74 @@ def test_scripts_need_cuda_unless_asked(monkeypatch, coco_mds):
         tfid.main(["--remote", coco_mds, "--allow_random_towers",
                    "--builder",
                    "diffusion_torch.models.models.stable_diffusion_tiny"])
+
+
+@pytest.fixture
+def tower_refs(monkeypatch):
+    """Weak references to every metric tower `metrics/towers.py` builds,
+    by kind, in build order."""
+    import weakref
+
+    refs = {"inception": [], "clip": []}
+    real = ttowers._tower
+
+    def spy(kind, path, device):
+        tower = real(kind, path, device)
+        refs[kind].append(weakref.ref(tower))
+        return tower
+    monkeypatch.setattr(ttowers, "_tower", spy)
+    return refs
+
+
+def _alive(refs):
+    import gc
+    gc.collect()
+    return {k: sum(r() is not None for r in v) for k, v in refs.items()}
+
+
+def test_eval_job_frees_its_towers(small_clip, coco_mds, tmp_path,
+                                   tower_refs):
+    """Port fault 13: once `fid_clip_evaluation.main` returns, no metric
+    tower is referenced (they were cached for the process); the job loaded
+    each tower once."""
+    from diffusion_torch.scripts import fid_clip_evaluation as tfid
+
+    got = tfid.main([
+        "--remote", coco_mds, "--allow_random_towers", "--size", str(SIZE),
+        "--batch_size", str(BATCH), "--num_inference_steps", str(STEPS),
+        "--subset_num_batches", "1", "--guidance_scale", "3.0",
+        "--builder", "diffusion_torch.models.models.stable_diffusion_tiny",
+        "--device", "cpu", "--out", str(tmp_path / "port.jsonl")])
+    assert math.isfinite(got["metrics/coco-val/CLIPScore-scale-3p0"])
+    assert {k: len(v) for k, v in tower_refs.items()} == {"inception": 1,
+                                                           "clip": 1}
+    assert _alive(tower_refs) == {"inception": 0, "clip": 0}
+
+
+def test_trainer_close_frees_the_hooks_towers(small_clip, coco_mds,
+                                              tower_refs):
+    """Port fault 13: a Trainer whose model scores FID, IS and CLIPScore
+    loads one InceptionV3 (features and logits) and one CLIP for its hook;
+    after `close()` neither is referenced, though the Trainer still is."""
+    from diffusion_torch.train.trainer import Evaluator, Trainer
+
+    model = stable_diffusion_tiny(
+        device="cpu", val_metrics=list(NAMES), val_guidance_scales=[3.0],
+        allow_random_tower_weights=True)
+    loader = tcoco.build_streaming_cocoval_dataloader(
+        remote=coco_mds, batch_size=BATCH, resize_size=SIZE, num_workers=0)
+    trainer = Trainer(model=model, device="cpu", image_size=SIZE,
+                      max_duration="1ba", eval_num_inference_steps=STEPS,
+                      eval_dataloader=[Evaluator("coco-val", loader,
+                                                 model.val_metric_names)])
+    hook, = trainer.metric_hooks
+    copies = hook.metrics[3.0]
+    assert copies["FrechetInceptionDistance"].feature_fn.tower is \
+        copies["InceptionScore"].logits_fn.tower
+    del hook, copies
+    assert _alive(tower_refs) == {"inception": 1, "clip": 1}
+    trainer.close()
+    assert trainer.metric_hooks == []
+    assert {k: len(v) for k, v in tower_refs.items()} == {"inception": 1,
+                                                           "clip": 1}
+    assert _alive(tower_refs) == {"inception": 0, "clip": 0}

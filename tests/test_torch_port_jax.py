@@ -69,7 +69,8 @@ def test_clip_text_round_trip():
 
 def test_port_imports_no_jax():
     """Every diffusion_torch module, the training slice's, the composed
-    run's and the generation eval's included, imports without pulling in
+    run's, the generation eval's and the data scripts' included, imports
+    without pulling in
     jax/flax/optax, any module of the JAX package, or the safetensors and
     msgpack packages (the card's machine has neither: the port reads both
     formats itself)."""
@@ -106,5 +107,6 @@ def test_port_imports_no_jax():
         "callbacks.log_diffusion_images", "scripts.fid_clip_evaluation",
         "scripts.coco_eval", "models.lora", "models.pixel_diffusion",
         "schedulers.continuous", "data.pexels", "data.mix",
-        "utils.profiler")} <= seen
+        "utils.profiler", "scripts.precompute_latents",
+        "scripts.convert_coco", "scripts.laion_cloudwriter")} <= seen
     assert len(seen) >= 60                          # every module was seen

@@ -129,6 +129,31 @@ def test_raw_batch_without_towers_raises_jax_error(towers):
     with pytest.raises(RuntimeError) as got:
         model.forward({k: torch.from_numpy(v) for k, v in batch.items()})
     assert str(got.value) == str(want.value)
+    # reference fault 9 in both recipe yamls: their model sections
+    # (precomputed latents, `val_guidance_scales: []`) build no towers, so
+    # their raw COCO eval batches raise the same error on both sides
+    import os
+    from diffusion_torch.config import load_config
+    for name in ("SD-2-base-256.yaml", "SD-2-base-512.yaml"):
+        section = load_config(os.path.join(os.path.dirname(__file__),
+                                           os.pardir, "yamls", name))["model"]
+        assert section["precomputed_latents"] is True, name
+        assert section["val_guidance_scales"] == [], name
+        assert "init_frozen_towers" not in section, name
+        kw = {k: section[k] for k in ("precomputed_latents",
+                                      "val_guidance_scales")}
+        jsd_y = jax_tiny(**kw)
+        params, frozen = jsd_y.init_params(jax.random.key(0), image_size=HW)
+        assert "vae" not in frozen, name
+        with pytest.raises(RuntimeError) as want_y:
+            jsd_y.forward(params, frozen, {k: jnp.asarray(v)
+                                           for k, v in batch.items()},
+                          jax.random.key(0))
+        model = stable_diffusion_tiny(device="cpu", **kw)
+        assert model.vae is None, name
+        with pytest.raises(RuntimeError) as got_y:
+            model.forward({k: torch.from_numpy(v) for k, v in batch.items()})
+        assert str(got_y.value) == str(want_y.value) == str(want.value), name
 
 
 def _coco_shards(path, n=6):
