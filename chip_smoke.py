@@ -198,7 +198,33 @@ Phases, each raising on failure (exit code 1):
      and eval MSE; all five kernels launched in both fits, a flash call
      at (8, 4096, 5, 64); step time, samples/s, data wait, peak memory,
      the weights-only load time, the eval's wall time and launches per
-     step.
+     step;
+ 16. remat and the process mesh: (a) the unedited
+     yamls/SD-2-base-1024-sp.yaml (remat on, online VAE encode) through
+     `diffusion_torch.run.main` under a one-rank NCCL process group (the
+     launch code a torchrun rank runs), with dotted overrides only
+     (`trainer.mesh_config.data=1 trainer.mesh_config.sp=1`, global batch 8
+     in the yaml's microbatches of 4, 4 batches, 64 seeded 1024px JPEG +
+     caption samples in MDS shards, the yaml's COCO eval over 8 images
+     after batch 2), then again with `model.remat=false`: per run its
+     steps, samples/s, peak memory, the flash launches at (4, 16384, 5,
+     64) and the GroupNorm launches per step, and what remat costs in time
+     and saves in memory; (b) one 256px step of the full-width UNet under
+     FSDP2 (`fully_shard` on the one-rank mesh) against the plain step:
+     the parameters after it; then, on the same one-rank NCCL group, the
+     dispatcher ops the Trainer calls under sp, `group_norm(shard=)` (its
+     stages around an NCCL all-gather of the partials) and
+     `ring_attention`, forward and backward, against the stage kernels and
+     the whole-tensor kernels; (c) ring attention's per-step body over 4
+     local shards of (2, 16384, 5, 64) bf16, forward and backward through
+     the flash kernels, against the whole-sequence kernels, and the sp
+     GroupNorm stages (SiLU) over 4 row shards of (4, 16384, 320), forward
+     and backward, against the one-call kernels and each shard's dx
+     against the plain fp32 stages (a cotangent whose per-group sums are
+     of order 1 and differ between shards; a control that feeds stage 2
+     only its own shard's sums must miss the bound), with the times beside
+     the whole-tensor calls; (d) with one card, one line saying that the
+     ranks' transport ran on the CPU (the tests) only.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -3521,6 +3547,579 @@ EVAL_BATCH, EVAL_BATCHES = 16, 2
 TOWER_BOUND = 1e-3     # relative L2, fp32 card vs fp32 CPU, TF32 off
 
 
+
+# ---------------- phase 16: remat and the process mesh ----------------
+
+SP_YAML = "SD-2-base-1024-sp.yaml"
+SP_SIZE, SP_BATCH, SP_STEPS = 1024, 8, 4     # the yaml's microbatch: 4
+SP_TRAIN, SP_EVAL, SP_EVAL_AT = 64, 8, 2
+SP_FLASH_SHAPE = (4, 16384, 5, 64)           # level 0 at 1024px, batch 4
+SP_SHARDS = 4
+
+
+class SpRecord(ComposedRecord):
+    """ComposedRecord for phase 16's runs, which `diffusion_torch.run`
+    builds (each instance is kept in `runs`), with each step's kernel
+    launches and peak memory, the device memory each training UNet
+    forward leaves held for its backward (what remat trades), and, at the
+    fit's start, the frozen VAE's encode of one microbatch (CUDA events),
+    which every rank of an sp group runs whole."""
+
+    runs: list = []
+
+    def __init__(self):
+        super().__init__()
+        self.step_launches, self.step_peaks, self.held = [], [], []
+        self._at = self._before = None
+        self.encode_ms, self.encode_launches = None, {}
+        SpRecord.runs.append(self)
+
+    def _time_encode(self, model) -> None:
+        import torch
+        gen = torch.Generator(device=model.device).manual_seed(16)
+        images = torch.rand((4, SP_SIZE, SP_SIZE, 3), generator=gen,
+                            device=model.device) * 2 - 1
+        self.encode_ms = _time_ms(lambda: model.encode_images(
+            images, generator=gen), iters=3, warmup=1)
+
+    def _pre(self, module, args) -> None:
+        import torch
+        if torch.is_grad_enabled():
+            self._before = torch.cuda.memory_allocated()
+
+    def _post(self, module, args, out) -> None:
+        import torch
+        if torch.is_grad_enabled():
+            self.held.append(torch.cuda.memory_allocated() - self._before)
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+        name = event.value
+        if name == "fit_start":
+            state.model.unet.register_forward_pre_hook(self._pre)
+            state.model.unet.register_forward_hook(self._post)
+            before = {k: c.value for k, c in _counters().items()}
+            self._time_encode(state.model)
+            # a measurement, not the run's: `_sp_run` takes them off
+            self.encode_launches = {k: c.value - before[k]
+                                    for k, c in _counters().items()}
+        elif name == "batch_start":
+            self._at = {k: c.value for k, c in _counters().items()}
+            torch.cuda.reset_peak_memory_stats()
+        elif name == "batch_end":
+            self.step_launches.append({k: c.value - self._at[k]
+                                       for k, c in _counters().items()})
+            self.step_peaks.append(torch.cuda.max_memory_allocated())
+        super().run_event(event, state, logger)
+
+
+def _sp_overrides(raw: str, coco: str, metrics_file: str,
+                  remat: bool) -> list:
+    """Phase 16's dotted overrides of yamls/SD-2-base-1024-sp.yaml: one
+    rank's mesh (fsdp inferred 1), global batch 8 (the yaml's microbatches
+    of 4), 4 batches over `raw`, the yaml's COCO eval over `coco` (8
+    images, one batch) after batch 2."""
+    out = [f"batch_size={SP_BATCH}", "trainer.mesh_config.data=1",
+           "trainer.mesh_config.sp=1", f"trainer.max_duration={SP_STEPS}ba",
+           f"trainer.eval_interval={SP_EVAL_AT}ba", "~logger",
+           f"dataset.train_dataset.remote={raw}",
+           f"dataset.train_dataset.local={raw}",
+           "dataset.train_dataset.num_workers=2",
+           f"dataset.eval_dataset.remote={coco}",
+           f"dataset.eval_dataset.local={coco}",
+           "dataset.eval_dataset.num_workers=2",
+           f"dataset.eval_batch_size={SP_EVAL}",
+           "+logger.file._target_=diffusion_tpu.utils.logging.FileLogger",
+           f"+logger.file.filename={metrics_file}",
+           f"+callbacks.chip_smoke._target_={__name__}.SpRecord"]
+    return out + ([] if remat else ["model.remat=false"])
+
+
+def _sp_run(card: str, label: str, overrides: list) -> dict:
+    """One run of the 1024-sp yaml through `diffusion_torch.run.main`, the
+    counters at 0 right before it."""
+    import torch
+
+    from diffusion_torch import run
+    from diffusion_torch.ops import flash_attention as fa
+
+    print(f"sp {label}: yamls/{SP_YAML} with {len(overrides)} dotted "
+          f"overrides: {' '.join(overrides)}")
+    shapes = []
+    real = fa.flash_attention_cuda
+
+    def spy(q, k, v):
+        shapes.append(tuple(q.shape))
+        return real(q, k, v)
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    SpRecord.runs.clear()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_cuda = spy
+    try:
+        t0 = time.perf_counter()
+        run.main(["--config-path", os.path.join(_ROOT, "yamls"),
+                  "--config-name", SP_YAML, *overrides])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fa.flash_attention_cuda = real
+    record = SpRecord.runs[-1]
+    launches = {name: c.value - record.encode_launches.get(name, 0)
+                for name, c in counters.items()}
+    # the training steps' peak (the eval's batch-8 encode is not a step's)
+    peak = max(record.step_peaks) / 2 ** 30
+    held = max(record.held) / 2 ** 30
+    _check(len(record.steps) == SP_STEPS,
+           f"sp {label}: {len(record.steps)} steps, {SP_STEPS} expected")
+    for i, (m, _, lr, own) in enumerate(record.steps):
+        print(f"sp {label}: step {i}: loss {m['loss/train/total']:.6f}, "
+              f"grad norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
+              f"{own * 1e3:.1f} ms to the step's metrics; launches "
+              f"{record.step_launches[i]} [{card}]")
+    _check(all(math.isfinite(v) for m, *_ in record.steps
+               for v in m.values()), f"sp {label}: a loss is not finite")
+    _check(len(record.evals) == 1, f"sp {label}: no eval after batch "
+                                   f"{SP_EVAL_AT}")
+    # steps after the first (warm-up: cuDNN's algorithm search)
+    step_s = sorted(own for *_, own in record.steps[1:])[
+        (SP_STEPS - 1) // 2]
+    per_step = record.step_launches[-1]
+    flash_big = shapes.count(SP_FLASH_SHAPE)
+    print(f"sp {label}: SD-2-base {SP_SIZE}px, global batch {SP_BATCH} in "
+          f"microbatches of 4: step {step_s * 1e3:.1f} ms (median after the "
+          f"first), {SP_BATCH / step_s:.2f} samples/s, a step's peak "
+          f"{peak:.2f} GiB, a microbatch's UNet forward holds {held:.2f} "
+          f"GiB for its backward, run {wall:.1f} s; eval after batch "
+          f"{record.evals[0][0]} {record.evals[0][1]:.2f} s; flash launches "
+          f"at {SP_FLASH_SHAPE}: {flash_big} in the run "
+          f"({flash_big / (SP_STEPS * 2):.1f} a training microbatch's "
+          f"forward; the eval's are at batch 8); GroupNorm launches per step "
+          f"{per_step['group_norm']} forward, {per_step['group_norm_bwd']} "
+          f"backward [{card}]")
+    print(f"sp {label}: the frozen VAE's encode of a microbatch (4 x "
+          f"{SP_SIZE}px) {record.encode_ms:.2f} ms; every rank of an sp "
+          f"group of n runs it whole (the towers are not sharded, JAX's "
+          f"shard=False), n x that a microbatch where one rank's share "
+          f"would be 1 / n [{card}]")
+    for name, n in launches.items():
+        _check(n > 0, f"sp {label}: {name} was not launched")
+    _check(flash_big > 0, f"sp {label}: no flash call at {SP_FLASH_SHAPE}")
+    return {"launches": launches, "step_s": step_s, "peak": peak,
+            "held": held, "per_step": per_step}
+
+
+def _sp_fsdp_check(card: str) -> None:
+    """(b) One 256px step (batch 4) of the full-width UNet under FSDP2 on
+    the one-rank mesh against the plain step, the AdamW over each's
+    parameters (the sharded one's local shards)."""
+    import torch
+
+    from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.parallel.mesh import create_mesh
+    from diffusion_torch.parallel.sharding import fsdp_mesh, shard_unet
+    from diffusion_torch.train.optim import adamw, build_optimizer
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    batch = {"image_latents": torch.randn((4, 32, 32, 4), generator=gen,
+                                          device=DEVICE),
+             "caption_latents": torch.randn((4, 77, 1024), generator=gen,
+                                            device=DEVICE)}
+    noise = torch.randn((4, 32, 32, 4), generator=gen, device=DEVICE)
+    t = torch.tensor([3, 250, 600, 990], device=DEVICE)
+    after = []
+    for sharded in (False, True):
+        model = stable_diffusion_2(precomputed_latents=True, device=DEVICE,
+                                   seed=0)
+        if sharded:
+            shard_unet(model.unet, fsdp_mesh(create_mesh(fsdp=-1)))
+        params = [p for p in model.unet.parameters() if p.requires_grad]
+        local = [p.to_local() if sharded else p for p in params]
+        opt = build_optimizer(local, adamw(lr=1e-4))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss_fn(batch, None, noise, t)
+        loss.backward()
+        grads = [p.grad.to_local() if sharded else p.grad for p in params]
+        kept = [g.clone() for g in grads]
+        opt.step(grads=grads)
+        torch.cuda.synchronize()
+        after.append(([p.detach().clone() for p in local], kept, float(loss),
+                      time.perf_counter() - t0))
+        del model, params, local, opt, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    (plain, g_plain, loss_p, s_p), (fsdp, g_fsdp, loss_f, s_f) = after
+    # the gradients: bf16 compute, so one bf16 ulp of each tensor's
+    # largest element, doubled, should the two backwards sum differently
+    g_err = max(((a - b).abs().max() / (2.0 ** -6 * b.abs().max()
+                                        + 1e-30)).item()
+                for a, b in zip(g_fsdp, g_plain))
+    g_equal = all(torch.equal(a, b) for a, b in zip(g_fsdp, g_plain))
+    diff = max((a - b).abs().max().item() for a, b in zip(plain, fsdp))
+    same = sum(int((a == b).sum()) for a, b in zip(plain, fsdp))
+    total = sum(a.numel() for a in plain)
+    # Adam's first update is g / (|g| + eps): gradients dg apart move it by
+    # at most 2 |dg| / (|g| + eps) (and never more than 2), times lr 1e-4,
+    # plus 4 ulp of the parameter (the tests' `adam_bound` at k = 1)
+    excess = max(((a - b).abs() - 1e-4 * torch.clamp(
+        2 * (gf - gp).abs() / (gp.abs() + 1e-8), max=2.0)
+        - 4 * torch.finfo(torch.float32).eps * b.abs()).max().item()
+        for a, b, gf, gp in zip(fsdp, plain, g_fsdp, g_plain))
+    print(f"sp fsdp: one 256px step (batch 4) under fully_shard on the "
+          f"one-rank mesh against the plain step: loss {loss_f:.6f} vs "
+          f"{loss_p:.6f}; gradients within {g_err:.3f} of their bf16 bound "
+          f"(bit-equal {g_equal}); parameters after AdamW max_abs_err "
+          f"{diff:.3e}, {same / total:.6f} of them bit-equal, within the "
+          f"update bound the gradients imply (excess {excess:.3e} <= 0); "
+          f"step {s_f * 1e3:.1f} ms vs {s_p * 1e3:.1f} ms (first steps) "
+          f"[{card}]")
+    _check(loss_f == loss_p and g_err <= 1.0 and excess <= 0,
+           "the FSDP step disagrees with the plain step")
+
+
+def _sp_kernel_work(card: str) -> None:
+    """(c) The ring's per-step body over 4 local shards and the sp
+    GroupNorm stages over 4 row shards, on the kernels, against the
+    whole-tensor kernels."""
+    import torch
+
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+    from diffusion_torch.ops.ring_attention import (
+        ring_attention_shards, ring_attention_shards_bwd)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    n = SP_SHARDS
+    q, k, v, do = (randn(2, 16384, 5, 64) for _ in range(4))
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(n, dim=1)]
+                       for t in (q, k, v, do))
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    outs, lses = ring_attention_shards(qs, ks, vs)
+    grads = ring_attention_shards_bwd(qs, ks, vs, outs, lses, dos)
+    # the ring merges the blocks' partial softmaxes in fp32 and rounds the
+    # output once; the whole kernel rounds once too: two bf16 ulps of the
+    # largest element (the kernel phase's bound)
+    errs = []
+    for name, got, want in (("out", torch.cat(outs, 1), out),
+                            ("dq", torch.cat(grads[0], 1), dq),
+                            ("dk", torch.cat(grads[1], 1), dk),
+                            ("dv", torch.cat(grads[2], 1), dv)):
+        err = (got.float() - want.float()).abs().max().item()
+        errs.append((name, err, 2.0 ** -6 * want.float().abs().max().item()))
+    lse_err = (torch.cat(lses, 2) - lse).abs().max().item()
+    b, s, h, d = q.shape
+    fwd_ms = _time_ms(lambda: ring_attention_shards(qs, ks, vs), 10, 2)
+    whole_ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v), 10, 2)
+    bwd_ms = _time_ms(lambda: ring_attention_shards_bwd(
+        qs, ks, vs, outs, lses, dos), 10, 2)
+    whole_bwd_ms = _time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, out, lse, do), 10, 2)
+    bms, by = _bound(4 * b * h * s * s * d, 4 * _nbytes(q) + _nbytes(lse))
+    bbms, bby = _bound(10 * b * h * s * s * d, 8 * _nbytes(q))
+    print(f"sp ring: {n} local shards of ({b}, {s // n}, {h}, {d}) bf16, "
+          f"{n * n} blocks through the flash kernels: "
+          + ", ".join(f"{nm} max_abs_err {e:.3e} (bound {bd:.3e})"
+                      for nm, e, bd in errs)
+          + f", lse max_abs_err {lse_err:.3e} (bound 1e-3); forward "
+          f"{fwd_ms:.3f} ms vs the whole sequence's kernel {whole_ms:.3f} ms"
+          f" (bound {bms:.3f} ms, {by}); backward {bwd_ms:.3f} ms vs "
+          f"{whole_bwd_ms:.3f} ms (bound {bbms:.3f} ms, {bby}) [{card}]")
+    _check(all(e <= bd for _, e, bd in errs) and lse_err <= 1e-3,
+           "the ring's blocks disagree with the whole-sequence kernels")
+
+    # GroupNorm: scale near 1 and a cotangent whose per-group mean runs
+    # along the rows (an offset per group times a ramp over the sequence),
+    # so the per-group sums that stage 2 merges are of order 1 and each
+    # shard's own differ from the whole's
+    rows, c = 16384, 320
+    x = randn(4, rows, c)
+    ramp = torch.linspace(-1.0, 2.0, rows, device=DEVICE)[None, :, None]
+    offset = randn(1, 1, 32, dtype=torch.float32).repeat_interleave(
+        c // 32, -1)
+    g = (randn(4, rows, c, dtype=torch.float32)
+         + offset * ramp).to(torch.bfloat16)
+    scale = 1 + 0.1 * randn(c, dtype=torch.float32)
+    bias = 0.1 * randn(c, dtype=torch.float32)
+    xs, gs = ([t.contiguous() for t in u.chunk(n, dim=1)] for u in (x, g))
+    y, mean, rstd = gn.group_norm_cuda(x, scale, bias, 32, 1e-5, "silu")
+    dx, dscale, dbias = gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g,
+                                               32, "silu")
+
+    def forward():
+        parts = torch.stack([gn.group_norm_partials_cuda(t, 32) for t in xs])
+        return [gn.group_norm_apply_cuda(t, scale, bias, parts, 32, 1e-5,
+                                         "silu") for t in xs]
+
+    def backward(own_only=False):
+        sums = [gn.group_norm_bwd_partials_cuda(t, scale, bias, mean, rstd,
+                                                gt, 32, "silu")
+                for t, gt in zip(xs, gs)]
+        gparts = torch.stack([gp for _, gp in sums])
+        return [gn.group_norm_bwd_apply_cuda(
+            t, scale, bias, mean, rstd, gt, cp,
+            gparts[r:r + 1].contiguous() if own_only else gparts, 32, "silu")
+            for r, (t, gt, (cp, _)) in enumerate(zip(xs, gs, sums))]
+
+    # each shard's dx from the plain stages in fp32 on the same inputs (the
+    # whole forward's mean and rstd), and T = rstd (|scale dz| + |m1| +
+    # |x-hat m2|), the size of the terms the fp32 dx adds
+    xf, gf = [t.float() for t in xs], [t.float() for t in gs]
+    sums = [gn.group_norm_bwd_partials_reference(a, scale, bias, mean, rstd,
+                                                 b_, 32, "silu")
+            for a, b_ in zip(xf, gf)]
+    gparts = torch.stack([gp for _, gp in sums])
+    m = gparts.sum(dim=(0, 2)) / (rows * (c // 32))          # (B, G, 2)
+    refs, terms = [], []
+    for a, b_, (cp, _) in zip(xf, gf, sums):
+        refs.append(gn.group_norm_bwd_apply_reference(
+            a, scale, bias, mean, rstd, b_, cp, gparts, 32, "silu")[0])
+        dz, xhat, sc = gn._dz_xhat(a, scale, bias, mean, rstd, b_, 32,
+                                   "silu")
+        terms.append((rstd[:, None, :, None] * (
+            (dz * sc).abs() + m[:, None, :, None, 0].abs()
+            + (xhat * m[:, None, :, None, 1]).abs())).reshape(a.shape))
+    ref, term = torch.cat(refs, 1), torch.cat(terms, 1)
+    del xf, gf, sums, refs, terms
+
+    def dx_excess(got):
+        # the largest error over its bound: bf16 rounding of dx (2^-8 of
+        # it), plus twice 2^-14 of the terms for fp32 per-group sums taken
+        # in another order
+        tol = 2.0 ** -8 * ref.abs() + 2.0 ** -13 * term
+        return ((got.float() - ref).abs() / tol).max().item()
+
+    ys = forward()
+    dxs = backward()
+    y_err = (torch.cat([a for a, _, _ in ys], 1).float()
+             - y.float()).abs().max().item()
+    stat_err = max(max((m_ - mean).abs().max().item(),
+                       ((r - rstd).abs() / rstd).max().item())
+                   for _, m_, r in ys)
+    sp_excess = dx_excess(torch.cat([a for a, _, _ in dxs], 1))
+    one_excess = dx_excess(dx)
+    own_excess = dx_excess(torch.cat([a for a, _, _ in backward(True)], 1))
+    merge = m.abs().amax(dim=(0, 1))
+    p_err = max(((sum(t[i] for t in dxs) - w).abs().max()
+                 / w.abs().max()).item()
+                for i, w in ((1, dscale), (2, dbias)))
+    y_bound = 2.0 ** -6 * y.float().abs().max().item()
+    f_ms = _time_ms(forward, 10, 2)
+    one_ms = _time_ms(lambda: gn.group_norm_cuda(x, scale, bias, 32, 1e-5,
+                                                 "silu"), 10, 2)
+    b_ms = _time_ms(backward, 10, 2)
+    one_b_ms = _time_ms(lambda: gn.group_norm_bwd_cuda(
+        x, scale, bias, mean, rstd, g, 32, "silu"), 10, 2)
+    fb, fby = _bound(10 * x.numel(), 2 * _nbytes(x) + 3 * 320 * 4)
+    bb, bby = _bound(20 * x.numel(), 3 * _nbytes(x) + 7 * 320 * 4)
+    print(f"sp group_norm: {n} row shards of (4, {rows // n}, {c}) bf16 "
+          f"act=silu, two stages a direction around the partials' merge: y "
+          f"max_abs_err {y_err:.3e} (bound {y_bound:.3e}), stats err "
+          f"{stat_err:.3e} (bound 1e-4); dx against the plain fp32 stages "
+          f"(merged per-group means up to |m1| {merge[0].item():.3f}, |m2| "
+          f"{merge[1].item():.3f}): error over its bound {sp_excess:.3f} "
+          f"(<= 1; the one-call kernel's {one_excess:.3f}; stage 2 fed only "
+          f"its own shard's sums {own_excess:.1f}, must be > 1); "
+          f"dscale/dbias relative err {p_err:.3e} (bound 1e-4); forward "
+          f"{f_ms:.4f} ms ({2 * n} launches) vs one call {one_ms:.4f} ms "
+          f"(bound {fb:.4f} ms, {fby}); backward {b_ms:.4f} ms vs one call "
+          f"{one_b_ms:.4f} ms (bound {bb:.4f} ms, {bby}) [{card}]")
+    _check(y_err <= y_bound and stat_err <= 1e-4 and sp_excess <= 1
+           and p_err <= 1e-4,
+           "the sp GroupNorm stages disagree with the one-call kernels")
+    _check(own_excess > 1, "the backward check cannot tell a merge over "
+                           "the shards from each shard's own sums")
+
+
+def _sp_dispatch_check(card: str) -> None:
+    """The dispatcher ops the Trainer calls under sp, on a one-rank NCCL
+    group: `group_norm(shard=)` (its stage kernels around the NCCL
+    all-gather of the partials, the autograd wiring, the cotangent's
+    contiguity copy) and `ring_attention` (the ring's loop, one step on one
+    rank), forward and backward, against the stage kernels and the
+    whole-tensor kernels. A one-rank group moves no data between cards;
+    the ranks' transport runs in the CPU tests over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.ops import groupnorm as gn
+    from diffusion_torch.ops.ring_attention import ring_attention
+    from diffusion_torch.parallel.mesh import MESH_AXES, create_mesh
+    from diffusion_torch.parallel.sharding import RowShard, register_group
+
+    mesh = create_mesh(fsdp=-1)
+    shard = RowShard(register_group(mesh.get_group(MESH_AXES.index("sp"))),
+                     0, 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    counters = _counters()
+
+    def launched(before):
+        return {k: c.value - before[k] for k, c in counters.items()
+                if c.value != before[k]}
+
+    x = randn(4, 16384, 320).requires_grad_(True)
+    scale = (1 + 0.1 * randn(320, dtype=torch.float32)).requires_grad_(True)
+    bias = (0.1 * randn(320, dtype=torch.float32)).requires_grad_(True)
+    # the cotangent in NCHW order: the op's backward copies it once
+    g = randn(4, 320, 16384).transpose(1, 2)
+    before = {k: c.value for k, c in counters.items()}
+    copies = gn.contiguity_copies.value
+    y = gn.group_norm(x, scale, bias, 32, 1e-5, "silu", shard=shard)
+    y.backward(g)
+    torch.cuda.synchronize()
+    gn_launches = launched(before)
+    copies = gn.contiguity_copies.value - copies
+    xd, sd, bd, gd = x.detach(), scale.detach(), bias.detach(), g.contiguous()
+    y_st, mean, rstd = gn.group_norm_apply_cuda(
+        xd, sd, bd, gn.group_norm_partials_cuda(xd, 32)[None], 32, 1e-5,
+        "silu")
+    cp, gp = gn.group_norm_bwd_partials_cuda(xd, sd, bd, mean, rstd, gd, 32,
+                                             "silu")
+    dx_st, ds_st, db_st = gn.group_norm_bwd_apply_cuda(
+        xd, sd, bd, mean, rstd, gd, cp, gp[None], 32, "silu")
+    p_err = max(((a - w).abs().max() / w.abs().max()).item()
+                for a, w in ((scale.grad, ds_st), (bias.grad, db_st)))
+    y_one, mean1, rstd1 = gn.group_norm_cuda(xd, sd, bd, 32, 1e-5, "silu")
+    dx_one = gn.group_norm_bwd_cuda(xd, sd, bd, mean1, rstd1, gd, 32,
+                                    "silu")[0]
+    gn_errs = [(nm, (a.float() - w.float()).abs().max().item(),
+                2.0 ** -6 * w.float().abs().max().item())
+               for nm, a, w in (("y", y.detach(), y_one),
+                                ("dx", x.grad, dx_one))]
+    gn_same = torch.equal(y.detach(), y_st) and torch.equal(x.grad, dx_st)
+    print(f"sp dispatch: group_norm(shard=) over a one-rank "
+          f"{dist.get_backend()} group at (4, 16384, 320) bf16 act=silu, forward "
+          f"and backward: launches {gn_launches}, cotangent copies {copies}; "
+          f"y and dx bit-equal to the stage kernels' {gn_same}, dscale/dbias "
+          f"relative err {p_err:.3e} (bound 1e-5); against the one-call "
+          f"kernels "
+          + ", ".join(f"{nm} max_abs_err {e:.3e} (bound {bd_:.3e})"
+                      for nm, e, bd_ in gn_errs) + f" [{card}]")
+    _check(gn_launches == {"group_norm": 2, "group_norm_bwd": 2}
+           and copies == 1 and gn_same and p_err <= 1e-5
+           and all(e <= bd_ for _, e, bd_ in gn_errs),
+           "group_norm(shard=) on the card disagrees with its kernels")
+
+    q, k, v = (randn(2, 16384, 5, 64).requires_grad_(True) for _ in range(3))
+    do = randn(2, 16384, 5, 64)
+    before = {kk: c.value for kk, c in counters.items()}
+    o = ring_attention(q, k, v, shard)
+    o.backward(do)
+    torch.cuda.synchronize()
+    ring_launches = launched(before)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    out, lse = fa.flash_attention_cuda(qd, kd, vd)
+    want = (out, *fa.flash_attention_bwd_cuda(qd, kd, vd, out, lse, do))
+    got = (o.detach(), q.grad, k.grad, v.grad)
+    errs = [(nm, (a.float() - w.float()).abs().max().item(),
+             2.0 ** -6 * w.float().abs().max().item())
+            for nm, a, w in zip(("out", "dq", "dk", "dv"), got, want)]
+    print(f"sp dispatch: ring_attention over the one-rank group at (2, "
+          f"16384, 5, 64) bf16, forward and backward: launches "
+          f"{ring_launches}; against the whole-sequence kernels "
+          + ", ".join(f"{nm} max_abs_err {e:.3e} (bound {bd_:.3e})"
+                      for nm, e, bd_ in errs)
+          + f" (bit-equal {[torch.equal(a, w) for a, w in zip(got, want)]})"
+            f" [{card}]")
+    _check(ring_launches == {"flash_attention": 1,
+                             "flash_attention_bwd_dq": 1,
+                             "flash_attention_bwd_dkv": 1}
+           and all(e <= bd_ for _, e, bd_ in errs),
+           "ring_attention on the card disagrees with the flash kernels")
+
+
+def _sp_phase(card: str) -> dict:
+    """Phase 16 (see the module docstring); returns the five kernels'
+    launches in (a)'s two runs."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rng = np.random.default_rng(16)
+    tmp = os.path.join(_ROOT, "build", "chip_smoke_sp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    raw, coco = os.path.join(tmp, "raw"), os.path.join(tmp, "coco")
+    t0 = time.perf_counter()
+    from diffusion_torch.data.mds import MDSWriter
+    with MDSWriter(raw, {"image": "bytes", "caption": "str"},
+                   size_limit=1 << 24) as w:
+        for i in range(SP_TRAIN):
+            w.write({"image": _jpeg(_smooth_image(rng, SP_SIZE, SP_SIZE)),
+                     "caption": f"a 1024px sample {i}"})
+    _write_coco_shards(coco, SP_EVAL, rng)
+    print(f"sp: {SP_TRAIN} seeded {SP_SIZE}px JPEG + caption samples and "
+          f"{SP_EVAL} COCO ones written in {time.perf_counter() - t0:.1f} s")
+    # the launch code of a torchrun rank: a one-rank NCCL process group
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        runs = {}
+        for label, remat in (("remat", True), ("no remat", False)):
+            runs[label] = _sp_run(card, label, _sp_overrides(
+                raw, coco, os.path.join(tmp, f"metrics_{remat}.jsonl"),
+                remat))
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"sp: process group {dist.get_backend()} over "
+              f"{dist.get_world_size()} rank(s); remat costs "
+              f"{(runs['remat']['step_s'] - runs['no remat']['step_s']) * 1e3:.1f}"
+              f" ms a step ({runs['remat']['step_s'] / runs['no remat']['step_s']:.3f}x)"
+              f" and saves {runs['no remat']['held'] - runs['remat']['held']:.2f}"
+              f" GiB of the forward's held activations ({runs['remat']['held']:.2f}"
+              f" vs {runs['no remat']['held']:.2f} GiB), "
+              f"{runs['no remat']['peak'] - runs['remat']['peak']:.2f} GiB of "
+              f"a step's peak ({runs['remat']['peak']:.2f} vs "
+              f"{runs['no remat']['peak']:.2f} GiB); GroupNorm launches a "
+              f"step {runs['remat']['per_step']['group_norm']} vs "
+              f"{runs['no remat']['per_step']['group_norm']} (the forward "
+              f"recomputed in the backward) [{card}]")
+        _sp_fsdp_check(card)
+        _sp_dispatch_check(card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_kernel_work(card)
+    if torch.cuda.device_count() >= 2:
+        print("sp: two cards present; the 2-rank NCCL sp step is not run "
+              "by this script (one card is its contract)")
+    else:
+        print(f"sp: one card ({torch.cuda.device_count()}): ranks talking "
+              f"to each other (P2P ring, halo rows, merged GroupNorm "
+              f"statistics, FSDP's collectives) ran on the CPU only, over "
+              f"gloo (tests/test_torch_ring_attention.py, "
+              f"tests/test_torch_mesh_trainer.py)")
+    return {name: runs["remat"]["launches"][name]
+            + runs["no remat"]["launches"][name] for name in _counters()}
+
 def _eval_job_args(remote: str, out: str) -> tuple:
     """The argument lists of phase 11's two runs: the port's
     fid_clip_evaluation (yamls/eval.yaml's job, with dpm++2m at 20 steps)
@@ -4061,6 +4660,10 @@ def main(argv=None) -> int:
     recipe_launches = _recipe_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
+    # 16. remat and the process mesh: the 1024-sp yaml on one rank
+    sp_launches = _sp_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
@@ -4092,7 +4695,8 @@ def main(argv=None) -> int:
                          + online_launches[name]
                          + checkpoint_launches[name]
                          + lora_launches[name] + reader_launches[name]
-                         + pixel_launches[name] + recipe_launches[name]),
+                         + pixel_launches[name] + recipe_launches[name]
+                         + sp_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

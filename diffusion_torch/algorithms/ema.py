@@ -88,12 +88,20 @@ class EMA(Algorithm):
             self.swap_out(state)
 
     @staticmethod
+    @torch.no_grad()
     def _exchange(state) -> None:
         """Exchange the training weights' storage with the EMA weights' (no
-        copy): the model then computes with what `ema_params` held."""
+        copy): the model then computes with what `ema_params` held. Shards
+        of FSDP parameters (`TrainState.shards`) are views into storage
+        FSDP keeps, so their values are exchanged by copies."""
         ts = state.train_state
         for name, p in ts.params.items():
-            p.data, ts.ema_params[name] = ts.ema_params[name], p.data
+            if ts.shards:
+                tmp = p.clone()
+                p.copy_(ts.ema_params[name])
+                ts.ema_params[name].copy_(tmp)
+            else:
+                p.data, ts.ema_params[name] = ts.ema_params[name], p.data
 
     def swap_in(self, state) -> None:
         if self.ema_weights_active or state.train_state.ema_params is None:

@@ -81,6 +81,7 @@ struct Plan {
   int parts;     // blocks per (slice, image): the cluster, or row chunks
   int rows;      // rows per block
   int act;
+  int nsp;       // two launches: the ranks whose partials the apply merges
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -311,20 +312,30 @@ __device__ __forceinline__ int merge_lanes(int gs) {
   return P;
 }
 
+// the partial of rank r's chunk k of image b, group g: partials are laid
+// out (nsp, B, parts, G); a statistics launch writes its own rank's
+__device__ __forceinline__ long long part_index(int r, int b, int k, int g,
+                                                const Plan& p) {
+  return (((long long)r * p.B + b) * p.parts + k) * p.G + g;
+}
+
 // forward, two launches: the (mean, rstd) of the slice's gs groups of image
-// b, Chan-merged from the statistics launch's per-chunk partials in a fixed
-// tree (lane l takes chunks l, l + P, ..., then the lanes merge pairwise)
+// b, Chan-merged from the statistics launches' per-chunk partials of the
+// nsp ranks (sequence parallelism: the image's rows split over ranks) in a
+// fixed tree (lane l takes chunks l, l + P, ... of the nsp x parts in rank
+// order, then the lanes merge pairwise)
 __device__ void merge_chunk_stats(const float2* part, int b, int s, int gs,
                                   const Plan& p, float eps, float2* fin) {
   const int cgc = p.C / p.G, P = merge_lanes(gs), l = threadIdx.x % P;
-  const int per_pass = blockDim.x / P;
+  const int per_pass = blockDim.x / P, chunks = p.parts * p.nsp;
   for (int g0 = 0; g0 < gs; g0 += per_pass) {
     const int g = g0 + threadIdx.x / P;
     float n = 0.f, mean = 0.f, m2 = 0.f;
     if (g < gs) {
-      for (int k = l; k < p.parts; k += P) {
-        const float2 q = part[((long long)b * p.parts + k) * p.G + s * gs + g];
-        chan_merge(n, mean, m2, (float)(rows_of(k, p) * cgc), q.x, q.y);
+      for (int k = l; k < chunks; k += P) {
+        const int r = k / p.parts, kk = k - r * p.parts;
+        const float2 q = part[part_index(r, b, kk, s * gs + g, p)];
+        chan_merge(n, mean, m2, (float)(rows_of(kk, p) * cgc), q.x, q.y);
       }
     }
     for (int o = 1; o < P; o <<= 1) {
@@ -478,20 +489,22 @@ __device__ __forceinline__ float gn_dz(float g, float xh, float sc, float bi,
   return g * (s * (1.f + y * (1.f - s)));
 }
 
-// backward: (sum s1, sum s2) over the statistics launch's chunks for the
-// slice's gs groups of image b, in a fixed tree; m1 = s1 / N, m2 = s2 / N
+// backward: (sum s1, sum s2) over the statistics launches' chunks of the
+// nsp ranks for the slice's gs groups of image b, in a fixed tree;
+// m1 = s1 / N, m2 = s2 / N over the whole image
 __device__ void merge_chunk_sums(const float2* gpart, int b, int s, int gs,
                                  const Plan& p, float2* fin) {
   const int P = merge_lanes(gs), l = threadIdx.x % P;
-  const int per_pass = blockDim.x / P;
-  const float inv_n = 1.f / ((float)p.L * (float)(p.C / p.G));
+  const int per_pass = blockDim.x / P, chunks = p.parts * p.nsp;
+  const float inv_n =
+      1.f / ((float)p.L * (float)p.nsp * (float)(p.C / p.G));
   for (int g0 = 0; g0 < gs; g0 += per_pass) {
     const int g = g0 + threadIdx.x / P;
     float s1 = 0.f, s2 = 0.f;
     if (g < gs) {
-      for (int k = l; k < p.parts; k += P) {
-        const float2 q =
-            gpart[((long long)b * p.parts + k) * p.G + s * gs + g];
+      for (int k = l; k < chunks; k += P) {
+        const int r = k / p.parts, kk = k - r * p.parts;
+        const float2 q = gpart[part_index(r, b, kk, s * gs + g, p)];
         s1 += q.x;
         s2 += q.y;
       }
@@ -752,13 +765,16 @@ bool plan_ok(const Plan& p, int threads, int split, int vec, int itemsize) {
   if (threads % 32 || threads > 512 || threads < p.width / vec) return false;
   if (p.rows < 1 || (long long)p.rows * p.parts < p.L) return false;
   if (!split && p.parts > kMaxCluster) return false;
+  if (p.nsp < 1 || (!split && p.nsp != 1)) return false;
   return p.B <= 65535 && p.C / p.width <= 65535;
 }
 
+// stage: 0 = the whole call, 1 = the statistics launch alone, 2 = the
+// apply launch alone (split = 1; the sequence-parallel stages)
 template <typename T, int VEC>
 int fwd(const void* x, const void* scale, const void* bias, void* y,
         void* mean, void* rstd, void* scratch, const Plan& p, int threads,
-        int split, float eps, cudaStream_t st) {
+        int split, int stage, float eps, cudaStream_t st) {
   const int gs = p.width / (p.C / p.G);
   const int smem = smem_bytes(1, p.rows, p.width, sizeof(T), gs, threads, VEC);
   auto* k = gn_fwd_kernel<T, VEC>;
@@ -772,18 +788,23 @@ int fwd(const void* x, const void* scale, const void* bias, void* y,
   if (!split)
     return launch(k, p, threads, smem, p.parts, st, xt, sc, bi, yt, mu, rs,
                   part, p, eps, static_cast<int>(kCluster));
-  int rc = launch(k, p, threads, smem, 1, st, xt, sc, bi, yt, mu, rs, part, p,
-                  eps, static_cast<int>(kStats));
-  if (rc) return rc;
+  if (stage != 2) {
+    const int rc = launch(k, p, threads, smem, 1, st, xt, sc, bi, yt, mu, rs,
+                          part, p, eps, static_cast<int>(kStats));
+    if (rc || stage == 1) return rc;
+  }
   return launch(k, p, threads, smem, 1, st, xt, sc, bi, yt, mu, rs, part, p,
                 eps, static_cast<int>(kApply));
 }
 
+// stage as for fwd; the stages take their partials' buffers apart: cpart
+// (B, parts, C), gpart (nsp, B, parts, G), bpart (B, C) float2
 template <typename T, int VEC>
 int bwd(const void* x, const void* gy, const void* scale, const void* bias,
         const void* mean, const void* rstd, void* dx, void* dscale,
-        void* dbias, void* scratch, void* tickets, const Plan& p, int threads,
-        int split, cudaStream_t st) {
+        void* dbias, float2* cpart, float2* gpart, float2* bpart,
+        void* tickets, const Plan& p, int threads, int split, int stage,
+        cudaStream_t st) {
   const int gs = p.width / (p.C / p.G);
   const int smem = smem_bytes(2, p.rows, p.width, sizeof(T), gs, threads, VEC);
   auto* k = gn_bwd_kernel<T, VEC>;
@@ -797,18 +818,16 @@ int bwd(const void* x, const void* gy, const void* scale, const void* bias,
   float* ds = static_cast<float*>(dscale);
   float* db = static_cast<float*>(dbias);
   int* tk = static_cast<int*>(tickets);
-  float2* base = static_cast<float2*>(scratch);
   if (!split)
     return launch(k, p, threads, smem, p.parts, st, xt, gt, sc, bi, mu, rs,
-                  dxt, ds, db, base, base, base, tk, p,
+                  dxt, ds, db, cpart, cpart, cpart, tk, p,
                   static_cast<int>(kCluster));
-  const long long chunks = (long long)p.B * p.parts;
-  float2* cpart = base;
-  float2* gpart = cpart + chunks * p.C;
-  float2* bpart = gpart + chunks * p.G;
-  int rc = launch(k, p, threads, smem, 1, st, xt, gt, sc, bi, mu, rs, dxt, ds,
-                  db, cpart, gpart, bpart, tk, p, static_cast<int>(kStats));
-  if (rc) return rc;
+  if (stage != 2) {
+    const int rc = launch(k, p, threads, smem, 1, st, xt, gt, sc, bi, mu, rs,
+                          dxt, ds, db, cpart, gpart, bpart, tk, p,
+                          static_cast<int>(kStats));
+    if (rc || stage == 1) return rc;
+  }
   return launch(k, p, threads, smem, 1, st, xt, gt, sc, bi, mu, rs, dxt, ds,
                 db, cpart, gpart, bpart, tk, p, static_cast<int>(kApply));
 }
@@ -830,7 +849,7 @@ extern "C" int dt_group_norm_fwd(const void* x, const void* scale,
                                  int threads, int split, float eps, int act,
                                  int dtype, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p{B, L, C, G, width, parts, rows, act};
+  const Plan p{B, L, C, G, width, parts, rows, act, 1};
   const int itemsize = dtype == 1 ? 2 : 4;
   if (!plan_ok(p, threads, split, vec, itemsize) ||
       (vec != 1 && vec != 16 / itemsize))
@@ -838,13 +857,13 @@ extern "C" int dt_group_norm_fwd(const void* x, const void* scale,
   if (dtype == 1)
     return vec == 1
         ? fwd<__nv_bfloat16, 1>(x, scale, bias, y, mean, rstd, scratch, p,
-                                threads, split, eps, st)
+                                threads, split, 0, eps, st)
         : fwd<__nv_bfloat16, 8>(x, scale, bias, y, mean, rstd, scratch, p,
-                                threads, split, eps, st);
+                                threads, split, 0, eps, st);
   return vec == 1 ? fwd<float, 1>(x, scale, bias, y, mean, rstd, scratch, p,
-                                  threads, split, eps, st)
+                                  threads, split, 0, eps, st)
                   : fwd<float, 4>(x, scale, bias, y, mean, rstd, scratch, p,
-                                  threads, split, eps, st);
+                                  threads, split, 0, eps, st);
 }
 
 // x, gy (the cotangent of y), dx: contiguous (B, L, C); scale, bias: fp32
@@ -863,20 +882,100 @@ extern "C" int dt_group_norm_bwd(const void* x, const void* gy,
                                  int split, int act, int dtype, int vec,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p{B, L, C, G, width, parts, rows, act};
+  const Plan p{B, L, C, G, width, parts, rows, act, 1};
   const int itemsize = dtype == 1 ? 2 : 4;
   if (!plan_ok(p, threads, split, vec, itemsize) ||
       (vec != 1 && vec != 16 / itemsize))
     return static_cast<int>(cudaErrorInvalidValue);
+  float2* cpart = static_cast<float2*>(scratch);
+  const long long chunks = (long long)B * parts;
+  float2* gpart = cpart + chunks * C;
+  float2* bpart = gpart + chunks * G;
   if (dtype == 1)
     return vec == 1
         ? bwd<__nv_bfloat16, 1>(x, gy, scale, bias, mean, rstd, dx, dscale,
-                                dbias, scratch, tickets, p, threads, split, st)
+                                dbias, cpart, gpart, bpart, tickets, p,
+                                threads, split, 0, st)
         : bwd<__nv_bfloat16, 8>(x, gy, scale, bias, mean, rstd, dx, dscale,
-                                dbias, scratch, tickets, p, threads, split, st);
+                                dbias, cpart, gpart, bpart, tickets, p,
+                                threads, split, 0, st);
   return vec == 1
       ? bwd<float, 1>(x, gy, scale, bias, mean, rstd, dx, dscale, dbias,
-                      scratch, tickets, p, threads, split, st)
+                      cpart, gpart, bpart, tickets, p, threads, split, 0, st)
       : bwd<float, 4>(x, gy, scale, bias, mean, rstd, dx, dscale, dbias,
-                      scratch, tickets, p, threads, split, st);
+                      cpart, gpart, bpart, tickets, p, threads, split, 0, st);
+}
+
+// Sequence parallelism: one launch of the two-launch path, for an image
+// whose rows split over nsp ranks. stage = 1: the statistics launch over
+// this rank's rows, writing `part` (B, parts, G) float2 per-chunk (mean,
+// M2); stage = 2: the apply launch, merging `part` (nsp, B, parts, G), the
+// group's stage-1 partials in rank order, and writing y, mean and rstd.
+// Other arguments as dt_group_norm_fwd's (split = 1 plans); stage 1 reads
+// x alone. Returns the launch's cudaError_t, 1 for a plan the kernels do
+// not take, or 0.
+extern "C" int dt_group_norm_fwd_stage(const void* x, const void* scale,
+                                       const void* bias, void* y, void* mean,
+                                       void* rstd, void* part, int B, int L,
+                                       int C, int G, int width, int parts,
+                                       int rows, int threads, int stage,
+                                       int nsp, float eps, int act, int dtype,
+                                       int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan p{B, L, C, G, width, parts, rows, act, stage == 2 ? nsp : 1};
+  const int itemsize = dtype == 1 ? 2 : 4;
+  if (!plan_ok(p, threads, 1, vec, itemsize) ||
+      (vec != 1 && vec != 16 / itemsize) || (stage != 1 && stage != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1)
+    return vec == 1
+        ? fwd<__nv_bfloat16, 1>(x, scale, bias, y, mean, rstd, part, p,
+                                threads, 1, stage, eps, st)
+        : fwd<__nv_bfloat16, 8>(x, scale, bias, y, mean, rstd, part, p,
+                                threads, 1, stage, eps, st);
+  return vec == 1 ? fwd<float, 1>(x, scale, bias, y, mean, rstd, part, p,
+                                  threads, 1, stage, eps, st)
+                  : fwd<float, 4>(x, scale, bias, y, mean, rstd, part, p,
+                                  threads, 1, stage, eps, st);
+}
+
+// The backward's stages, as dt_group_norm_fwd_stage's. stage = 1: this
+// rank's rows' per-chunk sums, cpart (B, parts, C) per channel (sum dz,
+// sum dz x-hat) and gpart (B, parts, G) per group (sum scale dz, sum scale
+// dz x-hat); stage = 2: dx from gpart (nsp, B, parts, G), the group's
+// stage-1 sums in rank order, over the whole image, and dscale/dbias from
+// this rank's cpart (the sums over its rows), through bpart (B, C) float2
+// and the tickets as dt_group_norm_bwd's. Returns as the forward's.
+extern "C" int dt_group_norm_bwd_stage(const void* x, const void* gy,
+                                       const void* scale, const void* bias,
+                                       const void* mean, const void* rstd,
+                                       void* dx, void* dscale, void* dbias,
+                                       void* cpart, void* gpart, void* bpart,
+                                       void* tickets, int B, int L, int C,
+                                       int G, int width, int parts, int rows,
+                                       int threads, int stage, int nsp,
+                                       int act, int dtype, int vec,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan p{B, L, C, G, width, parts, rows, act, stage == 2 ? nsp : 1};
+  const int itemsize = dtype == 1 ? 2 : 4;
+  if (!plan_ok(p, threads, 1, vec, itemsize) ||
+      (vec != 1 && vec != 16 / itemsize) || (stage != 1 && stage != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float2* cp = static_cast<float2*>(cpart);
+  float2* gp = static_cast<float2*>(gpart);
+  float2* bp = static_cast<float2*>(bpart);
+  if (dtype == 1)
+    return vec == 1
+        ? bwd<__nv_bfloat16, 1>(x, gy, scale, bias, mean, rstd, dx, dscale,
+                                dbias, cp, gp, bp, tickets, p, threads, 1,
+                                stage, st)
+        : bwd<__nv_bfloat16, 8>(x, gy, scale, bias, mean, rstd, dx, dscale,
+                                dbias, cp, gp, bp, tickets, p, threads, 1,
+                                stage, st);
+  return vec == 1
+      ? bwd<float, 1>(x, gy, scale, bias, mean, rstd, dx, dscale, dbias, cp,
+                      gp, bp, tickets, p, threads, 1, stage, st)
+      : bwd<float, 4>(x, gy, scale, bias, mean, rstd, dx, dscale, dbias, cp,
+                      gp, bp, tickets, p, threads, 1, stage, st);
 }

@@ -12,8 +12,20 @@ Precision, as in the JAX package: parameters are fp32 and the compute dtype
 is the dtype of the activations (bf16 at full width). `Linear` and
 `Conv2d` cast their weights to the input's dtype on every call (a
 differentiable cast, so gradients land on the fp32 parameters); norms
-compute their statistics in fp32 and return the input's dtype. Dropout
-> 0 is not ported (ROADMAP.md queue 1 item 5).
+compute their statistics in fp32 and return the input's dtype.
+
+Dropout (`ResnetBlock(dropout=p)`, after norm2 as in the JAX block) drops
+only when the forward is given a `dropout_key`: the mask is drawn from a
+generator seeded with the key and the block's `block_index`, so a
+rematerialized block (`models/unet.py`) draws the same mask again when its
+forward is recomputed.
+
+Sequence parallelism: the blocks take `shard` (a
+`parallel/sharding.py::RowShard`) where their (B, C, H, W) input is this
+rank's rows of the image. Norms then merge their statistics over the sp
+group, 3x3 convolutions take a row from each neighbour
+(`halo_rows`), and self-attention attends over the group's tokens
+(`ops/attention.py`).
 
 LoRA (`Attention(lora_rank=r)`): bias-free `Linear` siblings
 `to_q_lora_a`/`to_q_lora_b` (and the same for `to_k`, `to_v`, `to_out`)
@@ -25,8 +37,9 @@ flax's `kernel_init` does, so a fresh adapter is the base model exactly.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,7 +52,7 @@ __all__ = [
     "TimestepEmbedding", "ResnetBlock", "LoRALinear", "Attention",
     "FeedForwardGEGLU",
     "BasicTransformerBlock", "Transformer2D", "Downsample", "Upsample",
-    "Container", "init_like_flax_",
+    "Container", "init_like_flax_", "dropout",
 ]
 
 CHANNELS_LAST = torch.channels_last
@@ -59,11 +72,23 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in the input's dtype over fp32 parameters."""
+    """nn.Conv2d computing in the input's dtype over fp32 parameters. With
+    `shard`, `x` holds this rank's rows: the rows the kernel reaches beyond
+    them come from the neighbouring shards (zeros at the image's edges)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        k, pad, stride = self.kernel_size[0], self.padding[0], self.stride[0]
+        if shard is None or k == 1:
+            return self._conv_forward(x, weight, bias)
+        from diffusion_torch.parallel.sharding import halo_rows
+        if x.shape[2] % stride:
+            raise ValueError(f"a row shard of {x.shape[2]} rows does not "
+                             f"split under stride {stride}")
+        x = halo_rows(x, shard, pad, k - stride - pad)
+        return F.conv2d(x, weight, bias, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -90,9 +115,11 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = group_norm(x.permute(0, 2, 3, 1), self.weight, self.bias,
-                       self.num_groups, self.eps, self.act)
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        args = (x.permute(0, 2, 3, 1), self.weight, self.bias,
+                self.num_groups, self.eps, self.act)
+        y = group_norm(*args) if shard is None else group_norm(*args,
+                                                               shard=shard)
         return y.permute(0, 3, 1, 2)
 
 
@@ -126,15 +153,39 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 
+def dropout(h: torch.Tensor, p: float, key: Sequence[int],
+            shard=None) -> torch.Tensor:
+    """Inverted dropout of a (B, C, H, W) channels_last activation: keep
+    each element with probability 1 - p (then scaled by 1 / (1 - p)), as
+    flax's Dropout. The mask is a function of `key` alone, drawn in NHWC
+    order over the whole image's rows (this shard's taken)."""
+    b, c, rows, w = h.shape
+    if shard is not None:
+        rows *= shard.size
+    seed = np.random.SeedSequence([int(k) for k in key]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=h.device).manual_seed(
+        int(seed) & (2 ** 63 - 1))
+    keep = (torch.rand((b, rows, w, c), generator=gen, device=h.device)
+            >= p).permute(0, 3, 1, 2)
+    if shard is not None:
+        keep = keep.narrow(2, shard.index * h.shape[2], h.shape[2])
+    return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
+                                                        device=h.device))
+
+
 class ResnetBlock(nn.Module):
     """GroupNorm-SiLU-Conv residual block with additive time conditioning
-    (`temb_channels=None` for the VAE's unconditioned blocks)."""
+    (`temb_channels=None` for the VAE's unconditioned blocks). `dropout`
+    drops after norm2 where the forward gets a `dropout_key`; the UNet
+    numbers its blocks (`block_index`) so that each draws its own mask."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int], groups: int = 32,
                  eps: float = 1e-5, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.block_index = 0
         self.norm1 = GroupNorm(groups, in_channels, eps, act="silu")
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_channels:
@@ -145,15 +196,17 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor,
-                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training and self.dropout > 0:
-            raise NotImplementedError(
-                "ResnetBlock dropout > 0 in training comes with ROADMAP.md "
-                "queue 1 item 5 (remat and dropout)")
-        h = self.conv1(self.norm1(x))
+                temb: Optional[torch.Tensor] = None,
+                dropout_key: Optional[Sequence[int]] = None,
+                shard=None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x, shard), shard)
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        h = self.norm2(h, shard)
+        if dropout_key is not None and self.dropout > 0:
+            h = dropout(h, self.dropout, (*dropout_key, self.block_index),
+                        shard)
+        h = self.conv2(h, shard)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -209,7 +262,9 @@ class Attention(nn.Module):
         return y + getattr(self, f"{name}_lora_b")(a) * self.lora_scale
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                shard=None) -> torch.Tensor:
+        """`shard`: self-attention over tokens the sp group splits."""
         ctx = x if context is None else context
         b, sq, _ = x.shape
         sk = ctx.shape[1]
@@ -218,7 +273,8 @@ class Attention(nn.Module):
         v = self._lora("to_v", self.to_v(ctx), ctx)
         o = multi_head_attention(q.view(b, sq, self.heads, self.dim_head),
                                  k.view(b, sk, self.heads, self.dim_head),
-                                 v.view(b, sk, self.heads, self.dim_head))
+                                 v.view(b, sk, self.heads, self.dim_head),
+                                 shard=shard if context is None else None)
         o = o.reshape(b, sq, -1)
         return self._lora("to_out", self.to_out[0](o), o)
 
@@ -263,8 +319,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForwardGEGLU(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                shard=None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x), shard=shard)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -289,9 +346,10 @@ class Transformer2D(nn.Module):
             for _ in range(depth)])
         self.proj_out = proj(channels, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                shard=None) -> torch.Tensor:
         b, c, h, w = x.shape
-        hidden = self.norm(x)
+        hidden = self.norm(x, shard)
         if not self.use_linear_projection:
             hidden = self.proj_in(hidden)
         # channels_last: the (B, H*W, C) token view is free
@@ -299,7 +357,7 @@ class Transformer2D(nn.Module):
         if self.use_linear_projection:
             hidden = self.proj_in(hidden)
         for block in self.transformer_blocks:
-            hidden = block(hidden, context)
+            hidden = block(hidden, context, shard)
         if self.use_linear_projection:
             hidden = self.proj_out(hidden)
         hidden = hidden.reshape(b, h, w, c).permute(0, 3, 1, 2)
@@ -315,8 +373,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        return self.conv(x, shard)
 
 
 class Upsample(nn.Module):
@@ -326,9 +384,9 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2.0, mode="nearest")
-        return self.conv(x.contiguous(memory_format=CHANNELS_LAST))
+        return self.conv(x.contiguous(memory_format=CHANNELS_LAST), shard)
 
 
 @torch.no_grad()

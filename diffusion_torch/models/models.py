@@ -6,7 +6,8 @@ Counterparts of `stable_diffusion_2`, `stable_diffusion_tiny`,
 `diffusion_tpu/models/models.py`, with the JAX builders' keywords, defaults
 and meanings as the yamls pass them: `precomputed_latents`,
 `encode_latents_in_fp16` (bf16 compute, else fp32), `fsdp` (recorded on the
-model), `val_metrics`, `train_metrics`, `val_seed`, `loss_bins`,
+model, read by the Trainer), `remat` (the full-width builder's),
+`val_metrics`, `train_metrics`, `val_seed`, `loss_bins`,
 `prediction_type`, `min_snr_gamma`, `rescale_betas_zero_snr`,
 `timestep_spacing`, `init_frozen_towers`, `inference_scheduler` (`ddim`,
 `dpm++2m` or its alias `dpm`, `euler`), and the generation eval's
@@ -158,8 +159,8 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
            init_frozen_towers: Optional[bool], inference_scheduler: str,
            val_guidance_scales: Optional[Sequence[float]],
            pretrained_path: Optional[str] = None,
-           train_lora_only: bool = False, **fields: Any
-           ) -> StableDiffusion:
+           train_lora_only: bool = False, remat: bool = False,
+           **fields: Any) -> StableDiffusion:
     device = resolve_device(device)
     val_guidance_scales = tuple(float(g) for g in val_guidance_scales or ())
     if init_frozen_towers is None:
@@ -174,7 +175,7 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
     inference_scheduler = _make_inference_scheduler(inference_scheduler,
                                                     like=noise_scheduler)
     with torch.device(device):
-        unet = UNet2DCondition(unet_cfg, dtype=dtype)
+        unet = UNet2DCondition(unet_cfg, dtype=dtype, remat=remat)
         towers = ((AutoencoderKL(vae_cfg, dtype=dtype),
                    CLIPTextModel(text_cfg, dtype=dtype))
                   if init_frozen_towers else (None, None))
@@ -212,6 +213,7 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                        precomputed_latents: bool = False,
                        encode_latents_in_fp16: bool = True,
                        fsdp: bool = True,
+                       remat: bool = False,
                        inception_weights: Optional[str] = None,
                        clip_metric_weights: Optional[str] = None,
                        allow_random_tower_weights: bool = False,
@@ -234,7 +236,8 @@ def stable_diffusion_2(model_name: Optional[str] = None,
     towers' `.npz` files (`metrics/towers.py`); random towers are refused
     unless `allow_random_tower_weights`. `lora_rank > 0` adds LoRA adapters
     to every attention projection and, by default, trains only them (with
-    `pretrained=True`, over the directory's base)."""
+    `pretrained=True`, over the directory's base). `remat` rematerializes
+    the UNet's blocks in the backward (`models/unet.py`)."""
     pretrained_path = _pretrained_dir(pretrained, model_name)
     unet_cfg, train_lora_only = _with_lora(SD2_BASE_UNET, lora_rank,
                                            lora_alpha, train_lora_only)
@@ -250,7 +253,7 @@ def stable_diffusion_2(model_name: Optional[str] = None,
                   inference_scheduler=inference_scheduler,
                   val_guidance_scales=val_guidance_scales,
                   pretrained_path=pretrained_path,
-                  train_lora_only=train_lora_only,
+                  train_lora_only=train_lora_only, remat=bool(remat),
                   val_seed=int(val_seed),
                   loss_bins=tuple(tuple(b) for b in (loss_bins or [(0, 1)])),
                   train_metric_names=tuple(train_metrics
@@ -277,13 +280,16 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
                           lora_rank: int = 0,
                           lora_alpha: Optional[float] = None,
                           train_lora_only: Optional[bool] = None,
+                          remat: bool = False,
                           device: Device = None, seed: int = 0,
                           **_: Any) -> StableDiffusion:
     """The JAX package's tiny geometry (fp32): real architecture, small
     channels, for tests and CPU runs. Like the JAX builder, it ignores
     keywords it does not know (a yaml's `loss_bins`, `fsdp`, ...). It takes
     the same `pretrained`/`model_name` contract as `stable_diffusion_2`
-    (the tokenizer stays the tiny one)."""
+    (the tokenizer stays the tiny one). Unlike JAX's, it takes a yaml's
+    `remat`, so a tiny run of `SD-2-base-1024-sp.yaml` rematerializes as
+    the full-width one does."""
     pretrained_path = _pretrained_dir(pretrained, model_name)
     unet_cfg, train_lora_only = _with_lora(
         UNetConfig(in_channels=4, out_channels=4, block_out_channels=(32, 64),
@@ -306,6 +312,7 @@ def stable_diffusion_tiny(val_guidance_scales: Optional[List[float]] = None,
         inference_scheduler=inference_scheduler,
         val_guidance_scales=val_guidance_scales,
         pretrained_path=pretrained_path, train_lora_only=train_lora_only,
+        remat=bool(remat),
         val_metric_names=tuple(val_metrics or ("MeanSquaredError",)),
         allow_random_tower_weights=bool(allow_random_tower_weights))
 

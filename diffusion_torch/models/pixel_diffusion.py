@@ -56,11 +56,12 @@ class PixelDiffusion:
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                timesteps: Optional[torch.Tensor] = None
+                timesteps: Optional[torch.Tensor] = None,
+                dropout_key: Optional[Tuple[int, ...]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (prediction, target, timesteps), the first two fp32 (B, H, W,
         3). Timesteps, then noise, are drawn from `generator` unless
-        given."""
+        given. `dropout_key` keys the UNet's dropout in training mode."""
         device = self.device
         inputs = batch[self.image_key].to(device, torch.float32)
         with torch.no_grad():
@@ -82,8 +83,10 @@ class PixelDiffusion:
         noise = noise.to(device, torch.float32)
         noised = self.noise_scheduler.add_noise(inputs, noise, timesteps)
         # NHWC memory viewed as NCHW: channels_last, no copy
+        if not self.unet.drops:
+            dropout_key = None
         pred = self.unet(noised.permute(0, 3, 1, 2), timesteps,
-                         conditioning).permute(0, 2, 3, 1)
+                         conditioning, dropout_key).permute(0, 2, 3, 1)
         if self.prediction_type == "sample":
             target = inputs
         elif self.prediction_type == "epsilon":
@@ -104,8 +107,11 @@ class PixelDiffusion:
     def loss_fn(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                timesteps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.loss(self.forward(batch, generator, noise, timesteps))
+                timesteps: Optional[torch.Tensor] = None,
+                dropout_key: Optional[Tuple[int, ...]] = None
+                ) -> torch.Tensor:
+        return self.loss(self.forward(batch, generator, noise, timesteps,
+                                      dropout_key))
 
     # ---------------- generation ----------------
     def embed_prompts(self, prompt_ids: torch.Tensor,

@@ -128,37 +128,64 @@ class StableDiffusion:
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
                 timesteps: Optional[torch.Tensor] = None,
-                latent_noise: Optional[torch.Tensor] = None
+                latent_noise: Optional[torch.Tensor] = None,
+                examples: Optional[Tuple[int, int]] = None,
+                dropout_key: Optional[Tuple[int, ...]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Diffusion forward pass -> (prediction, target, timesteps), the
         first two fp32 (B, H/8, W/8, 4). A batch of precomputed latents
         (on a `precomputed_latents` model) is used as it is; otherwise its
         `image` and `captions` are encoded by the frozen VAE and CLIP
         towers. The posterior's eps (raw batches only), then timesteps,
-        then noise are drawn from `generator` unless given."""
+        then noise are drawn from `generator` unless given; with
+        `examples=(offset, total)` the batch is rows offset.. of a
+        `total`-example batch, whose draws are made whole and sliced (a
+        rank of a process mesh). Where the UNet drops (training mode,
+        dropout > 0), the masks are keyed by `dropout_key` or by an integer
+        drawn after the noise. Under sequence parallelism the
+        prediction and target are this rank's rows."""
         device = self.device
+
+        def draw(shape, fn):
+            if examples is None:
+                return fn(tuple(shape))
+            offset, total = examples
+            return fn((total, *shape[1:]))[offset:offset + shape[0]]
+
         if self.precomputed_latents and _LATENTS in batch:
             latents = batch[_LATENTS].to(device, torch.float32)
             conditioning = batch[_CAPTIONS].to(device, torch.float32)
         else:
+            if latent_noise is None and examples is not None:
+                b, h, w = batch[_IMAGE].shape[:3]
+                latent_noise = draw(
+                    (b, h // 8, w // 8, self.unet.config.in_channels),
+                    lambda shp: torch.randn(shp, generator=generator,
+                                            device=device))
             latents = self.encode_images(batch[_IMAGE], latent_noise,
                                          generator)
             with torch.no_grad():
                 conditioning = self.encode_text(batch[_IDS])
         bsz = latents.shape[0]
         if timesteps is None:
-            timesteps = torch.randint(
-                0, self.noise_scheduler.num_train_timesteps, (bsz,),
-                generator=generator, device=device)
+            timesteps = draw((bsz,), lambda shp: torch.randint(
+                0, self.noise_scheduler.num_train_timesteps, shp,
+                generator=generator, device=device))
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator,
-                                device=device, dtype=torch.float32)
+            noise = draw(latents.shape, lambda shp: torch.randn(
+                shp, generator=generator, device=device,
+                dtype=torch.float32))
         timesteps = timesteps.to(device)
         noise = noise.to(device, torch.float32)
+        if not self.unet.drops:
+            dropout_key = None
+        elif dropout_key is None:
+            dropout_key = (int(torch.randint(
+                0, 2 ** 62, (1,), generator=generator, device=device)),)
         noised = self.noise_scheduler.add_noise(latents, noise, timesteps)
         # NHWC memory viewed as NCHW: channels_last, no copy
         pred = self.unet(noised.permute(0, 3, 1, 2), timesteps,
-                         conditioning).permute(0, 2, 3, 1)
+                         conditioning, dropout_key).permute(0, 2, 3, 1)
         if self.prediction_type == "epsilon":
             target = noise
         elif self.prediction_type == "sample":
@@ -169,6 +196,11 @@ class StableDiffusion:
         else:
             raise ValueError(
                 f"unknown prediction_type {self.prediction_type!r}")
+        if pred.shape[1] != target.shape[1]:
+            # the UNet returned this rank's rows of a split image
+            from diffusion_torch.ops.attention import active_shard
+            from diffusion_torch.parallel.sharding import take_rows
+            target = take_rows(target, active_shard(), dim=1)
         return pred, target, timesteps
 
     def loss(self, outputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -199,24 +231,26 @@ class StableDiffusion:
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
                 timesteps: Optional[torch.Tensor] = None,
-                latent_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Scalar training loss; the function the trainer backpropagates."""
+                latent_noise: Optional[torch.Tensor] = None,
+                **kwargs: Any) -> torch.Tensor:
+        """Scalar training loss; the function the trainer backpropagates
+        (`forward`'s keywords pass through)."""
         return self.loss(self.forward(batch, generator, noise, timesteps,
-                                      latent_noise))
+                                      latent_noise, **kwargs))
 
     @torch.no_grad()
     def eval_forward(self, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None,
                      noise: Optional[torch.Tensor] = None,
                      timesteps: Optional[torch.Tensor] = None,
-                     latent_noise: Optional[torch.Tensor] = None
-                     ) -> Dict[str, Any]:
+                     latent_noise: Optional[torch.Tensor] = None,
+                     **kwargs: Any) -> Dict[str, Any]:
         """The eval loop's forward: prediction, target and timesteps for
         the MSE; `generated` stays empty (the eval's images per val
         guidance scale come from `metrics.generation_metrics`'
         `GenerationMetricsHook`)."""
         pred, target, t = self.forward(batch, generator, noise, timesteps,
-                                       latent_noise)
+                                       latent_noise, **kwargs)
         return {"pred": pred, "target": target, "timesteps": t,
                 "generated": {}}
 

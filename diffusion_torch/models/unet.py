@@ -5,18 +5,42 @@ Counterpart of `diffusion_tpu/models/unet.py` with diffusers' module names
 UNet2DConditionModel state_dict loads as it is. NCHW in and out (the JAX
 module is NHWC); the activations are kept in channels_last memory, whose
 layout is the JAX one. Trains with autograd through the GroupNorm and flash
-kernels' backward halves; `remat` and dropout > 0 raise (ROADMAP.md queue 1
-item 5). `UNetConfig.lora_rank > 0` adds LoRA adapters to every attention
-projection (`layers.Attention`, `models/lora.py`).
+kernels' backward halves. `UNetConfig.lora_rank > 0` adds LoRA adapters to
+every attention projection (`layers.Attention`, `models/lora.py`).
+
+`remat=True` rematerializes each ResnetBlock and Transformer2D in the
+backward (`torch.utils.checkpoint`, non-reentrant) under JAX's "dots"
+policy: the outputs of matrix products without batch dimensions (`mm`,
+`addmm`: every Linear), of convolutions (JAX saves the ResnetBlock convs'
+`conv_out` by default, `DIFFUSION_TPU_SAVE_CONVS=1`; here every conv of
+the block, its 1x1 shortcut too) and of the flash and ring attention ops
+(JAX's `flash_out`/`flash_lse`) are kept; norms, activations, attention's
+batched products and the dropout masks are recomputed. The attention
+kernels are dispatcher ops (`torch.library.custom_op`) so that the policy
+sees them: the O(S^2) forward never runs again in the backward.
+
+`forward(..., dropout_key=)` turns on ResnetBlock dropout
+(`config.dropout`), each block's mask drawn from the key and its index,
+so a recomputed block draws it again (JAX: `deterministic=False` with a
+`dropout` rng).
+
+Under `ops.attention.sequence_parallel` the body splits its rows over the
+sp group wherever each shard keeps >= 2 rows (JAX's `constrain_batch`
+rule); the deeper stages run whole on every rank, joined by a gather on
+the way down and a slice on the way up. The output is then this rank's
+rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from diffusion_torch.models.layers import (CHANNELS_LAST, Container, Conv2d, Downsample,
                                            GroupNorm, ResnetBlock,
@@ -24,7 +48,28 @@ from diffusion_torch.models.layers import (CHANNELS_LAST, Container, Conv2d, Dow
                                            Upsample, timestep_embedding)
 
 __all__ = ["UNetConfig", "UNet2DCondition", "SD2_BASE_UNET", "PIXEL_UNET",
-           "group_norm_shapes"]
+           "group_norm_shapes", "remat_saved_ops"]
+
+
+def remat_saved_ops() -> frozenset:
+    """The ops whose outputs a rematerialized block keeps (JAX's "dots"
+    policy with the conv and flash names)."""
+    from diffusion_torch.ops.flash_attention import flash_attention_op
+    from diffusion_torch.ops.ring_attention import ring_attention_op
+    aten = torch.ops.aten
+    return frozenset({aten.mm.default, aten.addmm.default,
+                      aten.convolution.default, flash_attention_op,
+                      ring_attention_op})
+
+
+def _dots_policy(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return create_selective_checkpoint_contexts(
+        functools.partial(_dots_policy, remat_saved_ops()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +144,8 @@ def group_norm_shapes(config: UNetConfig, batch: int, side: int):
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig = SD2_BASE_UNET,
                  dtype: torch.dtype = torch.float32, remat: bool = False):
-        if remat:
-            raise NotImplementedError(
-                "UNet remat comes with ROADMAP.md queue 1 item 5 (remat and "
-                "dropout)")
         super().__init__()
-        self.config, self.dtype = config, dtype
+        self.config, self.dtype, self.remat = config, dtype, bool(remat)
         chans = config.block_out_channels
         heads = config.attention_head_dim
         groups = config.norm_num_groups
@@ -167,36 +208,76 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = GroupNorm(groups, chans[0], act="silu")
         self.conv_out = Conv2d(chans[0], config.out_channels, 3, padding=1)
+        for i, m in enumerate(m for m in self.modules()
+                              if isinstance(m, ResnetBlock)):
+            m.block_index = i
+
+    @property
+    def drops(self) -> bool:
+        """Whether the forward drops: training mode and a ResnetBlock with
+        dropout > 0."""
+        return self.training and any(
+            m.dropout > 0 for m in self.modules()
+            if isinstance(m, ResnetBlock))
+
+    def _block(self, module: nn.Module, *args):
+        """Run a ResnetBlock or Transformer2D, rematerialized under
+        `remat` where autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False,
+                              context_fn=_remat_context)
+        return module(*args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                dropout_key: Optional[Sequence[int]] = None) -> torch.Tensor:
         """sample (B, Cin, H, W), timesteps (B,) or scalar, context
-        (B, S, cross_dim) -> fp32 (B, Cout, H, W)."""
+        (B, S, cross_dim) -> fp32 (B, Cout, H, W), or this rank's rows of
+        it under sequence parallelism. `dropout_key` (ints) turns on
+        dropout."""
+        from diffusion_torch.ops.attention import active_shard
+        from diffusion_torch.parallel.sharding import gather_rows, take_rows
         cfg = self.config
+        group = active_shard()
+
+        def split(rows):
+            """The shard for activations of `rows` rows (whole image)."""
+            return group if group is not None and group.holds(rows) else None
+
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(self.dtype))
         context = encoder_hidden_states.to(self.dtype)
-        h = self.conv_in(sample.to(self.dtype).contiguous(
-            memory_format=CHANNELS_LAST))
+        rows = sample.shape[2]
+        shard = split(rows)
+        x = sample.to(self.dtype).contiguous(memory_format=CHANNELS_LAST)
+        if shard is not None:
+            x = take_rows(x, shard)
+        h = self.conv_in(x, shard)
+        key = None if dropout_key is None else tuple(dropout_key)
 
         residuals = [h]
         for block in self.down_blocks:
             attns = getattr(block, "attentions", None)
             for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = self._block(resnet, h, temb, key, shard)
                 if attns is not None:
-                    h = attns[j](h, context)
+                    h = self._block(attns[j], h, context, shard)
                 residuals.append(h)
             if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
+                if shard is not None and h.shape[2] % 2:
+                    h, shard = gather_rows(h, shard), None
+                h = block.downsamplers[0](h, shard)
+                rows //= 2
+                if shard is not None and split(rows) is None:
+                    h, shard = gather_rows(h, shard), None
                 residuals.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context)
-        h = self.mid_block.resnets[1](h, temb)
+        h = self._block(self.mid_block.resnets[0], h, temb, key, shard)
+        h = self._block(self.mid_block.attentions[0], h, context, shard)
+        h = self._block(self.mid_block.resnets[1], h, temb, key, shard)
 
         for block in self.up_blocks:
             attns = getattr(block, "attentions", None)
@@ -207,10 +288,15 @@ class UNet2DCondition(nn.Module):
                 # slice of a channels_last cotangent)
                 h = torch.cat([h, residuals.pop()], dim=1).contiguous(
                     memory_format=CHANNELS_LAST)
-                h = resnet(h, temb)
+                h = self._block(resnet, h, temb, key, shard)
                 if attns is not None:
-                    h = attns[j](h, context)
+                    h = self._block(attns[j], h, context, shard)
             if hasattr(block, "upsamplers"):
-                h = block.upsamplers[0](h)
+                rows *= 2
+                h = block.upsamplers[0](h, shard)
+                if shard is None and split(rows) is not None:
+                    # whole -> split: every rank ran the whole stage
+                    shard = split(rows)
+                    h = take_rows(h, shard)
 
-        return self.conv_out(self.conv_norm_out(h)).float()
+        return self.conv_out(self.conv_norm_out(h, shard), shard).float()

@@ -43,6 +43,8 @@ _SIGNATURES = {
                                    _I, _I, *[_LL] * 12, _F, _P],
     "dt_group_norm_fwd": [*[_P] * 7, *[_I] * 9, _F, _I, _I, _I, _P],
     "dt_group_norm_bwd": [*[_P] * 11, *[_I] * 12, _P],
+    "dt_group_norm_fwd_stage": [*[_P] * 7, *[_I] * 10, _F, _I, _I, _I, _P],
+    "dt_group_norm_bwd_stage": [*[_P] * 13, *[_I] * 13, _P],
 }
 
 

@@ -1,25 +1,61 @@
-"""Attention dispatch: plain attention or the flash kernel.
+"""Attention dispatch: plain attention, the flash kernel, or under sequence
+parallelism the ring.
 
-Counterpart of `diffusion_tpu/ops/attention.py` without the sequence- and
-tensor-parallel contexts. Every entry point takes (B, S, H, D) q/k/v. The
-eligibility rule is the JAX one, with "the backend is a TPU" read as "the
-tensor lies on a CUDA device", plus what the CUDA kernels take: bf16 q/k/v
-with head dim 64. At 512px the bf16 UNet's S=4096 and S=1024
-self-attention run the kernel; cross-attention (77 keys), the S=256 and
-S=64 stages, CLIP's masked attention, and every fp32, fp16 or head-dim-128
-call stay on plain torch math (a matmul, a softmax and a matmul), which
-computes the same function (the JAX kernel runs in any dtype).
+Counterpart of `diffusion_tpu/ops/attention.py` without the tensor-parallel
+context (ROADMAP.md queue 1 item 9b). Every entry point takes (B, S, H, D)
+q/k/v. The eligibility rule is the JAX one, with "the backend is a TPU"
+read as "the tensor lies on a CUDA device", plus what the CUDA kernels
+take: bf16 q/k/v with head dim 64. At 512px the bf16 UNet's S=4096 and
+S=1024 self-attention run the kernel; cross-attention (77 keys), the S=256
+and S=64 stages, CLIP's masked attention, and every fp32, fp16 or
+head-dim-128 call stay on plain torch math (a matmul, a softmax and a
+matmul), which computes the same function (the JAX kernel runs in any
+dtype).
+
+`sequence_parallel(mesh, min_seq=)` (the Trainer enters it when the mesh's
+sp axis is > 1) makes `active_shard()` the rank's `RowShard`; the UNet then
+splits the rows of its body over the sp group and hands self-attention its
+token shard. Such a call with at least `min_seq` tokens in all runs as
+ring attention over the group (`ops/ring_attention.py`); a shorter one
+gathers K and V from the group (`parallel/sharding.py::gather_rows`) and
+attends locally. Cross-attention (77 keys) never takes the ring.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 
 from diffusion_torch.ops.flash_attention import flash_attention
 
-__all__ = ["multi_head_attention", "flash_eligible"]
+__all__ = ["multi_head_attention", "flash_eligible", "sequence_parallel",
+           "active_shard"]
+
+# (RowShard, min_seq) while a sequence_parallel context is active
+_SEQ_PARALLEL: list = [None]
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis_name: str = "sp", min_seq: int = 512):
+    """Split the UNet body's rows over the mesh's `axis_name` while active;
+    self-attention over >= `min_seq` tokens then runs as a ring. A no-op
+    where the mesh is None or its axis has one rank."""
+    from diffusion_torch.parallel.sharding import row_shard
+    shard = row_shard(mesh, axis_name)
+    prev = _SEQ_PARALLEL[0]
+    _SEQ_PARALLEL[0] = None if shard is None else (shard, int(min_seq))
+    try:
+        yield shard
+    finally:
+        _SEQ_PARALLEL[0] = prev
+
+
+def active_shard():
+    """The active sequence_parallel context's RowShard, or None."""
+    ctx = _SEQ_PARALLEL[0]
+    return None if ctx is None else ctx[0]
 
 
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,9 +90,20 @@ def flash_eligible(device_type: str, dtype: torch.dtype,
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scaled dot-product attention over (B, S, H, D) tensors."""
-    if flash_eligible(q.device.type, q.dtype, q.shape, k.shape,
-                      mask is not None):
+                         mask: Optional[torch.Tensor] = None,
+                         shard=None) -> torch.Tensor:
+    """Scaled dot-product attention over (B, S, H, D) tensors. With
+    `shard` (self-attention whose tokens the sp group splits), q/k/v are
+    this rank's token shards and so is the output."""
+    if shard is not None and mask is None:
+        ctx = _SEQ_PARALLEL[0]
+        min_seq = ctx[1] if ctx is not None else 512
+        if q.shape[1] * shard.size >= min_seq:
+            from diffusion_torch.ops.ring_attention import ring_attention
+            return ring_attention(q, k, v, shard)
+        from diffusion_torch.parallel.sharding import gather_rows
+        k, v = gather_rows(k, shard, dim=1), gather_rows(v, shard, dim=1)
+    if mask is None and flash_eligible(q.device.type, q.dtype, q.shape,
+                                       k.shape, False):
         return flash_attention(q, k, v)[0]
     return _xla_attention(q, k, v, mask)

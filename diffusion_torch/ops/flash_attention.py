@@ -8,9 +8,10 @@ logsumexp of the scaled scores, as `flash_attention_with_lse` returns them.
 The backward takes those and the output's cotangent and returns
 `(dq, dk, dv)`, as `flash_attention_bwd_with_lse` does.
 
-`flash_attention` is differentiable in q, k and v: a
-`torch.autograd.Function` whose forward saves `(q, k, v, out, lse)` only (no
-S x S residual), as JAX's `_flash_fwd_rule` does. On CUDA tensors it
+`flash_attention` is differentiable in q, k and v: a dispatcher op
+(`torch.library.custom_op`, `flash_attention_op`) whose forward saves
+`(q, k, v, out, lse)` only (no S x S residual), as JAX's `_flash_fwd_rule`
+does; a selective-checkpoint policy can keep its outputs by naming the op. On CUDA tensors it
 launches the kernels (`csrc/flash_attention.cu` forward,
 `csrc/flash_attention_bwd.cu` dQ and dK/dV: bf16, head dim 64, sequence
 lengths a multiple of 64) or raises; on CPU tensors it runs
@@ -20,13 +21,14 @@ mirror JAX's `_xla_attention_with_lse` and `_xla_attention_bwd_with_lse`.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from diffusion_torch.ops._build import LaunchCounter, library
 
-__all__ = ["flash_attention", "flash_attention_reference",
+__all__ = ["flash_attention", "flash_attention_op",
+           "flash_attention_reference",
            "flash_attention_cuda", "flash_attention_bwd_reference",
            "flash_attention_bwd_cuda", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dkv_cuda", "launches", "launches_bwd_dq",
@@ -54,16 +56,19 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, out: torch.Tensor,
-                                  lse: torch.Tensor, do: torch.Tensor
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  delta: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Plain backward from the saved lse: p = exp(s - lse) recomputed in
-    fp32, delta = rowsum(dO * O) in fp32, p and ds cast to the operands'
-    dtype before their products."""
+    fp32, delta = rowsum(dO * O) (B, H, Sq) in fp32 unless given (ring
+    attention computes it once for every KV block), p and ds cast to the
+    operands' dtype before their products."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(logits - lse[..., None])                   # (B, H, Sq, Sk)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)  # (B, H, Sq)
+    if delta is None:
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype), do)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
@@ -193,26 +198,32 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return (dq, *flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta))
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The kernels (CUDA) or the plain versions (CPU) as one differentiable
-    op; lse is an output for callers but carries no gradient."""
+@torch.library.custom_op("diffusion_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel (CUDA) or the plain version (CPU) as one dispatcher op,
+    so that a selective-checkpoint policy sees it and keeps its outputs
+    (`models/unet.py`'s remat), as JAX names `flash_out`/`flash_lse`."""
+    fwd = flash_attention_cuda if q.is_cuda else flash_attention_reference
+    return fwd(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_reference
-        out, lse = fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if q.is_cuda:
-            if not _view_ok(dout):
-                dout = dout.contiguous()
-            return flash_attention_bwd_cuda(q, k, v, out, lse, dout)
-        return flash_attention_bwd_reference(q, k, v, out, lse, dout)
+def _flash_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, *output)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    """lse is an output for callers but carries no gradient."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if q.is_cuda:
+        if not _view_ok(dout):
+            dout = dout.contiguous()
+        return flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    return flash_attention_bwd_reference(q, k, v, out, lse, dout)
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+flash_attention_op = torch.ops.diffusion_torch.flash_attention.default
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -221,4 +232,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     differentiable in q, k and v."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
-    return _FlashAttention.apply(q, k, v)
+    return _flash_op(q, k, v)

@@ -33,7 +33,12 @@ from diffusion_torch.ops._build import LaunchCounter, library
 
 __all__ = ["group_norm", "group_norm_reference", "group_norm_cuda",
            "group_norm_bwd_reference", "group_norm_bwd_cuda", "Plan", "plan",
-           "launches", "launches_bwd", "contiguity_copies"]
+           "group_norm_partials_cuda", "group_norm_apply_cuda",
+           "group_norm_bwd_partials_cuda", "group_norm_bwd_apply_cuda",
+           "group_norm_partials_reference", "group_norm_apply_reference",
+           "group_norm_bwd_partials_reference",
+           "group_norm_bwd_apply_reference", "launches", "launches_bwd",
+           "contiguity_copies"]
 
 launches = LaunchCounter()
 launches_bwd = LaunchCounter()
@@ -84,6 +89,21 @@ def group_norm_stats_reference(x: torch.Tensor, num_groups: int = 32,
                                  epsilon, None)[1:]
 
 
+def _dz_xhat(x, scale, bias, mean, rstd, g, num_groups, act):
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    xg = x.float().reshape(b, -1, num_groups, cg)
+    xhat = (xg - mean.reshape(b, 1, num_groups, 1)) * rstd.reshape(
+        b, 1, num_groups, 1)
+    dz = g.float().reshape(xg.shape)
+    sc = scale.float().reshape(num_groups, cg)
+    if act == "silu":
+        y = xhat * sc + bias.float().reshape(num_groups, cg)
+        sg = torch.sigmoid(y)
+        dz = dz * (sg * (1.0 + y * (1.0 - sg)))
+    return dz, xhat, sc
+
+
 def group_norm_bwd_reference(x: torch.Tensor, scale: torch.Tensor,
                              bias: torch.Tensor, mean: torch.Tensor,
                              rstd: torch.Tensor, g: torch.Tensor,
@@ -95,23 +115,14 @@ def group_norm_bwd_reference(x: torch.Tensor, scale: torch.Tensor,
     batch."""
     _check(x, num_groups, act)
     b, c = x.shape[0], x.shape[-1]
-    cg = c // num_groups
-    xg = x.float().reshape(b, -1, num_groups, cg)
-    rstd_g = rstd.reshape(b, 1, num_groups, 1)
-    xhat = (xg - mean.reshape(b, 1, num_groups, 1)) * rstd_g
-    dz = g.float().reshape(xg.shape)
-    sc = scale.float().reshape(num_groups, cg)
-    if act == "silu":
-        y = xhat * sc + bias.float().reshape(num_groups, cg)
-        s = torch.sigmoid(y)
-        dz = dz * (s * (1.0 + y * (1.0 - s)))
+    dz, xhat, sc = _dz_xhat(x, scale, bias, mean, rstd, g, num_groups, act)
     dscale = (dz * xhat).sum(dim=(0, 1)).reshape(c)
     dbias = dz.sum(dim=(0, 1)).reshape(c)
     dxhat = dz * sc
-    n = xg.shape[1] * cg
+    n = xhat.shape[1] * xhat.shape[3]
     m1 = dxhat.sum(dim=(1, 3), keepdim=True) / n
     m2 = (dxhat * xhat).sum(dim=(1, 3), keepdim=True) / n
-    dx = rstd_g * (dxhat - m1 - xhat * m2)
+    dx = rstd.reshape(b, 1, num_groups, 1) * (dxhat - m1 - xhat * m2)
     return dx.reshape(x.shape).to(x.dtype), dscale, dbias
 
 
@@ -193,7 +204,8 @@ def _blocks_per_sm(p: Plan) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan(b: int, l: int, c: int, groups: int, itemsize: int,
-         backward: bool = False, aligned: bool = True) -> Plan:
+         backward: bool = False, aligned: bool = True,
+         split: bool = False) -> Plan:
     """The kernels' plan for a (b, l, c) slab of `itemsize`-byte elements.
 
     One launch where a cluster of <= 8 blocks (else <= 16, non-portable)
@@ -203,8 +215,9 @@ def plan(b: int, l: int, c: int, groups: int, itemsize: int,
     work then overlaps the other block's copies; the smallest cluster,
     since each block pays its own statistics and barriers; the fewest
     blocks; the wider slice).
-    Otherwise two launches over 64 KB row chunks of the narrowest slice of
-    >= 128 bytes."""
+    Otherwise, and always with `split` (the sequence-parallel stages), two
+    launches over 64 KB row chunks of the narrowest slice of >= 128
+    bytes."""
     cg = c // groups
     tiles = 2 if backward else 1
     vec = 16 // itemsize if aligned and (c * itemsize) % 16 == 0 else 1
@@ -220,8 +233,9 @@ def plan(b: int, l: int, c: int, groups: int, itemsize: int,
                     itemsize, w // cg)
 
     # portable clusters first, then the non-portable sizes up to 16
-    for sizes in (range(1, MAX_CLUSTER + 1),
-                  range(MAX_CLUSTER + 1, MAX_CLUSTER_NONPORTABLE + 1)):
+    for sizes in () if split else (
+            range(1, MAX_CLUSTER + 1),
+            range(MAX_CLUSTER + 1, MAX_CLUSTER_NONPORTABLE + 1)):
         best, best_key = None, None
         for w in widths:
             if w * itemsize < 64 and w != widths[-1]:
@@ -369,6 +383,299 @@ def group_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
     return dx, dparams[0], dparams[1]
 
 
+# ---- sequence parallelism: one image's rows split over an sp group -----
+#
+# The two-launch (split) path's stages, with a merge across the group
+# between them. Forward: stage 1 writes each chunk's per-group (mean, M2)
+# of this rank's rows; the group all-gathers them; stage 2 Chan-merges the
+# group's partials in rank and chunk order (the two-pass accuracy of the
+# one-call kernel, ROADMAP.md fault 4) and applies. Backward: stage 1
+# writes each chunk's per-channel (sum dz, sum dz x-hat) and per-group
+# (sum scale dz, sum scale dz x-hat); the group all-gathers the per-group
+# sums; stage 2 merges them over the whole image for dx, and sums this
+# rank's per-channel ones into dscale/dbias (this rank's rows' part; the
+# parameters' gradient reduction sums the group's parts). On CPU tensors
+# the plain versions keep one chunk a rank, (B, 1, G, 2) partials.
+
+
+def _stage_plan(x, num_groups, backward, *others):
+    b, c = x.shape[0], x.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return plan(b, x.numel() // (b * c), c, num_groups, x.element_size(),
+                backward, aligned, split=True)
+
+
+def _check_slab(x, num_groups, act, what):
+    _check(x, num_groups, act)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"group_norm kernel takes bf16 or fp32, not {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous channels-last slab")
+    if x.numel() == 0:
+        raise ValueError("group_norm kernel got an empty tensor")
+
+
+def group_norm_partials_cuda(x: torch.Tensor, num_groups: int = 32
+                             ) -> torch.Tensor:
+    """Stage 1 of the forward on a CUDA slab: (B, parts, G, 2) fp32, each
+    row chunk's per-group (mean, M2)."""
+    _check_slab(x, num_groups, None, "group_norm stage 1")
+    b, c = x.shape[0], x.shape[-1]
+    pl = _stage_plan(x, num_groups, False)
+    part = torch.empty((b, pl.parts, num_groups, 2), device=x.device,
+                       dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        rc = library().dt_group_norm_fwd_stage(
+            x.data_ptr(), None, None, None, None, None, part.data_ptr(),
+            b, x.numel() // (b * c), c, num_groups, pl.width, pl.parts,
+            pl.rows, pl.threads, 1, 1, 0.0, 0,
+            int(x.dtype == torch.bfloat16), pl.vec,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"group_norm stage 1 launch failed: CUDA error "
+                           f"{rc}")
+    launches.add()
+    return part
+
+
+def group_norm_apply_cuda(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, partials: torch.Tensor,
+                          num_groups: int = 32, epsilon: float = 1e-5,
+                          act: Optional[str] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Stage 2 of the forward: `partials` (n, B, parts, G, 2), every rank's
+    stage 1 in rank order, merged; returns (y, mean, rstd)."""
+    _check_slab(x, num_groups, act, "group_norm stage 2")
+    b, c = x.shape[0], x.shape[-1]
+    _check_params(x, c, scale=scale, bias=bias)
+    pl = _stage_plan(x, num_groups, False)
+    n = partials.shape[0]
+    if (partials.shape != (n, b, pl.parts, num_groups, 2)
+            or partials.dtype != torch.float32
+            or not partials.is_contiguous() or partials.device != x.device):
+        raise ValueError(f"partials must be contiguous fp32 (n, {b}, "
+                         f"{pl.parts}, {num_groups}, 2) on {x.device}")
+    y = torch.empty_like(x)
+    # two tensors, not views of one: the sp op returns both
+    mean, rstd = (torch.empty((b, num_groups), device=x.device,
+                              dtype=torch.float32) for _ in range(2))
+    with torch.cuda.device(x.device):
+        rc = library().dt_group_norm_fwd_stage(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), partials.data_ptr(),
+            b, x.numel() // (b * c), c, num_groups, pl.width, pl.parts,
+            pl.rows, pl.threads, 2, n, float(epsilon), int(act == "silu"),
+            int(x.dtype == torch.bfloat16), pl.vec,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"group_norm stage 2 launch failed: CUDA error "
+                           f"{rc}")
+    launches.add()
+    return y, mean, rstd
+
+
+def group_norm_bwd_partials_cuda(x, scale, bias, mean, rstd, g,
+                                 num_groups: int = 32,
+                                 act: Optional[str] = None):
+    """Stage 1 of the backward: (cpart (B, parts, C, 2) per-channel (sum dz,
+    sum dz x-hat), gpart (B, parts, G, 2) per-group (sum scale dz, sum
+    scale dz x-hat)) over this slab's row chunks."""
+    _check_slab(x, num_groups, act, "group_norm backward stage 1")
+    b, c = x.shape[0], x.shape[-1]
+    _check_params(x, c, scale=scale, bias=bias)
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError("the cotangent must be a contiguous slab like x")
+    pl = _stage_plan(x, num_groups, True, g)
+    cpart = torch.empty((b, pl.parts, c, 2), device=x.device,
+                        dtype=torch.float32)
+    gpart = torch.empty((b, pl.parts, num_groups, 2), device=x.device,
+                        dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        rc = library().dt_group_norm_bwd_stage(
+            x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), None, None, None,
+            cpart.data_ptr(), gpart.data_ptr(), None, None, b,
+            x.numel() // (b * c), c, num_groups, pl.width, pl.parts, pl.rows,
+            pl.threads, 1, 1, int(act == "silu"),
+            int(x.dtype == torch.bfloat16), pl.vec,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"group_norm backward stage 1 launch failed: "
+                           f"CUDA error {rc}")
+    launches_bwd.add()
+    return cpart, gpart
+
+
+def group_norm_bwd_apply_cuda(x, scale, bias, mean, rstd, g, cpart,
+                              gpartials, num_groups: int = 32,
+                              act: Optional[str] = None):
+    """Stage 2 of the backward: `gpartials` (n, B, parts, G, 2), every
+    rank's per-group sums in rank order; returns (dx, dscale, dbias), the
+    last two over this slab's rows."""
+    _check_slab(x, num_groups, act, "group_norm backward stage 2")
+    b, c = x.shape[0], x.shape[-1]
+    pl = _stage_plan(x, num_groups, True, g)
+    n = gpartials.shape[0]
+    if (gpartials.shape != (n, b, pl.parts, num_groups, 2)
+            or not gpartials.is_contiguous()
+            or cpart.shape != (b, pl.parts, c, 2)):
+        raise ValueError("partials do not match the slab's plan")
+    dx = torch.empty_like(x)
+    dparams = torch.empty((2, c), device=x.device, dtype=torch.float32)
+    bpart = torch.empty((b, c, 2), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        tickets = _tickets(x.device, stream, c // pl.width)
+        rc = library().dt_group_norm_bwd_stage(
+            x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            dparams[0].data_ptr(), dparams[1].data_ptr(), cpart.data_ptr(),
+            gpartials.data_ptr(), bpart.data_ptr(), tickets.data_ptr(), b,
+            x.numel() // (b * c), c, num_groups, pl.width, pl.parts, pl.rows,
+            pl.threads, 2, n, int(act == "silu"),
+            int(x.dtype == torch.bfloat16), pl.vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"group_norm backward stage 2 launch failed: "
+                           f"CUDA error {rc}")
+    launches_bwd.add()
+    return dx, dparams[0], dparams[1]
+
+
+def group_norm_partials_reference(x: torch.Tensor, num_groups: int = 32
+                                  ) -> torch.Tensor:
+    """Plain stage 1: (B, 1, G, 2), the per-group two-pass (mean, M2) of
+    this slab's rows."""
+    _check(x, num_groups, None)
+    b, c = x.shape[0], x.shape[-1]
+    xg = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    m2 = (xg - mean).square().sum(dim=(1, 3))
+    return torch.stack([mean.reshape(b, num_groups), m2], -1)[:, None]
+
+
+def _merged_stats(partials, count, epsilon):
+    """Chan's merge of (n, B, parts, G, 2) partials of `count` elements
+    each, in rank then chunk order: (mean, rstd) (B, G)."""
+    n_, b, parts, g, _ = partials.shape
+    flat = partials.permute(1, 3, 0, 2, 4).reshape(b, g, n_ * parts, 2)
+    tot, mean, m2 = 0.0, flat[..., 0, 0] * 0, flat[..., 0, 1] * 0
+    for k in range(n_ * parts):
+        mb, m2b = flat[..., k, 0], flat[..., k, 1]
+        new = tot + count
+        d = mb - mean
+        mean = mean + d * (count / new)
+        m2 = m2 + m2b + d * d * (tot * count / new)
+        tot = new
+    return mean, torch.rsqrt(m2 / tot + epsilon)
+
+
+def group_norm_apply_reference(x, scale, bias, partials, num_groups=32,
+                               epsilon=1e-5, act=None):
+    """Plain stage 2: (y, mean, rstd) from every rank's stage-1 partials
+    (n, B, 1, G, 2)."""
+    _check(x, num_groups, act)
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    count = (x.numel() // (b * c)) * cg
+    mean, rstd = _merged_stats(partials, count, epsilon)
+    xg = x.float().reshape(b, -1, num_groups, cg)
+    y = ((xg - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(
+        x.shape) * scale.float() + bias.float()
+    if act == "silu":
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype), mean, rstd
+
+
+def group_norm_bwd_partials_reference(x, scale, bias, mean, rstd, g,
+                                      num_groups=32, act=None):
+    """Plain stage 1 of the backward: (cpart (B, 1, C, 2), gpart
+    (B, 1, G, 2)) as the kernel's, over this slab's rows."""
+    _check(x, num_groups, act)
+    b, c = x.shape[0], x.shape[-1]
+    dz, xhat, sc = _dz_xhat(x, scale, bias, mean, rstd, g, num_groups, act)
+    cpart = torch.stack([dz.sum(1).reshape(b, c),
+                         (dz * xhat).sum(1).reshape(b, c)], -1)[:, None]
+    dxhat = dz * sc
+    gpart = torch.stack([dxhat.sum(dim=(1, 3)),
+                         (dxhat * xhat).sum(dim=(1, 3))], -1)[:, None]
+    return cpart, gpart
+
+
+def group_norm_bwd_apply_reference(x, scale, bias, mean, rstd, g, cpart,
+                                   gpartials, num_groups=32, act=None):
+    """Plain stage 2 of the backward: (dx, dscale, dbias) from every rank's
+    per-group sums (n, B, 1, G, 2), dscale/dbias over this slab's rows."""
+    _check(x, num_groups, act)
+    b, c = x.shape[0], x.shape[-1]
+    dz, xhat, sc = _dz_xhat(x, scale, bias, mean, rstd, g, num_groups, act)
+    n = gpartials.shape[0] * (x.numel() // (b * c)) * (c // num_groups)
+    sums = gpartials.sum(dim=(0, 2))                       # (B, G, 2)
+    m1 = (sums[..., 0] / n)[:, None, :, None]
+    m2 = (sums[..., 1] / n)[:, None, :, None]
+    dx = rstd.reshape(b, 1, num_groups, 1) * (dz * sc - m1 - xhat * m2)
+    per_c = cpart.sum(dim=(0, 1))                          # (C, 2)
+    return dx.reshape(x.shape).to(x.dtype), per_c[:, 1], per_c[:, 0]
+
+
+def _all_partials(part: torch.Tensor, group: str) -> torch.Tensor:
+    """Every rank's partials of the sp group, in rank order: (n, ...)."""
+    import torch.distributed as dist
+
+    from diffusion_torch.parallel.sharding import process_group
+    grp = process_group(group)
+    n = dist.get_world_size(grp)
+    part = part.contiguous()
+    out = part.new_empty((n * part.shape[0], *part.shape[1:]))
+    dist.all_gather_into_tensor(out, part, group=grp)
+    return out.view(n, *part.shape)
+
+
+@torch.library.custom_op("diffusion_torch::group_norm_sp", mutates_args=())
+def _group_norm_sp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   num_groups: int, epsilon: float, act: str, group: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    act_ = act or None
+    if x.is_cuda:
+        part = group_norm_partials_cuda(x, num_groups)
+        return group_norm_apply_cuda(x, scale, bias,
+                                     _all_partials(part, group), num_groups,
+                                     epsilon, act_)
+    part = group_norm_partials_reference(x, num_groups)
+    return group_norm_apply_reference(x, scale, bias,
+                                      _all_partials(part, group), num_groups,
+                                      epsilon, act_)
+
+
+def _gn_sp_setup(ctx, inputs, output):
+    x, scale, bias, ctx.num_groups, _, ctx.act, ctx.group = inputs
+    ctx.save_for_backward(x, scale, bias, output[1], output[2])
+
+
+def _gn_sp_backward(ctx, g, _dmean, _drstd):
+    x, scale, bias, mean, rstd = ctx.saved_tensors
+    act = ctx.act or None
+    if x.is_cuda:
+        if not g.is_contiguous():
+            g = g.contiguous()
+            contiguity_copies.add()
+        cpart, gpart = group_norm_bwd_partials_cuda(
+            x, scale, bias, mean, rstd, g, ctx.num_groups, act)
+        grads = group_norm_bwd_apply_cuda(
+            x, scale, bias, mean, rstd, g, cpart,
+            _all_partials(gpart, ctx.group), ctx.num_groups, act)
+    else:
+        cpart, gpart = group_norm_bwd_partials_reference(
+            x, scale, bias, mean, rstd, g, ctx.num_groups, act)
+        grads = group_norm_bwd_apply_reference(
+            x, scale, bias, mean, rstd, g, cpart,
+            _all_partials(gpart, ctx.group), ctx.num_groups, act)
+    return (*grads, None, None, None, None)
+
+
+_group_norm_sp.register_autograd(_gn_sp_backward, setup_context=_gn_sp_setup)
+
+
 class _GroupNorm(torch.autograd.Function):
     """The kernels (CUDA) or the plain versions (CPU) as one differentiable
     op."""
@@ -404,11 +711,17 @@ class _GroupNorm(torch.autograd.Function):
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, epsilon: float = 1e-5,
-               act: Optional[str] = None) -> torch.Tensor:
+               act: Optional[str] = None, shard=None) -> torch.Tensor:
     """GroupNorm with fp32 statistics over channels-last `x` (..., C),
     optionally fused with SiLU; `scale`/`bias` are fp32 (C,).
     Differentiable in x, scale and bias. Raises when C is not a multiple of
-    `num_groups`."""
+    `num_groups`. With `shard` (`parallel/sharding.py::RowShard`), `x` is
+    this rank's rows of each image and the statistics span the sp
+    group's."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"group_norm runs on CUDA or CPU, not {x.device}")
+    if shard is not None:
+        _check(x, num_groups, act)
+        return _group_norm_sp(x, scale, bias, num_groups, float(epsilon),
+                              act or "", shard.group)[0]
     return _GroupNorm.apply(x, scale, bias, num_groups, epsilon, act)

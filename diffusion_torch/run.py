@@ -8,6 +8,14 @@ hydra wrapper): it errors when no config is given, and overrides use the
 same key=value syntax. The yamls' `diffusion_tpu.*` `_target_`s compose the
 port's modules. The run is on CUDA; a tiny-geometry yaml runs on the CPU
 with `+model.device=cpu +trainer.device=cpu`.
+
+On several processes, one a card:
+
+    torchrun --nproc_per_node N -m diffusion_torch.run --config-path yamls \
+        --config-name SD-2-base-1024-sp.yaml [overrides]
+
+Each rank joins the process group (NCCL, its card `cuda:LOCAL_RANK`; gloo
+on the CPU) before the run is composed (`parallel/dist.py`).
 """
 
 import argparse
@@ -28,7 +36,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "(reference parity: run.py requires an explicit config)")
 
     from diffusion_torch.config import load_config
+    from diffusion_torch.parallel import dist
     from diffusion_torch.train.train import train
+
+    dist.initialize()
 
     name = args.config_name
     if not name.endswith((".yaml", ".yml")):

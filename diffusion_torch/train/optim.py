@@ -55,15 +55,26 @@ def adamw(lr: float = 1e-4, betas: Sequence[float] = (0.9, 0.999),
             "mu_dtype": mu_dtype}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every element, fp32 (optax.global_norm)."""
+def global_norm(tensors: Sequence[torch.Tensor],
+                group: Optional[object] = None) -> torch.Tensor:
+    """sqrt(sum of squares) over every element, fp32 (optax.global_norm).
+    With a process `group`, the tensors are this rank's shards and the
+    squares are summed over the group's ranks."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return norm
+    import torch.distributed as dist
+    square = norm * norm
+    dist.all_reduce(square, group=group)
+    return torch.sqrt(square)
 
 
 class AdamW:
     """optax's clip + adamw chain over a list of fp32 parameters, reading
-    their `.grad`. `count` is optax's update count."""
+    their `.grad` (or the gradients `step` is given: a process mesh's
+    trainer hands the local shards of the parameters and their gradients,
+    and their global norm). `count` is optax's update count."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-4,
                  betas: Sequence[float] = (0.9, 0.999), eps: float = 1e-8,
@@ -114,12 +125,14 @@ class AdamW:
         return float(np.float32(self.lr) * np.float32(self.schedule(count)))
 
     @torch.no_grad()
-    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
-        """One update from the parameters' `.grad` (clipped in place);
-        `grad_norm` is their global norm when the caller has it already.
-        Moments and parameters update in place, so the step holds two
-        parameter-sized temporaries at most."""
-        grads = [p.grad for p in self.params]
+    def step(self, grad_norm: Optional[torch.Tensor] = None,
+             grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update from the parameters' `.grad`, or `grads` in their
+        order (clipped in place); `grad_norm` is their global norm when the
+        caller has it already. Moments and parameters update in place, so
+        the step holds two parameter-sized temporaries at most."""
+        if grads is None:
+            grads = [p.grad for p in self.params]
         if self.grad_clip_norm:
             if grad_norm is None:
                 grad_norm = global_norm(grads)

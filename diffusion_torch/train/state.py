@@ -28,6 +28,9 @@ class TrainState:
     params: Dict[str, torch.nn.Parameter]
     optimizer: Any
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # on a process mesh: `params` are this rank's FSDP shards (views of the
+    # sharded parameters' local storage), as are the moments and the EMA
+    shards: bool = False
 
 
 @dataclasses.dataclass

@@ -8,9 +8,13 @@ wandb handling (:70-84), algorithms (:86-108), callbacks (:110-114), LR
 scheduler (:116), Trainer (:118-128), then eval-first + fit (:130-138).
 
 The yamls' `_target_`s name `diffusion_tpu.*`; the port's config loader
-resolves them under `diffusion_torch.`. The world size is torch.distributed's
-when it is initialised, else 1. There is no compile cache (XLA's, out of
-scope for the port).
+resolves them under `diffusion_torch.`. Launched on several processes
+(`torchrun`), it joins the process group first (`parallel/dist.py`) and,
+where the yaml has `trainer.mesh_config`, builds the process mesh before
+the readers, so the batch divides over the ranks that read different
+examples (dcn x fsdp x data; an sp group shares its examples) and the
+readers split them so (`utils/device.py::rank_and_world`). There is no
+compile cache (XLA's, out of scope for the port).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import numpy as np
 
 from diffusion_torch.config import instantiate, select
 from diffusion_torch.config.loader import _import_target
+from diffusion_torch.parallel import dist
+from diffusion_torch.parallel.mesh import create_mesh
 from diffusion_torch.train import optim as optim_mod
 from diffusion_torch.train.optim import adamw, constant_scheduler
 from diffusion_torch.train.trainer import Evaluator, Trainer
@@ -46,6 +52,9 @@ def _build_loggers(config: Dict[str, Any]):
 def build_trainer(config: Dict[str, Any]) -> Trainer:
     seed = int(config.get("seed", 17))
     np.random.seed(seed)
+    trainer_conf = dict(config.get("trainer") or {})
+    if dist.initialize() and trainer_conf.get("mesh_config"):
+        trainer_conf["mesh"] = create_mesh(**trainer_conf.pop("mesh_config"))
 
     model = instantiate(config["model"])
 
@@ -96,7 +105,6 @@ def build_trainer(config: Dict[str, Any]) -> Trainer:
     callbacks = [instantiate(c) for c in (config.get("callbacks") or {}).values()
                  if c is not None]
 
-    trainer_conf = dict(config.get("trainer") or {})
     trainer_conf.pop("_target_", None)
     max_duration = trainer_conf.get("max_duration", "1ba")
     scale_schedule_ratio = float(config.get(

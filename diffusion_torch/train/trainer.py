@@ -65,11 +65,43 @@ leaves them apart). With `checkpoint_on_preemption`, a SIGTERM during
 the batch's end with a checkpoint of that batch.
 
 Runs on `device` (CUDA unless the caller asks for the CPU; it raises where
-CUDA is missing), which must be the model's. A mesh or more than one
-process raise NotImplementedError naming ROADMAP.md item 9;
-`fsdp_config`, `image_size` and `precision` are recorded. `log_traces`
-appends a `utils.profiler.TorchProfiler` (a torch.profiler trace of
-batches 10-12 into `traces/`), as the JAX Trainer appends its profiler.
+CUDA is missing), which must be the model's. `image_size` and `precision`
+are recorded. `log_traces` appends a `utils.profiler.TorchProfiler` (a
+torch.profiler trace of batches 10-12 into `traces/`), as the JAX Trainer
+appends its profiler.
+
+Several processes (one a card, `torchrun`; `parallel/dist.py`): `mesh` (a
+`parallel.mesh.create_mesh` DeviceMesh) or `mesh_config` ({dcn, fsdp, data,
+sp, tp}, one -1 inferred; tp > 1 raises for ROADMAP.md queue 1 item 9b),
+else JAX's default: fsdp over every rank where the model's `fsdp` and
+`fsdp_config` shard, data otherwise. A mesh of one rank (or no process
+group, with a mesh_config whose axes are all 1) trains as above. On more:
+
+- the UNet is FSDP2-sharded over `fsdp` and replicated over the other axes
+  (`parallel/sharding.py::shard_unet`; `fsdp_config.sharding_strategy`
+  `SHARD_GRAD_OP`, the yamls', keeps parameters gathered from forward to
+  backward, `FULL_SHARD` reshards after the forward); the AdamW, its
+  global gradient norm (summed over the fsdp group) and the EMA work on
+  each rank's shards; the frozen towers stay whole on every rank;
+- each rank's loader yields its part of the global batch (the readers
+  split examples over dcn x fsdp x data: `utils/device.py::rank_and_world`),
+  and microbatch i of a step is the batch ranks' microbatches i in rank
+  order. The step's draws are made for the whole global microbatch from
+  the step's generator and each rank takes its examples' (`forward(
+  examples=)`), so a step equals the one-rank step of the global batch; a
+  `noise_hook` returns the global microbatch's draws, which each rank
+  slices;
+- with `sp` > 1 the step and eval run under `ops.attention.
+  sequence_parallel` (`sequence_parallel_min_seq`: the ring's threshold):
+  the sp ranks split the UNet body's rows, and each backpropagates the
+  mean loss over its rows (FSDP's average over all ranks then gives the
+  examples' mean gradient). Logged losses are averaged over the ranks,
+  eval sums over them; loggers run on rank 0;
+- checkpoints gather the full state, which rank 0 writes in the one-rank
+  format (so either side resumes the other's), and every rank reads and
+  re-shards on load; a SIGTERM is acted on when the ranks agree (an
+  all-reduce of the flag every `preempt_sync_interval` batches, JAX's
+  rule), so every rank saves the same batch.
 
 The model is a `StableDiffusion` (with `train_lora_only`, only its UNet's
 adapters require grad, so they alone are trained, EMA'd and checkpointed)
@@ -79,6 +111,7 @@ grad.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
 import os
@@ -93,14 +126,21 @@ import torch
 
 from diffusion_torch.algorithms.ema import (EMA, apply_ema,
                                             ema_smoothing_for_step)
+from diffusion_torch.metrics.base import all_hosts_sum
 from diffusion_torch.metrics.generation_metrics import (
     GENERATION_METRICS, GenerationMetricsHook)
+from diffusion_torch.ops.attention import sequence_parallel
+from diffusion_torch.parallel import dist
+from diffusion_torch.parallel.mesh import (MESH_AXES, create_mesh,
+                                           example_layout, mesh_sizes)
+from diffusion_torch.parallel.sharding import (batch_slice, fsdp_mesh,
+                                               shard_unet)
 from diffusion_torch.train import checkpoint as ckpt
 from diffusion_torch.train.events import Algorithm, Callback, Event, EventEngine
 from diffusion_torch.train.optim import (build_optimizer, constant_scheduler,
                                          global_norm)
 from diffusion_torch.train.state import State, TrainState
-from diffusion_torch.utils.device import Device, rank_and_world, resolve_device
+from diffusion_torch.utils.device import Device, resolve_device
 from diffusion_torch.utils.logging import (ConsoleLogger, Logger,
                                            LoggerCollection)
 from diffusion_torch.utils.profiler import TorchProfiler
@@ -132,11 +172,6 @@ def grad_accum_steps(global_batch: int, micro: int) -> int:
     while global_batch % n:
         n += 1
     return n
-
-
-def _unported(what: str, item: int, title: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with ROADMAP.md queue 1 item "
-                               f"{item} ({title})")
 
 
 class Trainer:
@@ -173,6 +208,8 @@ class Trainer:
         mesh: Any = None,
         mesh_config: Optional[dict] = None,
         fsdp_config: Optional[dict] = None,
+        sequence_parallel_min_seq: int = 512,
+        preempt_sync_interval: int = 25,
         image_size: int = 256,
         grad_clip_norm: Optional[float] = None,
         batches_per_epoch: Optional[int] = None,
@@ -185,11 +222,10 @@ class Trainer:
         eval_noise_hook: Optional[EvalNoiseHook] = None,
     ):
         del progress_bar  # yaml parity; the trainer prints no bar
-        if mesh is not None or mesh_config:
-            raise _unported("a device mesh", 9, "multi-device")
-        if rank_and_world()[1] > 1:
-            raise _unported("training on more than one process "
-                            "(fsdp_config)", 9, "multi-device")
+        self.fsdp_config = fsdp_config
+        self._setup_mesh(model, mesh, mesh_config)
+        self.sequence_parallel_min_seq = int(sequence_parallel_min_seq)
+        self.preempt_sync_interval = max(1, int(preempt_sync_interval))
         device = resolve_device(device)
         if model.device.type != device.type or (
                 device.index is not None and model.device != device):
@@ -227,7 +263,6 @@ class Trainer:
         self.checkpoint_on_preemption = checkpoint_on_preemption
         self._preempt_requested = False
         self._last_saved_batch = -1
-        self.fsdp_config = fsdp_config
         self.image_size = image_size
         self.precision = precision
         self.skip_nonfinite_updates = skip_nonfinite_updates
@@ -238,6 +273,8 @@ class Trainer:
             loggers = [ConsoleLogger(log_interval=100)] if log_to_console else []
         elif isinstance(loggers, Logger):
             loggers = [loggers]
+        if dist.get_global_rank() != 0:
+            loggers = []
         self.logger = LoggerCollection(loggers)
         callbacks = list(callbacks or [])
         if log_traces:
@@ -280,11 +317,34 @@ class Trainer:
             device_train_microbatch_size=device_train_microbatch_size,
             ema_start_batch=(self.ema_algorithm.start_batch(
                 self.max_duration, batches_per_epoch or 0)
-                if self.ema_algorithm else 0))
+                if self.ema_algorithm else 0),
+            rank=dist.get_global_rank())
         self._maybe_restore(autoresume, load_path, load_weights_only)
         self.engine.run(Event.INIT, self.state, self.logger)
 
     # ------------------------------------------------------------------
+    def _setup_mesh(self, model, mesh, mesh_config) -> None:
+        """The process mesh, JAX's default where none is given; `_sharded`
+        where it has more than one rank."""
+        use_fsdp = getattr(model, "fsdp", True) and (
+            self.fsdp_config is None or self.fsdp_config.get(
+                "sharding_strategy", "SHARD_GRAD_OP") != "NO_SHARD")
+        world = dist.get_world_size()
+        if mesh is None and (mesh_config or world > 1):
+            cfg = dict(mesh_config or {"fsdp": world if use_fsdp else 1,
+                                       "data": 1 if use_fsdp else world})
+            if dist.launched() or torch.distributed.is_initialized():
+                dist.initialize()
+                mesh = create_mesh(**cfg)
+            else:
+                mesh_sizes(1, **cfg)     # the axes must cover one process
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.size() > 1
+        self._axes = dict(zip(MESH_AXES, mesh.mesh.shape)) if self._sharded \
+            else dict.fromkeys(MESH_AXES, 1)
+        self._batch_rank, self._batch_world = (
+            example_layout(mesh) if self._sharded else (0, 1))
+
     def _init_device_state(self, optimizers, schedulers, grad_clip_norm,
                            micro_size) -> None:
         schedule = schedulers or constant_scheduler()
@@ -295,12 +355,27 @@ class Trainer:
                   if p.requires_grad}
         if not params:
             raise ValueError("the model's UNet has no trainable parameters")
+        self._fsdp_group = None
+        if self._sharded:
+            strategy = (self.fsdp_config or {}).get("sharding_strategy",
+                                                    "SHARD_GRAD_OP")
+            fmesh = fsdp_mesh(self.mesh)
+            shard_unet(self.model.unet, fmesh,
+                       reshard_after_forward=strategy == "FULL_SHARD")
+            self._fsdp_group = fmesh.get_group("shard")
+            self._fsdp_index = fmesh.get_local_rank("shard")
+            self._dparams = [p for p in self.model.unet.parameters()
+                             if p.requires_grad]
+            # the shards: views of the sharded parameters' local storage
+            params = {n: p.to_local() for n, p in
+                      self.model.unet.named_parameters() if p.requires_grad}
         optimizer = build_optimizer(params.values(), optimizers, schedule,
                                     grad_clip_norm)
         ema = ({n: p.detach().clone() for n, p in params.items()}
                if self.ema_algorithm is not None else None)
         self.train_state = TrainState(step=0, params=params,
-                                      optimizer=optimizer, ema_params=ema)
+                                      optimizer=optimizer, ema_params=ema,
+                                      shards=self._sharded)
 
     def _generator(self, seed: int, index: int) -> torch.Generator:
         """A generator for (seed, index), e.g. the run seed and the step,
@@ -310,32 +385,57 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             int(mixed) & (2 ** 63 - 1))
 
+    def _sequence_parallel(self):
+        return sequence_parallel(self.mesh if self._sharded else None,
+                                 min_seq=self.sequence_parallel_min_seq)
+
     def _train_step(self, batch: Dict[str, torch.Tensor],
-                    global_batch: int) -> Dict[str, torch.Tensor]:
-        """One optimizer step over `batch`; returns the step's metrics."""
+                    local_batch: int) -> Dict[str, torch.Tensor]:
+        """One optimizer step over `batch` (this rank's part of the global
+        batch); returns the step's metrics."""
         ts = self.train_state
-        params = list(ts.params.values())
-        n_accum = (grad_accum_steps(global_batch, self.micro_size)
+        params = self._dparams if self._sharded else list(ts.params.values())
+        global_batch = local_batch * self._batch_world
+        n_dev = self.mesh.size() if self._sharded else 1
+        n_accum = (grad_accum_steps(global_batch, self.micro_size * n_dev)
                    if self.micro_size else 1)
-        micro = global_batch // n_accum
+        if local_batch % n_accum:
+            raise ValueError(f"a global batch of {global_batch} in "
+                             f"{n_accum} microbatches does not split over "
+                             f"{self._batch_world} batch ranks")
+        micro = local_batch // n_accum
+        rows = batch_slice(global_batch // n_accum, self._batch_rank,
+                           self._batch_world)
         gen = self._generator(self.seed, ts.step)
         for p in params:
             p.grad = None
         loss = torch.zeros((), device=self.device)
         self.model.unet.train()
-        for i in range(n_accum):
-            mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-            draws = ()
-            if self.noise_hook is not None:
-                draws = self.noise_hook(ts.step, i, n_accum, mb)
-            micro_loss = self.model.loss_fn(mb, gen, *draws)
-            micro_loss.backward()
-            loss += micro_loss.detach()
-        grads = [p.grad for p in params]
+        with self._sequence_parallel():
+            for i in range(n_accum):
+                mb = {k: v[i * micro:(i + 1) * micro]
+                      for k, v in batch.items()}
+                draws = ()
+                if self.noise_hook is not None:
+                    draws = tuple(d[rows] for d in self.noise_hook(
+                        ts.step, i, n_accum, mb))
+                kwargs = {"dropout_key": (self.seed, ts.step, i,
+                                          self._batch_rank)}
+                if self._sharded:
+                    kwargs["examples"] = (rows.start, global_batch // n_accum)
+                micro_loss = self.model.loss_fn(mb, gen, *draws, **kwargs)
+                micro_loss.backward()
+                loss += micro_loss.detach()
+        if self._sharded:
+            grads = [p.grad.to_local() for p in params]
+            torch.distributed.all_reduce(loss)
+            loss /= self.mesh.size()
+        else:
+            grads = [p.grad for p in params]
         if n_accum > 1:
             torch._foreach_div_(grads, float(n_accum))
             loss /= n_accum
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, self._fsdp_group)
         metrics = {"loss/train/total": loss, "grad/global_norm": gnorm}
         ok = True
         if self.skip_nonfinite_updates:
@@ -343,7 +443,7 @@ class Trainer:
             metrics["trainer/nonfinite_skipped"] = torch.tensor(
                 0.0 if ok else 1.0)
         if ok:
-            ts.optimizer.step(grad_norm=gnorm)
+            ts.optimizer.step(grad_norm=gnorm, grads=grads)
         if ts.ema_params is not None:
             eff = ema_smoothing_for_step(
                 ts.step, self.ema_algorithm.smoothing(),
@@ -366,6 +466,21 @@ class Trainer:
             yield batch, int(next(iter(batch.values())).shape[0])
 
     # ------------------------------------------------------------------
+    def _stop_for_preemption(self, batch: int) -> bool:
+        """Whether to checkpoint and stop for a SIGTERM: at once on one
+        process; on several, only where an all-reduce of the flag (every
+        `preempt_sync_interval` batches) finds it set on some rank, so that
+        every rank leaves at the same batch (JAX's rule)."""
+        if dist.get_world_size() == 1:
+            return self._preempt_requested
+        if not (self.checkpoint_on_preemption and self.save_folder) \
+                or batch % self.preempt_sync_interval:
+            return False
+        flag = torch.tensor([float(self._preempt_requested)],
+                            device=dist.device())
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
+
     def fit(self) -> None:
         if self.train_dataloader is None:
             raise ValueError("fit() requires a train_dataloader")
@@ -417,7 +532,8 @@ class Trainer:
                 state.outputs = None
                 self.engine.run(Event.AFTER_TRAIN_BATCH, state, logger)
 
-                state.timestamp.to_next_batch(samples=samples)
+                state.timestamp.to_next_batch(
+                    samples=samples * self._batch_world)
                 now = _time.monotonic()
                 # the first delta absorbs the warm-up: report 0
                 state.batch_wct = 0.0 if first_timed_batch else (
@@ -441,11 +557,11 @@ class Trainer:
                         and b % self.save_interval == 0:
                     self.save_checkpoint()
                 self.engine.run(Event.BATCH_CHECKPOINT, state, logger)
-                if self._preempt_requested:
+                if self._stop_for_preemption(b):
                     break
             if not epoch_had_batches:
                 raise RuntimeError("train_dataloader yielded no batches")
-            if self._preempt_requested:
+            if self._stop_for_preemption(state.timestamp.batch):
                 logging.getLogger(__name__).warning(
                     "SIGTERM received: checkpointing at ba%d and stopping "
                     "(autoresume continues from there)",
@@ -472,21 +588,30 @@ class Trainer:
         model = self.model
         # a continuous-time model has neither bins nor a timestep count
         num_t = getattr(model.noise_scheduler, "num_train_timesteps", 1000)
-        draws, gen = (), None
+        draws, gen, kwargs = (), None, {}
         if self.eval_noise_hook is not None:
             draws = self.eval_noise_hook(index, batch)
         else:
             gen = self._generator(model.val_seed, index)
-        out = model.eval_forward(batch, gen, *draws)
+        if self._sharded:
+            n = int(next(iter(batch.values())).shape[0])
+            kwargs["examples"] = (self._batch_rank * n,
+                                  n * self._batch_world)
+        with self._sequence_parallel():
+            out = model.eval_forward(batch, gen, *draws, **kwargs)
         pred, target, t = out["pred"], out["target"], out["timesteps"]
         err = torch.square(pred.float() - target.float())
         per_example = err.mean(dim=tuple(range(1, err.ndim)))
-        out = {"MeanSquaredError": (float(per_example.sum()),
-                                    float(per_example.numel()))}
+        # an sp rank holds 1 / sp of each example's rows: its part of the
+        # example's mean and of the example itself
+        share = self._axes["sp"]
+        out = {"MeanSquaredError": (float(per_example.sum()) / share,
+                                    float(per_example.numel()) / share)}
         for lo, hi in getattr(model, "loss_bins", ()) or ():
             mask = ((t >= lo * num_t) & (t < hi * num_t)).float()
             out[f"MeanSquaredError/bin-{lo}-{hi}"] = (
-                float((per_example * mask).sum()), float(mask.sum()))
+                float((per_example * mask).sum()) / share,
+                float(mask.sum()) / share)
         return out
 
     def eval(self, subset_num_batches: Optional[int] = None
@@ -524,6 +649,12 @@ class Trainer:
                 for hook in hooks:
                     hook.eval_batch(self, evaluator, state, batch, i)
                 self.engine.run(Event.EVAL_BATCH_END, state, logger)
+            if self._sharded:
+                names = sorted(accum)
+                sums = all_hosts_sum(np.asarray([accum[k] for k in names],
+                                                np.float64))
+                accum = {k: (float(a), float(b))
+                         for k, (a, b) in zip(names, sums)}
             for name, (num, den) in accum.items():
                 if den > 0:
                     results[f"metrics/{evaluator.label}/{name}"] = num / den
@@ -555,36 +686,98 @@ class Trainer:
         }
         if hasattr(self.train_dataloader, "state_dict"):
             meta["dataloader"] = self.train_dataloader.state_dict()
+        path = None
         try:
-            path = ckpt.save_checkpoint(
-                self.save_folder, state.timestamp.batch, self.train_state,
-                meta, overwrite=self.save_overwrite,
-                wait=not self.async_checkpoint, remote=self.save_remote)
+            # on a mesh every rank gathers the full state; rank 0 writes it
+            ts = self._full_state() if self._sharded else self.train_state
+            if dist.is_coordinator():
+                path = ckpt.save_checkpoint(
+                    self.save_folder, state.timestamp.batch, ts, meta,
+                    overwrite=self.save_overwrite,
+                    wait=not self.async_checkpoint, remote=self.save_remote)
         finally:
             if self.ema_algorithm:
                 self.ema_algorithm.swap_out(state)
         self._last_saved_batch = state.timestamp.batch
         # retention never waits on the async write: it counts as the newest
-        ckpt.prune_checkpoints(self.save_folder,
-                               self.save_num_checkpoints_to_keep)
+        if dist.is_coordinator():
+            ckpt.prune_checkpoints(self.save_folder,
+                                   self.save_num_checkpoints_to_keep)
         return path
+
+    @torch.no_grad()
+    def _full_state(self, empty: bool = False) -> TrainState:
+        """The whole train state of a sharded run, on every rank (a
+        collective): the parameters, moments and EMA gathered from the
+        shards; with `empty`, zeros of those shapes to load into."""
+        from torch.distributed.tensor import DTensor
+        ts, opt = self.train_state, self.train_state.optimizer
+
+        def full(local, like):
+            if empty:
+                return torch.zeros(like.shape, dtype=local.dtype,
+                                   device=local.device)
+            return DTensor.from_local(
+                local, like.device_mesh, like.placements, run_check=False,
+                shape=like.shape, stride=like.stride()).full_tensor()
+
+        names, dps = list(ts.params), self._dparams
+        holder = copy.copy(opt)
+        holder.mu = [full(m, dp) for m, dp in zip(opt.mu, dps)]
+        holder.nu = [full(v, dp) for v, dp in zip(opt.nu, dps)]
+        holder.params = [full(ts.params[n], dp) for n, dp in zip(names, dps)]
+        ema = None if ts.ema_params is None else {
+            n: full(ts.ema_params[n], dp) for n, dp in zip(names, dps)}
+        return TrainState(step=ts.step, params=dict(zip(names, holder.params)),
+                          optimizer=holder, ema_params=ema)
+
+    @torch.no_grad()
+    def _load_shards(self, full: TrainState, weights_only: bool) -> None:
+        """Copy this rank's shards (FSDP2's `torch.chunk` of dim 0 over the
+        fsdp axis) of a whole train state into the live one."""
+        ts, opt = self.train_state, self.train_state.optimizer
+        n = self._axes["fsdp"]
+
+        def put(local, whole):
+            chunks = torch.chunk(whole, n, dim=0)
+            part = (chunks[self._fsdp_index] if self._fsdp_index < len(chunks)
+                    else whole[:0])
+            local.copy_(part.reshape(local.shape))
+
+        names = list(ts.params)
+        for name in names:
+            put(ts.params[name], full.params[name])
+        if weights_only:
+            return
+        for i in range(len(names)):
+            put(opt.mu[i], full.optimizer.mu[i])
+            put(opt.nu[i], full.optimizer.nu[i])
+        opt.count = full.optimizer.count
+        if ts.ema_params is not None:
+            for name in names:
+                put(ts.ema_params[name], full.ema_params[name])
+        ts.step = full.step
 
     def _finish_checkpoints(self) -> None:
         """Make the last save durable (and its remote copy), then let the
         checkpoints it outdates age out."""
         ckpt.finalize_pending()
         ckpt.drain_remote_uploads()
-        ckpt.prune_checkpoints(self.save_folder,
-                               self.save_num_checkpoints_to_keep)
+        if dist.is_coordinator():
+            ckpt.prune_checkpoints(self.save_folder,
+                                   self.save_num_checkpoints_to_keep)
+        # the other ranks may read the checkpoint next (a resume)
+        dist.barrier()
 
     def _maybe_restore(self, autoresume: bool, load_path: Optional[str],
                        load_weights_only: bool) -> None:
         path = None
         from_save_folder = False
         if autoresume and self.save_folder:
-            if self.save_remote:
+            if self.save_remote and dist.is_coordinator():
                 # a fresh host: the newest checkpoint may be remote only
                 ckpt.sync_from_remote(self.save_folder, self.save_remote)
+            dist.barrier()
             path = ckpt.latest_checkpoint_path(self.save_folder)
             from_save_folder = path is not None
         if path is None and load_path:
@@ -592,8 +785,12 @@ class Trainer:
         if path is None:
             return
         ts = self.train_state
+        # on a mesh every rank reads the whole state and keeps its shards
+        target = self._full_state(empty=True) if self._sharded else ts
         if load_weights_only:
-            ckpt.load_checkpoint(path, ts, partial=True)
+            ckpt.load_checkpoint(path, target, partial=True)
+            if self._sharded:
+                self._load_shards(target, weights_only=True)
             if ts.ema_params is not None:
                 # the EMA was seeded from the initial weights: seed it from
                 # the loaded ones, or it blends toward the discarded init
@@ -601,7 +798,9 @@ class Trainer:
                     for name, p in ts.params.items():
                         ts.ema_params[name].copy_(p)
             return
-        _, meta = ckpt.load_checkpoint(path, ts)
+        _, meta = ckpt.load_checkpoint(path, target)
+        if self._sharded:
+            self._load_shards(target, weights_only=False)
         self.state.timestamp.load_state_dict(meta.get("timestamp", {}))
         if from_save_folder:
             # this batch's checkpoint is the one just restored: a rerun of

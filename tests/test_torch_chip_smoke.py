@@ -421,3 +421,28 @@ def test_recipe_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     assert len(record.steps) == 4 and record.ema_tracks == [True] * 4
     assert len(record.evals) == 1 and record.evals[0][0] == 2
     assert tr.train_dataloader.dataset.image_size == 512
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_sp_phase_overrides_compose_the_1024_yaml(tmp_path, remat):
+    """Phase 16's dotted overrides of the unedited 1024-sp yaml: one
+    rank's mesh, batch 8 in the yaml's microbatches of 4, 4 batches, the
+    COCO eval (batch 8) after batch 2, remat as asked, the recorder."""
+    from diffusion_torch.config import load_config
+    overrides = chip_smoke._sp_overrides(str(tmp_path / "raw"),
+                                         str(tmp_path / "coco"),
+                                         str(tmp_path / "m.jsonl"), remat)
+    config = load_config(os.path.join(chip_smoke._ROOT, "yamls",
+                                      chip_smoke.SP_YAML), overrides)
+    trainer = config["trainer"]
+    assert trainer["mesh_config"] == {"dcn": 1, "fsdp": -1, "data": 1,
+                                      "sp": 1}
+    assert trainer["device_train_microbatch_size"] == 4
+    assert trainer["max_duration"] == "4ba" and config["batch_size"] == 8
+    assert trainer["eval_interval"] == "2ba"
+    assert config["dataset"]["eval_batch_size"] == 8
+    assert config["model"]["remat"] is remat
+    assert config["model"]["precomputed_latents"] is False
+    assert config["callbacks"]["chip_smoke"]["_target_"].endswith(
+        ".SpRecord")
+    assert "wandb" not in (config.get("logger") or {})

@@ -300,14 +300,16 @@ def test_cli_composes_and_runs(root, capsys):
 def test_one_process_and_a_dividing_batch(root, monkeypatch):
     """Counterpart of tests/test_composition.py::
     test_train_batch_size_must_divide_hosts; and a world size above 1
-    raises, naming multi-device (ROADMAP.md queue 1 item 9)."""
+    whose process group this process never joined raises: JAX's default
+    mesh (fsdp over every rank) does not cover the one process (the
+    multi-process path runs in tests/test_torch_mesh_trainer.py)."""
     text = YAML.replace("{root}", str(root))
     with pytest.raises(ValueError, match="multiple of"):
         build_trainer(loads_config(text, ["batch_size=0"]))
     model = tmodels.stable_diffusion_tiny(device="cpu",
                                           precomputed_latents=True)
-    monkeypatch.setattr(ttrainer, "rank_and_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    monkeypatch.setattr(ttrainer.dist, "get_world_size", lambda: 2)
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         ttrainer.Trainer(model=model, device="cpu",
                          fsdp_config={"sharding_strategy": "SHARD_GRAD_OP"})
 
@@ -360,13 +362,16 @@ def test_builders_take_the_yaml_keywords(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["SD-2-base-512.yaml",
-                                  "SD-2-base-512-tp.yaml"])
+                                  "SD-2-base-512-tp.yaml",
+                                  "SD-2-base-1024-sp.yaml"])
 def test_yaml_trainer_sections_reach_the_trainer(name):
-    """The `trainer:` sections of the 512px yamls, with their
+    """The `trainer:` sections of the 512px and 1024px yamls, with their
     `load_weights_only: true` and empty `load_path:`, build a Trainer (tiny
     model, CPU): the keywords are taken, where the port's Trainer once
     raised TypeError on them. The tp yaml's mesh then stops at the
-    multi-device item."""
+    tensor-parallel item (9b); the sp yaml's mesh, cut to one process
+    (data 1, sp 1, as chip_smoke.py runs it on one card), builds one with
+    the yaml's FSDP strategy and ring threshold."""
     import os
     from diffusion_torch.config import load_config
     full = load_config(os.path.join(os.path.dirname(os.path.dirname(
@@ -377,9 +382,18 @@ def test_yaml_trainer_sections_reach_the_trainer(name):
     config = {"seed": full["seed"], "trainer": section, "model": {
         "_target_": "diffusion_tpu.models.models.stable_diffusion_tiny",
         "precomputed_latents": True, "device": "cpu"}}
-    if "mesh_config" in section:
+    if section.get("mesh_config", {}).get("tp", 1) > 1:
         with pytest.raises(NotImplementedError, match="item 9"):
             build_trainer(config)
+        return
+    if "mesh_config" in section:
+        section["mesh_config"] = dict(section["mesh_config"], data=1, sp=1)
+        tr = build_trainer(config)
+        assert tr.mesh is None and not tr.train_state.shards
+        assert tr.sequence_parallel_min_seq == 4096
+        assert tr.fsdp_config == {"sharding_strategy": "SHARD_GRAD_OP"}
+        assert tr.save_interval == 10000 and tr.max_batches == 200000
+        tr.close()
         return
     tr = build_trainer(config)
     assert tr.save_folder is None and tr.state.timestamp.batch == 0

@@ -629,3 +629,139 @@ def test_metric_towers_release_card_memory(cuda, tmp_path):
         "diffusion_torch.models.models.stable_diffusion_tiny",
         "--out", str(tmp_path / "eval.jsonl")])
     assert abs(allocated() - before) <= 64 << 20, "towers kept after the job"
+
+
+# --------------------------------------------- sequence parallelism's modes
+
+
+def _sp_gn_case(device, shape=(2, 4096, 320)):
+    """bf16 x, scale near 1 and a cotangent whose per-group mean runs along
+    the rows (an offset per group times a ramp), so the per-group sums of
+    the backward are of order 1 and each row shard's differ from the
+    whole's."""
+    b, l, c = shape
+    x = _randn(shape, 0, torch.bfloat16, device)
+    ramp = torch.linspace(-1.0, 2.0, l, device=device)[None, :, None]
+    offset = _randn((1, 1, 32), 5, torch.float32, device).repeat_interleave(
+        c // 32, -1)
+    g = (_randn(shape, 3, torch.float32, device)
+         + offset * ramp).to(torch.bfloat16)
+    scale = 1 + 0.1 * _randn((c,), 1, torch.float32, device)
+    bias = 0.1 * _randn((c,), 2, torch.float32, device)
+    return x, g, scale, bias
+
+
+def _sp_bwd(xs, gs, scale, bias, mean, rstd, own_only=False):
+    """The backward stages over row shards; with `own_only`, stage 2 gets
+    only its own shard's per-group sums (a merge left out)."""
+    sums = [gn.group_norm_bwd_partials_cuda(x, scale, bias, mean, rstd, g,
+                                            32, "silu")
+            for x, g in zip(xs, gs)]
+    gparts = torch.stack([gp for _, gp in sums])
+    return [gn.group_norm_bwd_apply_cuda(
+        x, scale, bias, mean, rstd, g, cp,
+        gparts[r:r + 1].contiguous() if own_only else gparts, 32, "silu")
+        for r, (x, g, (cp, _)) in enumerate(zip(xs, gs, sums))]
+
+
+def _sp_dx_excess(dxs, xs, gs, scale, bias, mean, rstd):
+    """The largest error of the shards' bf16 dx against the plain stages in
+    fp32 on the same inputs, over its bound: bf16 rounding of dx (2^-8 of
+    it) plus twice 2^-14 of the terms rstd (|scale dz| + |m1| + |x-hat m2|)
+    that the fp32 dx adds (per-group sums in another order)."""
+    xf, gf = [x.float() for x in xs], [g.float() for g in gs]
+    sums = [gn.group_norm_bwd_partials_reference(x, scale, bias, mean, rstd,
+                                                 g, 32, "silu")
+            for x, g in zip(xf, gf)]
+    gparts = torch.stack([gp for _, gp in sums])
+    count = sum(x.shape[1] for x in xs) * (xs[0].shape[-1] // 32)
+    m = (gparts.sum(dim=(0, 2)) / count)[:, None, :, None]   # (B, 1, G, 1, 2)
+    worst = 0.0
+    for dx, x, g, (cp, _) in zip(dxs, xf, gf, sums):
+        ref = gn.group_norm_bwd_apply_reference(x, scale, bias, mean, rstd,
+                                                g, cp, gparts, 32, "silu")[0]
+        dz, xhat, sc = gn._dz_xhat(x, scale, bias, mean, rstd, g, 32, "silu")
+        term = (rstd[:, None, :, None] * ((dz * sc).abs() + m[..., 0].abs()
+                                          + (xhat * m[..., 1]).abs())
+                ).reshape(x.shape)
+        tol = 2.0 ** -8 * ref.abs() + 2.0 ** -13 * term
+        worst = max(worst, ((dx.float() - ref).abs() / tol).max().item())
+    return worst
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_sp_group_norm_stages_match_plain(cuda, n):
+    """The sp GroupNorm stages over n row shards: stage 2's statistics and
+    y against the one-call kernel's, mean and rstd as tensors of their own
+    (the sp op returns both); each shard's dx within its bf16 bound of the
+    plain fp32 stages, and a stage 2 fed only its own shard's sums far
+    outside it where n > 1."""
+    x, g, scale, bias = _sp_gn_case(cuda)
+    xs, gs = ([t.contiguous() for t in u.chunk(n, dim=1)] for u in (x, g))
+    y, mean, rstd = gn.group_norm_cuda(x, scale, bias, 32, 1e-5, "silu")
+    parts = torch.stack([gn.group_norm_partials_cuda(t, 32) for t in xs])
+    ys = [gn.group_norm_apply_cuda(t, scale, bias, parts, 32, 1e-5, "silu")
+          for t in xs]
+    for y_r, m_r, r_r in ys:
+        assert m_r.untyped_storage().data_ptr() \
+            != r_r.untyped_storage().data_ptr()
+        torch.testing.assert_close(m_r, mean, atol=1e-4, rtol=0)
+        torch.testing.assert_close(r_r, rstd, atol=0, rtol=1e-4)
+    torch.testing.assert_close(torch.cat([a for a, _, _ in ys], 1).float(),
+                               y.float(), **_GN_TOL[torch.bfloat16])
+    dxs = [dx for dx, _, _ in _sp_bwd(xs, gs, scale, bias, mean, rstd)]
+    assert _sp_dx_excess(dxs, xs, gs, scale, bias, mean, rstd) <= 1.0
+    if n > 1:
+        own = [dx for dx, _, _ in _sp_bwd(xs, gs, scale, bias, mean, rstd,
+                                          own_only=True)]
+        assert _sp_dx_excess(own, xs, gs, scale, bias, mean, rstd) > 100.0
+
+
+def test_sp_ops_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """`group_norm(shard=)` and `ring_attention` as the Trainer calls them
+    under sp, on a one-rank NCCL group: the dispatcher ops, their autograd,
+    the all-gather of the partials and the ring's loop run the kernels
+    (launches counted) and agree with the one-call kernels."""
+    import torch.distributed as dist
+
+    from diffusion_torch.ops.ring_attention import ring_attention
+    from diffusion_torch.parallel.sharding import RowShard, register_group
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        shard = RowShard(register_group(dist.group.WORLD), 0, 1)
+        x0, g, scale0, bias0 = _sp_gn_case(cuda)
+        grads = []
+        for sp in (shard, None):
+            x, scale, bias = (t.clone().requires_grad_() for t in
+                              (x0, scale0, bias0))
+            before = (gn.launches.value, gn.launches_bwd.value)
+            y = gn.group_norm(x, scale, bias, 32, 1e-5, "silu", shard=sp)
+            y.backward(g)
+            n = 2 if sp is not None else 1
+            assert (gn.launches.value - before[0],
+                    gn.launches_bwd.value - before[1]) == (n, n)
+            grads.append((y.detach(), x.grad, scale.grad, bias.grad))
+        (y, dx, ds, db), (y1, dx1, ds1, db1) = grads
+        torch.testing.assert_close(y.float(), y1.float(),
+                                   **_GN_TOL[torch.bfloat16])
+        _assert_close_rel(dx, dx1, 2 ** -7, 8e-3)
+        _assert_close_rel(ds, ds1, 1e-5, 1e-4)
+        _assert_close_rel(db, db1, 1e-5, 1e-4)
+
+        q, k, v, out, lse, do = _flash_bwd_case(1, 1024, 1024, 2, cuda)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (fa.launches.value, fa.launches_bwd_dq.value,
+                  fa.launches_bwd_dkv.value)
+        o = ring_attention(*leaves, shard)
+        o.backward(do)
+        assert (fa.launches.value - before[0],
+                fa.launches_bwd_dq.value - before[1],
+                fa.launches_bwd_dkv.value - before[2]) == (1, 1, 1)
+        assert torch.equal(o, out)
+        want = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        for leaf, w in zip(leaves, want):
+            _assert_close_rel(leaf.grad, w, _FA_BWD_REL, _FA_BWD_RTOL)
+    finally:
+        dist.destroy_process_group()

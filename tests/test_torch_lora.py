@@ -244,16 +244,36 @@ def test_adapter_gradient_matches_jax(monkeypatch, prediction_type):
 class _JaxSteps(JaxCallback):
     def __init__(self):
         self.steps = []
+        self.trees = []
 
     def batch_end(self, state, logger):
+        tree = jax.tree.map(np.array, state.train_state.params)
+        self.trees.append(tree)
         self.steps.append((
             {k: float(np.asarray(v)) for k, v in state.metrics.items()},
-            unet_from_jax(jax.tree.map(np.array, state.train_state.params))))
+            unet_from_jax(tree)))
 
 
 class _Steps(Callback):
+    """Each step's metrics and parameters, and (`record_grads`) the
+    gradients the optimizer steps from and its second moment after."""
+
     def __init__(self):
         self.steps = []
+        self.grads = []
+        self.nu = []
+
+    def record_grads(self, trainer):
+        opt = trainer.train_state.optimizer
+        step = opt.step
+
+        def recording_step(**kwargs):
+            self.grads.append({n: p.grad.clone() for n, p in
+                               trainer.train_state.params.items()})
+            step(**kwargs)
+            self.nu.append(dict(zip(trainer.train_state.params,
+                                    (v.clone() for v in opt.nu))))
+        opt.step = recording_step
 
     def batch_end(self, state, logger):
         self.steps.append((
@@ -296,11 +316,26 @@ def lora_runs():
             device_train_microbatch_size=2, seed=SEED, image_size=64,
             mesh=create_mesh(fsdp=1, data=1, dcn=1,
                              devices=jax.devices()[:1]))
-        adapter = unet_from_jax(jax.tree.map(np.array,
-                                             jtr.train_state.params))
+        initial = jax.tree.map(np.array, jtr.train_state.params)
+        adapter = unet_from_jax(initial)
         base = unet_from_jax(jax.tree.map(np.array,
                                           jtr.frozen["unet_base"]))
         jtr.fit()
+        # JAX's gradient of each step at its own parameters and draws
+        jgrads = []
+        for step, (params, batch) in enumerate(zip(
+                [initial] + jrec.trees[:-1], _batches())):
+            total = None
+            for micro in range(2):
+                mb = {k: jnp.asarray(v[2 * micro:2 * micro + 2])
+                      for k, v in batch.items()}
+                rng = jax.random.split(jax.random.fold_in(
+                    jax.random.key(SEED), step), 2)[micro]
+                g = jax.grad(jtr.model.loss_fn)(params, jtr.frozen, mb, rng)
+                total = g if total is None else jax.tree.map(jnp.add,
+                                                             total, g)
+            jgrads.append(unet_from_jax(jax.tree.map(
+                lambda x: np.array(x / 2), total)))
 
     model = stable_diffusion_tiny(device="cpu", precomputed_latents=True,
                                   lora_rank=RANK, lora_alpha=8.0)
@@ -311,24 +346,72 @@ def lora_runs():
                  callbacks=[rec], max_duration="2ba",
                  device_train_microbatch_size=2, seed=SEED, device="cpu",
                  noise_hook=_jax_draws)
+    rec.record_grads(tr)
     tr.fit()
-    return jrec.steps, rec.steps, base, adapter, tr
+    return jrec.steps, rec.steps, jgrads, rec, base, adapter, tr
 
 
 def test_adapter_steps_match_jax(lora_runs):
-    want, got, _, adapter, tr = lora_runs
-    assert len(got) == len(want) == 2
+    """Two adapter-only AdamW steps (lr 1e-3, eps 1e-8) beside JAX's.
+
+    The gradients each step takes are held at the gradient test's
+    tolerance. The parameters are held in units of lr, by a bound derived
+    from the gradients' measured difference, because Adam's update
+    u = m^ / (sqrt(v^) + eps) turns roundoff in a gradient near eps into
+    a sizeable part of a step. After bias correction m^ = sum_j a_j g_j
+    and v^ = sum_j b_j g_j^2 with weights summing to 1, so a change of at
+    most D = max_j |dg_j| (per element) moves m^ and s = sqrt(v^) by at
+    most D each, and
+        |du| <= |dm^| / (s + eps) + |u'| |ds| / (s + eps)
+             <= D (1 + c_k) / (s + eps),
+    where |u'| <= c_k = sqrt(sum_j a_j^2 / b_j) (Cauchy-Schwarz) bounds
+    the other side's update at step k. The parameters then differ by at
+    most lr times the sum of that over the steps, s from the port's second
+    moment, plus float32 rounding of an update of at most c_k per step:
+    16 roundings (2^-20), and the bias corrections 1 - b^k, which both
+    sides compute in fp32, JAX's jitted step through XLA's pow: an ulp of
+    b^k apart, the cancellation makes them differ by ulp(b^k) / (1 - b^k)
+    relative (3e-5 for b2 at k = 2), counted as 2 ulp, halved for v^
+    under the square root; and 4 ulp of the parameters."""
+    want, got, jgrads, rec, _, adapter, tr = lora_runs
+    assert len(got) == len(want) == len(jgrads) == len(rec.grads) == 2
     assert sorted(tr.train_state.params) == sorted(adapter) == sorted(
         tlora.lora_parameters(tr.model.unet))
-    assert len(tr.train_state.optimizer.mu) == len(adapter) == 64
+    opt = tr.train_state.optimizer
+    assert len(opt.mu) == len(adapter) == 64
+    b1, b2, eps, lr = opt.b1, opt.b2, opt.eps, 1e-3
+    worst_d = {n: torch.zeros_like(v) for n, v in adapter.items()}
+    bound = {n: torch.zeros_like(v) for n, v in adapter.items()}
     for i, ((gm, gp), (wm, wp)) in enumerate(zip(got, want)):
         for k in ("loss/train/total", "grad/global_norm"):
             assert gm[k] == pytest.approx(wm[k], rel=1e-5), (i, k)
+        # tests/test_torch_train_step.py's gradient tolerance
+        scale = max(float(w.abs().max()) for w in jgrads[i].values())
+        for name, w in jgrads[i].items():
+            np.testing.assert_allclose(rec.grads[i][name].numpy(), w.numpy(),
+                                       atol=1e-5 * scale, rtol=1e-3,
+                                       err_msg=f"step {i} grad {name}")
+        k = i + 1
+        a = [(1 - b1) * b1 ** (k - j) / (1 - b1 ** k)
+             for j in range(1, k + 1)]
+        b = [(1 - b2) * b2 ** (k - j) / (1 - b2 ** k)
+             for j in range(1, k + 1)]
+        c_k = sum(x * x / y for x, y in zip(a, b)) ** 0.5
+        rho1, rho2 = (2 * float(np.spacing(np.float32(d) ** k))
+                      / (1 - d ** k) for d in (b1, b2))
         assert sorted(gp) == sorted(wp)
         for name, wv in wp.items():
-            np.testing.assert_allclose(gp[name].numpy(), wv.numpy(),
-                                       atol=1e-6, rtol=1e-5,
-                                       err_msg=f"step {i} {name}")
+            worst_d[name] = torch.maximum(
+                worst_d[name], (rec.grads[i][name] - jgrads[i][name]).abs())
+            s = torch.sqrt(rec.nu[i][name].double() / (1 - b2 ** k))
+            bound[name] += lr * (worst_d[name] * (1 + c_k) / (s + eps)
+                                 + c_k * (2.0 ** -20 + rho1 + rho2 / 2))
+            ulp = 4 * np.spacing(np.abs(wv.numpy()))
+            excess = ((gp[name] - wv).abs().double() - bound[name]
+                      - torch.from_numpy(ulp).double())
+            assert float(excess.max()) <= 0, (
+                f"step {i} {name}: |dp| exceeds the derived bound by "
+                f"{float(excess.max())} ({float(excess.max()) / lr} lr)")
     # the adapters learned: B left zero, A moved at step 2
     last = got[-1][1]
     assert all(torch.count_nonzero(v) > 0 for k, v in last.items())

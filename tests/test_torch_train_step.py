@@ -106,16 +106,31 @@ def test_unported_training_paths_raise():
                                  *towers.text_encoder.parameters()))
     with pytest.raises(RuntimeError, match="init_frozen_towers"):
         model.generate(torch.zeros(1, 77, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        UNet2DCondition(model.unet.config, remat=True)
+    # remat builds and computes the same function
+    remat = UNet2DCondition(model.unet.config, remat=True)
+    remat.load_state_dict(model.unet.state_dict())
+    sample = torch.randn(1, 4, 8, 8).contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(remat(sample, torch.tensor([3]), torch.ones(1, 8, 32)),
+                       model.unet(sample, torch.tensor([3]),
+                                  torch.ones(1, 8, 32)))
     assert stable_diffusion_tiny(device="cpu").vae is not None   # serving
     model = stable_diffusion_tiny(device="cpu", precomputed_latents=True,
                                   init_frozen_towers=True)
     assert not any(p.requires_grad for p in model.vae.parameters())
+    # dropout in training: a loss that depends on the key; eval drops none
     model.unet.mid_block.resnets[0].dropout = 0.1
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.loss_fn({"image_latents": torch.zeros(1, 8, 8, 4),
-                       "caption_latents": torch.zeros(1, 8, 32)})
+    batch = {"image_latents": torch.ones(1, 8, 8, 4),
+             "caption_latents": torch.ones(1, 8, 32)}
+    draws = (torch.ones(1, 8, 8, 4), torch.tensor([100]))
+    a, b = (model.loss_fn(batch, None, *draws, dropout_key=(k,))
+            for k in (1, 2))
+    assert torch.isfinite(a) and not torch.equal(a, b)
+    assert torch.equal(a, model.loss_fn(batch, None, *draws,
+                                        dropout_key=(1,)))
+    model.unet.eval()
+    assert torch.equal(*(model.loss_fn(batch, None, *draws, dropout_key=(k,))
+                         for k in (1, 2)))
 
 
 @pytest.mark.parametrize("builder", ["stable_diffusion_tiny",

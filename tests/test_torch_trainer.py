@@ -185,10 +185,18 @@ def test_skip_holds_the_schedule_count(runs):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Only a mesh is left (multi-device); checkpoints came with item 4."""
+    """Only tensor parallelism is left (item 9b); a mesh of one process's
+    axes trains as one rank, and axes that need more processes raise JAX's
+    ValueError."""
     model = stable_diffusion_tiny(device="cpu", precomputed_latents=True)
     with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(model=model, device="cpu", mesh_config={"fsdp": 1})
+        Trainer(model=model, device="cpu", mesh_config={"tp": 2})
+    tr = Trainer(model=model, device="cpu",
+                 mesh_config={"fsdp": -1, "data": 1, "sp": 1})
+    assert tr.mesh is None and not tr.train_state.shards
+    tr.close()
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
+        Trainer(model=model, device="cpu", mesh_config={"fsdp": 1, "sp": 2})
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):
