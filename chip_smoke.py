@@ -224,7 +224,38 @@ Phases, each raising on failure (exit code 1):
      of order 1 and differ between shards; a control that feeds stage 2
      only its own shard's sums must miss the bound), with the times beside
      the whole-tensor calls; (d) with one card, one line saying that the
-     ranks' transport ran on the CPU (the tests) only.
+     ranks' transport ran on the CPU (the tests) only;
+ 17. Megatron tensor parallelism: (a) the unedited
+     yamls/SD-2-base-512-tp.yaml through `diffusion_torch.run.main` with
+     dotted overrides only (`trainer.mesh_config.fsdp=1
+     trainer.mesh_config.data=1`, so the yaml's tp 2 stays; global batch
+     16 in the yaml's microbatches of 8, 3 batches over 48 seeded 512px
+     latent MDS samples, no eval), first with `trainer.mesh_config.tp=1`
+     in this process as the reference, then as two tp ranks: this script
+     started again twice (`--tp-rank`), each process joining a gloo group
+     over the two and keeping `cuda:0`. Each rank's losses and grad norms
+     against the reference's (1e-4 and 1e-3 relative), its first step's
+     gradients against the reference's sliced as the rank holds them
+     (relative L2 5e-2 a tensor, 1e-2 whole: a few times what the card
+     measured) and against the reference's first step replayed on the
+     UNet's one-process tp twin (`tp_local_twin`; phase 16(b)'s
+     elementwise bound), the whole (unsliced) parameters, moments and EMA
+     bit-equal on both ranks after the run (`tp_replicas_differ`), its
+     flash calls a microbatch ((8, 4096, 5, 64) whole, (8, 1024, 5, 64)
+     head-sharded: 5 each), its GroupNorm launches a step (the
+     reference's), its UNet parameter count, device memory and step times
+     (two processes on one card: not a tp speed); then a control, one
+     batch with a planted fault (`tp_copy`'s backward not summing), which
+     must miss the grad-norm, gradient and replica checks; where gloo
+     refuses a CUDA tensor, that error in one line; (b)
+     `tp_copy` and `tp_reduce` forward and backward on a one-rank NCCL
+     group; (c) a Transformer2D of the 10-head level (640 channels, 1024
+     tokens) and of the 5-head level (320, 4096; attention gated whole,
+     GEGLU sharded), batch 8, as 2 tp shards in this process
+     (`tp_local_twin`) against the whole block through the kernels:
+     output, dx and every parameter's gradient within bf16 bounds, the
+     flash calls' shapes, the times; (d) one line saying where tp ranks
+     have run.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -4120,6 +4151,773 @@ def _sp_phase(card: str) -> dict:
     return {name: runs["remat"]["launches"][name]
             + runs["no remat"]["launches"][name] for name in _counters()}
 
+# ---------------- phase 17: Megatron tensor parallelism ----------------
+
+TP_YAML = "SD-2-base-512-tp.yaml"
+TP_BATCH, TP_STEPS, TP_TRAIN = 16, 3, 48     # the 2048 cut; microbatch 8
+TP_RANKS = 2                                 # the yaml's tp
+# the flash calls of a microbatch's forward, 5 self-attention calls a
+# level: on a tp rank level 0 (5 heads) whole, level 1 5 of its 10 heads
+TP_FLASH = {(8, 4096, 5, 64): 5, (8, 1024, 5, 64): 5}
+TP_FLASH_ONE = {(8, 4096, 5, 64): 5, (8, 1024, 10, 64): 5}
+TP_RANK_TIMEOUT = 900
+# the ranks against tp 1, a few times what the card measured (losses
+# 4.0e-5 and grad norms 3.8e-4 relative at most; gradients 0.0225 relative
+# L2 at worst a tensor, 0.0026 whole; NVIDIA H100 80GB HBM3, 700 W): a
+# planted fault (tp_copy's backward not summing, `_tp_rank_main`'s
+# control) must miss them
+TP_LOSS_REL, TP_NORM_REL = 1e-4, 1e-3
+TP_GRAD_REL, TP_GRAD_WHOLE_REL = 5e-2, 1e-2
+
+
+def _tp_sum(shards, dims: dict):
+    """One layer's tp shards in one process (no LoRA): their partial
+    outputs (each shard's row-parallel product, without its bias) summed
+    where the ranks' `tp_reduce` would sum them, then the bias. The shards
+    share their whole parameters, so those gather every shard's gradient,
+    as the replicated copies' gradients equal one another over ranks.
+    `dims`: the sliced parameters' tp dims, by name in the layer."""
+    import torch
+
+    class TpSum(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.shards, self.dims = torch.nn.ModuleList(shards), dims
+
+        def forward(self, x, context=None, shard=None):
+            parts = [_tp_partial(s, x, context, shard) for s in self.shards]
+            out = sum(p for p, _ in parts)
+            return out + parts[0][1].to(out.dtype)
+    return TpSum()
+
+
+def _tp_partial(layer, x, context=None, shard=None):
+    """A tp shard's part of its layer's output, the row-parallel product
+    before its bias (what `tp_reduce` sums), and that bias."""
+    import torch.nn.functional as F
+
+    from diffusion_torch.models.layers import Attention
+    if isinstance(layer, Attention):
+        h, out = layer._attend(x, context, shard), layer.to_out[0]
+    else:
+        h, out = layer.net[0](x), layer.net[2]
+    return F.linear(h, out.weight.to(h.dtype)), out.bias
+
+
+def tp_local_twin(module, size: int, head_dim=None):
+    """A copy of `module` (a Transformer2D, a block or a layer; no LoRA)
+    whose Megatron layers each run as `size` tp shards in this process
+    (`parallel/sharding.py::shard_tensor_parallel`'s slices), their
+    partials summed where the ranks' `tp_reduce` would: the local twin of
+    a tp group, which the tests and phase 17 hold against the whole module
+    and the ranks. Shard r's slices are `twin.<layer>.shards.r.<name>`."""
+    import copy
+
+    from diffusion_torch.models.layers import Attention, FeedForwardGEGLU
+    from diffusion_torch.parallel.sharding import shard_tensor_parallel
+    twin = copy.deepcopy(module)
+    layers = [(n, m) for n, m in twin.named_modules()
+              if isinstance(m, (Attention, FeedForwardGEGLU))]
+    for name, layer in layers:
+        if getattr(layer, "lora_rank", 0):
+            raise ValueError("the local twin runs layers without LoRA")
+        shards = [copy.deepcopy(layer) for _ in range(size)]
+        dims = shard_tensor_parallel(shards[0], 0, size, head_dim)
+        if not dims:
+            continue                   # gated: whole on every rank
+        for r in range(1, size):
+            sliced = shard_tensor_parallel(shards[r], r, size, head_dim)
+            for pname, p in shards[0].named_parameters():
+                if pname not in sliced:
+                    owner, _, leaf = pname.rpartition(".")
+                    setattr(shards[r].get_submodule(owner) if owner
+                            else shards[r], leaf, p)
+        if not name:                   # the module is the layer itself
+            return _tp_sum(shards, dims)
+        parent, _, child = name.rpartition(".")
+        setattr(twin.get_submodule(parent) if parent else twin, child,
+                _tp_sum(shards, dims))
+    return twin
+
+
+def tp_twin_grads(twin) -> dict:
+    """The gradients of a `tp_local_twin` under the whole module's names:
+    each shard's slices joined, each whole parameter (shared by the
+    shards) once."""
+    from diffusion_torch.parallel.sharding import tp_join
+    params = dict(twin.named_parameters(remove_duplicate=False))
+    sums = {n: m for n, m in twin.named_modules()
+            if type(m).__name__ == "TpSum"}
+    got = {}
+    lead = {s: f"{s}.shards." if s else "shards." for s in sums}
+    for name, p in params.items():
+        prefix = next((s for s in sums if name.startswith(lead[s])), None)
+        if prefix is None:
+            got[name] = p.grad
+            continue
+        index, _, rest = name[len(lead[prefix]):].partition(".")
+        whole = f"{prefix}.{rest}" if prefix else rest
+        if whole in got or index != "0":
+            continue
+        shards = [params[f"{lead[prefix]}{r}.{rest}"]
+                  for r in range(len(sums[prefix].shards))]
+        if rest not in sums[prefix].dims:
+            got[whole] = p.grad
+        else:
+            got[whole] = tp_join(rest, [s.grad for s in shards],
+                                 sums[prefix].dims[rest])
+    return got
+
+
+def bit_checksums(tensors):
+    """Two int64 checksums of each tensor's bits, a row a tensor, on the
+    host: the bits' sum, and their sum weighted by position (mod 127, plus
+    1). Bit-equal tensors give equal rows; a changed bit always changes
+    the first."""
+    import torch
+    as_int = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    rows = []
+    for t in tensors:
+        flat = t.detach().contiguous().view(-1)
+        bits = flat.view(as_int[flat.element_size()]).long()
+        weight = torch.arange(bits.numel(), device=bits.device) % 127 + 1
+        rows.append(torch.stack([bits.sum(), (bits * weight).sum()]))
+    return (torch.stack(rows).cpu() if rows
+            else torch.zeros((0, 2), dtype=torch.int64))
+
+
+def tp_replicas_differ(names, sums, sliced, group=None) -> list:
+    """The tensors a tp group must hold bit-equal on every rank (those of
+    `names` not in `sliced`) whose `bit_checksums` rows `sums` differ over
+    the ranks of `group` (a collective; every rank gets the same list)."""
+    import torch
+    import torch.distributed as dist
+    parts = [torch.empty_like(sums)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, sums, group=group)
+    return [n for i, n in enumerate(names) if n not in sliced
+            and any(not torch.equal(p[i], parts[0][i]) for p in parts)]
+
+
+def train_state_checksums(ts):
+    """(names, `bit_checksums`) of a train state's parameters, AdamW
+    moments and EMA, each under its parameter's name (the moments and the
+    EMA prefixed "mu ", "nu ", "ema ")."""
+    names = list(ts.params)
+    tensors = dict(ts.params)
+    for key, values in (("mu", ts.optimizer.mu), ("nu", ts.optimizer.nu),
+                        ("ema", (ts.ema_params or {}).values())):
+        tensors.update((f"{key} {n}", v) for n, v in zip(names, values))
+    return list(tensors), bit_checksums(tensors.values())
+
+
+def tp_sliced_names(dims) -> set:
+    """`train_state_checksums`'s names of a tp rank's slices."""
+    return {f"{key}{n}" for n in dims for key in ("", "mu ", "nu ", "ema ")}
+
+
+class TpRecord:
+    """Phase 17's callback (named by a `_target_` override; each instance
+    kept in `runs`): the UNet's parameter count on this rank and the
+    device memory held at the fit's start; per step the metrics, its end
+    (synchronised), its launches and its peak memory; the first step's
+    gradients as the optimizer takes them (this rank's parts, fp32 on the
+    host), and its microbatches' loss calls (the batch, the generator's
+    state and the keywords), which `_tp_replay` runs again; at the fit's
+    end the train state's `train_state_checksums`."""
+
+    runs: list = []
+
+    def __init__(self):
+        self.steps, self.ends, self.launches, self.peaks = [], [], [], []
+        self.grads, self.n_params, self.held = None, None, None
+        self.micro, self._at, self.checksums = [], None, None
+        TpRecord.runs.append(self)
+
+    def run_event(self, event, state, logger) -> None:
+        import torch
+        name = event.value
+        if name == "fit_start":
+            self.n_params = sum(p.numel() for p in
+                                state.model.unet.parameters())
+            torch.cuda.synchronize()
+            self.held = torch.cuda.memory_allocated()
+            opt = state.train_state.optimizer
+            names, step = list(state.train_state.params), opt.step
+
+            def recording(grad_norm=None, grads=None):
+                if self.grads is None:
+                    self.grads = {n: g.detach().float().cpu()
+                                  for n, g in zip(names, grads)}
+                return step(grad_norm=grad_norm, grads=grads)
+            opt.step = recording
+            loss_fn = state.model.loss_fn
+
+            def first_step_calls(batch, generator=None, *draws, **kwargs):
+                if self.grads is None:
+                    self.micro.append(({k: v.clone() for k, v in
+                                        batch.items()},
+                                       generator.get_state(), kwargs))
+                return loss_fn(batch, generator, *draws, **kwargs)
+            state.model.loss_fn = first_step_calls
+        elif name == "batch_start":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self._at = {k: c.value for k, c in _counters().items()}
+        elif name == "batch_end":
+            metrics = {k: float(v) for k, v in state.metrics.items()}
+            torch.cuda.synchronize()
+            self.ends.append(time.perf_counter())
+            self.steps.append(metrics)
+            self.launches.append({k: c.value - self._at[k]
+                                  for k, c in _counters().items()})
+            self.peaks.append(torch.cuda.max_memory_allocated())
+        elif name == "fit_end":
+            self.checksums = train_state_checksums(state.train_state)
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass
+
+
+def _tp_overrides(shards: str, tp: int, steps: int = TP_STEPS) -> list:
+    """Phase 17's dotted overrides of yamls/SD-2-base-512-tp.yaml: no rank
+    but tp's (fsdp 1, data 1), global batch 16 (the 2048 cut) in the
+    yaml's microbatches of 8, `steps` batches over the 512px latent shards
+    `shards`, no eval; with tp 1, the reference run."""
+    out = [f"batch_size={TP_BATCH}", "trainer.mesh_config.fsdp=1",
+           "trainer.mesh_config.data=1", f"trainer.max_duration={steps}ba",
+           "~logger", "~dataset.eval_dataset",
+           f"dataset.train_dataset.remote={shards}",
+           f"dataset.train_dataset.local={shards}",
+           "dataset.train_dataset.num_workers=2",
+           f"+callbacks.chip_smoke._target_={__name__}.TpRecord"]
+    return out + ([] if tp == TP_RANKS else [f"trainer.mesh_config.tp={tp}"])
+
+
+def _tp_run(shards: str, tp: int, steps: int = TP_STEPS) -> dict:
+    """One run of the tp yaml through `diffusion_torch.run.main` for
+    `steps` batches, the counters at 0 right before it: what its TpRecord
+    holds, its launches and the flash calls a microbatch by query
+    shape."""
+    import torch
+
+    from diffusion_torch import run
+    from diffusion_torch.ops import flash_attention as fa
+
+    shapes = []
+    real = fa.flash_attention_cuda
+
+    def spy(q, k, v):
+        shapes.append(tuple(q.shape))
+        return real(q, k, v)
+
+    for c in _counters().values():
+        c.reset()
+    TpRecord.runs.clear()
+    fa.flash_attention_cuda = spy
+    try:
+        t0 = time.perf_counter()
+        run.main(["--config-path", os.path.join(_ROOT, "yamls"),
+                  "--config-name", TP_YAML,
+                  *_tp_overrides(shards, tp, steps)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fa.flash_attention_cuda = real
+    record = TpRecord.runs[-1]
+    _check(len(record.steps) == steps,
+           f"tp {tp}: {len(record.steps)} steps, {steps} expected")
+    return {"steps": record.steps, "wall": wall,
+            "step_s": [b - a for a, b in zip(record.ends, record.ends[1:])],
+            "launches": {k: c.value for k, c in _counters().items()},
+            "step_launches": record.launches[-1],
+            "peak": max(record.peaks), "held": record.held,
+            "n_params": record.n_params, "grads": record.grads,
+            "micro": record.micro, "checksums": record.checksums,
+            "flash": {str(s): shapes.count(s) / (steps * 2)
+                      for s in sorted(set(shapes))}}
+
+
+def _grad_errors(got: dict, want: dict, slicer=None) -> dict:
+    """Gradients against a reference: the largest error over phase 16(b)'s
+    elementwise bound (one bf16 ulp of the tensor's largest gradient,
+    doubled; the tensor), how many tensors exceed it, and phase 6's
+    relative L2 errors (the largest tensor's, the whole gradient's).
+    `slicer(name, whole)` gives the part of a reference tensor that `got`
+    holds."""
+    worst, over, num, den, rel = (0.0, None), 0, 0.0, 0.0, (0.0, None)
+    for name, g in got.items():
+        w = want[name] if slicer is None else slicer(name, want[name])
+        _check(g.shape == w.shape, f"{name}: {tuple(g.shape)} against "
+               f"the reference's {tuple(w.shape)}")
+        d = (g - w).abs()
+        ratio = (d.max() / (2.0 ** -6 * w.abs().max() + 1e-30)).item()
+        over += ratio > 1
+        n, m = d.square().sum().item(), w.square().sum().item()
+        num, den = num + n, den + m
+        if ratio >= worst[0]:
+            worst = (ratio, name)
+        if (n / max(m, 1e-30)) ** 0.5 >= rel[0]:
+            rel = ((n / max(m, 1e-30)) ** 0.5, name)
+    return {"ratio": worst[0], "ratio_at": worst[1], "over": over,
+            "tensors": len(got), "rel": rel[0], "rel_at": rel[1],
+            "whole_rel": (num / max(den, 1e-30)) ** 0.5}
+
+
+def _tp_replay(micro: list, twin: bool) -> dict:
+    """The tp 1 run's first step again on a fresh model of the same seed,
+    from its recorded microbatches and generator states: with `twin`, on
+    the UNet's tp local twin (every sliced layer as its 2 shards in this
+    process, `tp_local_twin`), the ranks' arithmetic without the ranks.
+    The gradients under the whole UNet's names, averaged as the Trainer
+    averages them, fp32 on the host."""
+    import dataclasses
+
+    import torch
+
+    from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.parallel.sharding import model_tp_head_dim
+
+    model = stable_diffusion_2(precomputed_latents=True, device=DEVICE,
+                               seed=0)
+    if twin:
+        model = dataclasses.replace(model, unet=tp_local_twin(
+            model.unet, TP_RANKS, model_tp_head_dim(model)))
+    model.unet.train()
+    for batch, gen_state, kwargs in micro:
+        gen = torch.Generator(device=DEVICE)
+        gen.set_state(gen_state)
+        model.loss_fn(batch, gen, **kwargs).backward()
+    grads = (tp_twin_grads(model.unet) if twin else
+             {n: p.grad for n, p in model.unet.named_parameters()})
+    out = {n: (g / len(micro)).float().cpu() for n, g in grads.items()}
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_main(rank: int, port: int, tmp: str) -> int:
+    """A tp rank of phase 17(a), in a process of its own: a gloo process
+    group over the two ranks, the shared card `cuda:0`, the tp yaml through
+    `run.main`, then its first step's gradients against the reference
+    runs' (`tmp`/one_grads.pt, `tmp`/twin_grads.pt), sliced as this rank
+    holds them, and the whole tensors of its train state against the other
+    rank's (`tp_replicas_differ`). Then the control: the yaml again for
+    one batch with a planted fault, `tp_copy` without its backward sum (a
+    plain copy), whose gradients and replicas are read the same way.
+    Writes `tmp`/rank_<rank>.json; where gloo refuses a CUDA tensor, the
+    error."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition
+    from diffusion_torch.ops import _build
+    from diffusion_torch.parallel import sharding
+    from diffusion_torch.parallel.sharding import (model_tp_head_dim,
+                                                   tp_placement, tp_slice)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    out_path = os.path.join(tmp, f"rank_{rank}.json")
+    try:
+        probe = torch.ones(4, device=DEVICE)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:        # gloo refusing CUDA tensors
+            with open(out_path, "w") as f:
+                json.dump({"gloo_cuda_error": " ".join(str(e).split())}, f)
+            return 0
+        _check(probe.tolist() == [2.0] * 4, f"gloo all_reduce gave {probe}")
+        _build.library()
+        with torch.device("meta"):
+            unet = UNet2DCondition(SD2_BASE_UNET)
+
+        class _Model:
+            pass
+        model = _Model()
+        model.unet = unet
+        dims = tp_placement(unet, TP_RANKS, model_tp_head_dim(model))
+
+        def mine(name, whole):
+            return (tp_slice(name, whole, dims[name], rank, TP_RANKS)
+                    if name in dims else whole)
+
+        def read(got):
+            grads = got.pop("grads")
+            got.pop("micro")
+            got["replicas_differ"] = tp_replicas_differ(
+                *got.pop("checksums"), tp_sliced_names(dims))
+            got["sliced"] = sum(n in dims for n in grads)
+            return grads
+
+        got = _tp_run(os.path.join(tmp, "shards"), TP_RANKS)
+        grads = read(got)
+        for key in ("one", "twin"):
+            ref = torch.load(os.path.join(tmp, f"{key}_grads.pt"))
+            got[f"grads_{key}"] = _grad_errors(grads, ref, mine)
+            del ref
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        real = sharding.tp_copy
+        sharding.tp_copy = lambda x, shard: x.clone()    # the planted fault
+        try:
+            control = _tp_run(os.path.join(tmp, "shards"), TP_RANKS, 1)
+        finally:
+            sharding.tp_copy = real
+        grads = read(control)
+        ref = torch.load(os.path.join(tmp, "one_grads.pt"))
+        got["control"] = {"steps": control["steps"],
+                          "replicas_differ": control["replicas_differ"],
+                          "grads_one": _grad_errors(grads, ref, mine)}
+        with open(out_path, "w") as f:
+            json.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tp_ranks(tmp: str) -> dict:
+    """(a)'s two tp ranks: `chip_smoke.py --tp-rank r` processes sharing
+    the card, each printing to its log under `tmp`; their results, or
+    the one-line error where gloo refused a CUDA tensor."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(TP_RANKS):
+            log = open(os.path.join(tmp, f"rank_{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank",
+                 str(r), "--tp-port", str(port), "--tp-dir", tmp],
+                cwd=_ROOT, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_RANK_TIMEOUT
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    results = []
+    for r, code in enumerate(codes):
+        if code != 0:
+            with open(os.path.join(tmp, f"rank_{r}.log")) as f:
+                tail = f.read()[-3000:]
+            _check(False, f"tp rank {r} exited {code}: {tail}")
+        with open(os.path.join(tmp, f"rank_{r}.json")) as f:
+            results.append(json.load(f))
+    return {"ranks": results, "wall": wall}
+
+
+def _tp_yaml_phase(card: str, tmp: str) -> dict:
+    """(a) The tp yaml as two tp ranks sharing the card over gloo, against
+    the same run with tp 1 in this process; returns the five kernels'
+    launches in the three runs."""
+    import numpy as np
+    import torch
+
+    shards = os.path.join(tmp, "shards")
+    t0 = time.perf_counter()
+    nbytes = _write_laion_shards(shards, TP_TRAIN, np.random.default_rng(17),
+                                 size=512)
+    print(f"tp: {TP_TRAIN} seeded 512px latent + caption-latent samples "
+          f"({nbytes / 1e6:.1f} MB of MDS shards) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"tp yaml: yamls/{TP_YAML} through diffusion_torch.run.main with "
+          f"the dotted overrides {' '.join(_tp_overrides(shards, 1))} "
+          f"(the tp 1 reference, this process); the tp ranks the same "
+          f"without trainer.mesh_config.tp=1")
+    torch.cuda.reset_peak_memory_stats()
+    one = _tp_run(shards, 1)
+    grads, micro = one.pop("grads"), one.pop("micro")
+    one.pop("checksums")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first step again in this process: on the same UNet (the replay
+    # must give the run's gradients), then on its tp local twin
+    t0 = time.perf_counter()
+    replay = _grad_errors(_tp_replay(micro, twin=False), grads)
+    twin = _tp_replay(micro, twin=True)
+    twin_err = _grad_errors(twin, grads)
+    print(f"tp yaml: the tp 1 run's first step replayed from its "
+          f"{len(micro)} recorded microbatches and generator states on a "
+          f"fresh model of the seed: against the run's gradients "
+          f"{replay}; on the UNet's tp local twin (each sliced layer as "
+          f"{TP_RANKS} shards in this process, the partials summed in "
+          f"bf16 as tp_reduce sums them), against the tp 1 run's "
+          f"{twin_err}; {time.perf_counter() - t0:.1f} s [{card}]")
+    _check(replay["ratio"] <= 1.0, "the replay does not give the run's "
+                                   "first-step gradients")
+    torch.save(grads, os.path.join(tmp, "one_grads.pt"))
+    torch.save(twin, os.path.join(tmp, "twin_grads.pt"))
+    del grads, twin, micro
+    gc.collect()
+    ranks = _tp_ranks(tmp)
+    launches = dict(one["launches"])
+    error = ranks["ranks"][0].get("gloo_cuda_error")
+    if error is not None:
+        print(f"tp yaml: gloo refused a CUDA tensor, so the two tp ranks "
+              f"did not run on the card (no pass): {error}")
+        return launches
+
+    def line(label, got):
+        m = got["steps"]
+        return (f"tp yaml: {label}: losses "
+                + ", ".join(f"{s['loss/train/total']:.6f}" for s in m)
+                + "; grad norms "
+                + ", ".join(f"{s['grad/global_norm']:.6f}" for s in m)
+                + f"; UNet parameters {got['n_params']:,}; device memory "
+                f"held at the fit's start {got['held'] / 2 ** 30:.2f} GiB, "
+                f"a step's peak {got['peak'] / 2 ** 30:.2f} GiB; flash "
+                f"calls a microbatch's forward {got['flash']}; a step's "
+                f"launches {got['step_launches']}; steps after the first "
+                + ", ".join(f"{s * 1e3:.1f}" for s in got["step_s"])
+                + f" ms; run {got['wall']:.1f} s [{card}]")
+
+    def off(got, ref, key):
+        """The largest relative gap of a metric's steps to tp 1's (over
+        the steps both ran)."""
+        return max(abs(a[key] - b[key]) / abs(b[key])
+                   for a, b in zip(got["steps"], ref["steps"]))
+
+    def misses(got):
+        """The limits against tp 1 a rank's run misses."""
+        g = got["grads_one"]
+        return [name for name, bad in (
+            ("loss", off(got, one, "loss/train/total") > TP_LOSS_REL),
+            ("grad norm", off(got, one, "grad/global_norm") > TP_NORM_REL),
+            ("a tensor's gradient", g["rel"] > TP_GRAD_REL),
+            ("the whole gradient", g["whole_rel"] > TP_GRAD_WHOLE_REL),
+            ("replicas", bool(got["replicas_differ"]))) if bad]
+
+    limits = (f"losses within {TP_LOSS_REL:g} and grad norms within "
+              f"{TP_NORM_REL:g} relative, first-step gradients within "
+              f"relative L2 {TP_GRAD_REL:g} a tensor and "
+              f"{TP_GRAD_WHOLE_REL:g} whole")
+    print(line("tp 1 (one process, the reference)", one))
+    for r, got in enumerate(ranks["ranks"]):
+        print(line(f"tp rank {r} of {TP_RANKS} (two processes sharing one "
+                   f"card: the times are not a tp speed)", got))
+        print(f"tp yaml: tp rank {r} against tp 1 ({limits}): losses "
+              f"{off(got, one, 'loss/train/total'):.3e}, grad norms "
+              f"{off(got, one, 'grad/global_norm'):.3e} relative at most; "
+              f"first-step gradients ({got['sliced']} tensors sliced as "
+              f"the rank holds them) {got['grads_one']}; against the "
+              f"local twin's (phase 16(b)'s ratio <= 1) "
+              f"{got['grads_twin']}; whole tensors of the train state "
+              f"(parameters, moments, EMA) differing from the other "
+              f"rank's: {len(got['replicas_differ'])} "
+              f"{got['replicas_differ'][:3]} [{card}]")
+        ctl = got["control"]
+        print(f"tp yaml: tp rank {r}, control (tp_copy's backward not "
+              f"summing, 1 batch): loss "
+              f"{off(ctl, one, 'loss/train/total'):.3e}, grad norm "
+              f"{off(ctl, one, 'grad/global_norm'):.3e} relative; "
+              f"first-step gradients {ctl['grads_one']}; whole "
+              f"tensors differing from the other rank's "
+              f"{len(ctl['replicas_differ'])}; misses {misses(ctl)} "
+              f"[{card}]")
+        for k, v in got["launches"].items():
+            launches[k] += v
+        _check(not misses(got), f"tp rank {r} misses the tp 1 run's "
+                                f"limits ({limits}): {misses(got)}")
+        _check({"grad norm", "a tensor's gradient", "the whole gradient",
+                "replicas"} <= set(misses(ctl)),
+               f"tp rank {r}: the control passes limits it must miss: "
+               f"{misses(ctl)}")
+        _check(got["grads_twin"]["ratio"] <= 1.0, f"tp rank {r}: the first "
+               f"step's gradients miss the local twin's "
+               f"({got['grads_twin']})")
+        _check(got["flash"] == {str(k): float(v)
+                                for k, v in sorted(TP_FLASH.items())},
+               f"tp rank {r}: flash calls {got['flash']}")
+        _check(got["step_launches"]["group_norm"]
+               == one["step_launches"]["group_norm"]
+               and got["step_launches"]["group_norm_bwd"]
+               == one["step_launches"]["group_norm_bwd"],
+               f"tp rank {r}: GroupNorm launches a step "
+               f"{got['step_launches']} against tp 1's "
+               f"{one['step_launches']}")
+        _check(got["n_params"] < one["n_params"],
+               f"tp rank {r} holds {got['n_params']} parameters")
+    _check(one["flash"] == {str(k): float(v)
+                            for k, v in sorted(TP_FLASH_ONE.items())},
+           f"tp 1: flash calls {one['flash']}")
+    n0 = ranks["ranks"][0]["n_params"]
+    print(f"tp yaml: each tp rank holds {n0:,} of the UNet's "
+          f"{one['n_params']:,} parameters ({n0 / one['n_params']:.4f}); "
+          f"the two ranks' processes {ranks['wall']:.1f} s [{card}]")
+    for name, n in launches.items():
+        _check(n > 0, f"tp yaml: {name} was not launched")
+    return launches
+
+
+def _tp_dispatch_check(card: str) -> None:
+    """(b) `tp_copy` and `tp_reduce` on a one-rank NCCL group, forward and
+    backward through autograd: fresh outputs equal to their inputs, and
+    the cotangents through the NCCL all-reduce."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_torch.parallel.mesh import MESH_AXES, create_mesh
+    from diffusion_torch.parallel.sharding import (RowShard, register_group,
+                                                   tp_copy, tp_reduce)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = create_mesh(fsdp=1)
+        shard = RowShard(register_group(mesh.get_group(
+            MESH_AXES.index("tp"))), 0, 1)
+        gen = torch.Generator(device=DEVICE).manual_seed(20)
+        x, g = (torch.randn((8, 1024, 640), generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        ok = {}
+        for name, op in (("tp_copy", tp_copy), ("tp_reduce", tp_reduce)):
+            xi = x.clone().requires_grad_(True)
+            y = op(xi, shard)
+            y.backward(g)
+            torch.cuda.synchronize()
+            ok[name] = (torch.equal(y, x), y.data_ptr() != xi.data_ptr(),
+                        torch.equal(xi.grad, g))
+        print(f"tp dispatch: tp_copy and tp_reduce over a one-rank "
+              f"{dist.get_backend()} group at (8, 1024, 640) bf16, forward "
+              f"and backward: (output equal to the input, a fresh tensor, "
+              f"cotangent through) {ok} [{card}]")
+        _check(all(all(v) for v in ok.values()),
+               "the tp dispatcher ops disagree on the card")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_kernel_work(card: str) -> None:
+    """(c) One Transformer2D of the 10-head level (640 channels, 32x32
+    tokens) and one of the 5-head level (320, 64x64), batch 8, split into
+    their tp = 2 shards by the port's slicing (`tp_local_twin`: the
+    partials summed where `tp_reduce` would), forward and backward through
+    the kernels against the whole block."""
+    import torch
+
+    from diffusion_torch.models.layers import Transformer2D, init_like_flax_
+    from diffusion_torch.ops import flash_attention as fa
+
+    real = fa.flash_attention_cuda
+    for channels, heads, side in ((640, 10, 32), (320, 5, 64)):
+        gen = torch.Generator(device=DEVICE).manual_seed(21)
+        block = Transformer2D(channels, heads, 1024).to(DEVICE)
+        init_like_flax_(block, gen)
+        with torch.no_grad():       # nonzero biases and norms
+            for p in block.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen,
+                                          device=DEVICE))
+        twin = tp_local_twin(block, TP_RANKS, 64)
+        x = torch.randn((8, channels, side, side), generator=gen,
+                        device=DEVICE).to(torch.bfloat16).contiguous(
+                            memory_format=torch.channels_last)
+        ctx = torch.randn((8, 77, 1024), generator=gen,
+                          device=DEVICE).to(torch.bfloat16)
+        dy = torch.randn(x.shape, generator=gen, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        runs = {}
+        for label, m in (("whole", block), ("shards", twin)):
+            shapes = []
+
+            def spy(q, k, v):
+                shapes.append(tuple(q.shape))
+                return real(q, k, v)
+
+            def step():
+                xi = x.clone().requires_grad_(True)
+                y = m(xi, ctx)
+                y.backward(dy)
+                return y, xi
+
+            fa.flash_attention_cuda = spy
+            try:
+                m.zero_grad(set_to_none=True)
+                y, xi = step()
+                torch.cuda.synchronize()
+            finally:
+                fa.flash_attention_cuda = real
+            grads = (tp_twin_grads(m) if m is twin else
+                     {n: p.grad for n, p in m.named_parameters()})
+            runs[label] = (y.detach(), xi.grad, {
+                n: g.clone() for n, g in grads.items()}, sorted(shapes))
+            runs[label] += (_time_ms(step, iters=5, warmup=2),)
+        (y1, dx1, g1, s1, ms1), (y2, dx2, g2, s2, ms2) = (runs["whole"],
+                                                          runs["shards"])
+
+        def excess(got, want):
+            return ((got.float() - want.float()).abs().max()
+                    / (2.0 ** -6 * want.float().abs().max() + 1e-30)).item()
+        errs = {"out": excess(y2, y1), "dx": excess(dx2, dx1),
+                "grads": max(excess(g2[n], g1[n]) for n in g1)}
+        print(f"tp shards: Transformer2D({channels}, {heads} heads) at "
+              f"(8, {side * side}) tokens as {TP_RANKS} tp shards summed "
+              f"where tp_reduce would, against the whole block: error over "
+              f"its bf16 bound {errs} (<= 1; {len(g1)} parameters); flash "
+              f"query shapes {s2} (whole: {s1}); forward + backward "
+              f"{ms2:.3f} ms against the whole block's {ms1:.3f} ms "
+              f"[{card}]")
+        _check(sorted(g2) == sorted(g1) and all(e <= 1.0
+                                                for e in errs.values()),
+               f"the tp shards of Transformer2D({channels}) disagree with "
+               f"the whole block")
+        want = ([(8, side * side, heads // TP_RANKS, 64)] * TP_RANKS
+                if heads % TP_RANKS == 0 else [(8, side * side, heads, 64)])
+        _check(s2 == want, f"tp shards: flash calls {s2}, {want} expected")
+        del block, twin, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _tp_phase(card: str) -> dict:
+    """Phase 17 (see the module docstring); returns the five kernels'
+    launches in (a)'s three runs."""
+    import torch
+
+    tmp = os.path.join(_ROOT, "build", "chip_smoke_tp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    try:
+        launches = _tp_yaml_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tp_dispatch_check(card)
+    _tp_kernel_work(card)
+    print(f"tp: one card ({torch.cuda.device_count()}): tp ranks ran across "
+          f"processes only on the CPU over gloo (tests/"
+          f"test_torch_ring_attention.py, tests/test_torch_mesh_trainer.py) "
+          f"and as two processes sharing this card over gloo (a); NCCL "
+          f"across cards is not run by this script; phase "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def _eval_job_args(remote: str, out: str) -> tuple:
     """The argument lists of phase 11's two runs: the port's
     fid_clip_evaluation (yamls/eval.yaml's job, with dpm++2m at 20 steps)
@@ -4446,12 +5244,18 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="a tree of the parent commit (git archive), whose "
                          "flash dQ kernel is timed in turns with this one")
+    # phase 17's tp ranks: this script started again, one process a rank
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    if args.tp_rank is not None:
+        return _tp_rank_main(args.tp_rank, args.tp_port, args.tp_dir)
     from PIL import Image
 
     from diffusion_torch.inference.inference_model import \
@@ -4664,6 +5468,10 @@ def main(argv=None) -> int:
     sp_launches = _sp_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
+    # 17. Megatron tensor parallelism: the 512-tp yaml as two tp ranks
+    tp_launches = _tp_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     _profile_serving_step(serve_unet.to(DEVICE), *serve_inputs, card)
 
     summary = []
@@ -4696,7 +5504,7 @@ def main(argv=None) -> int:
                          + checkpoint_launches[name]
                          + lora_launches[name] + reader_launches[name]
                          + pixel_launches[name] + recipe_launches[name]
-                         + sp_launches[name]),
+                         + sp_launches[name] + tp_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

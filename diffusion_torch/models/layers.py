@@ -27,6 +27,14 @@ group, 3x3 convolutions take a row from each neighbour
 (`halo_rows`), and self-attention attends over the group's tokens
 (`ops/attention.py`).
 
+Tensor parallelism: `parallel/sharding.py::shard_tensor_parallel` leaves
+an `Attention` or `FeedForwardGEGLU` holding one tp rank's slices and sets
+its `tp` to the group's size. Its forward then needs
+`ops.attention.tensor_parallel`: it reads its input through `tp_copy`,
+computes its own heads (or hidden features), sums its row-parallel
+product over the tp group with `tp_reduce`, and adds the bias after the
+sum (JAX: the layers' `tp_dim` anchors and the allreduce XLA inserts).
+
 LoRA (`Attention(lora_rank=r)`): bias-free `Linear` siblings
 `to_q_lora_a`/`to_q_lora_b` (and the same for `to_k`, `to_v`, `to_out`)
 beside each projection, so the base names, and a diffusers checkpoint,
@@ -221,6 +229,23 @@ class LoRALinear(Linear):
         self.zero_init = zero
 
 
+def _tp_shard(layer: nn.Module):
+    """The tp group a sliced layer runs over (None for a whole layer)."""
+    if layer.tp == 1:
+        return None
+    from diffusion_torch.ops.attention import active_tp
+    shard = active_tp()
+    if shard is None or shard.size != layer.tp:
+        raise RuntimeError(f"a layer holding its slice of {layer.tp} tp "
+                           f"ranks runs under ops.attention.tensor_parallel "
+                           f"over {layer.tp} ranks")
+    return shard
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 class Attention(nn.Module):
     """Multi-head attention over (B, S, C) tokens; cross-attention when a
     context is given. Dispatches through `ops.attention`.
@@ -228,7 +253,12 @@ class Attention(nn.Module):
     `lora_rank > 0` adds y = W x + (alpha / r) B(A(x)) to each projection,
     after its base product and at its compute dtype (the JAX module's
     order): q's branch reads x, k's and v's the context, to_out's the
-    attention output. `lora_alpha=None` means scale 1.0."""
+    attention output. `lora_alpha=None` means scale 1.0.
+
+    Sliced for tp ranks (`tp` > 1): `heads // tp` local heads. A LoRA
+    branch of q/k/v takes its (whole) A's output through `tp_copy` into its
+    B's rows; to_out's branch sums its A's partial product over the group
+    before its (whole) B, so every whole factor gets the whole gradient."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_dim: Optional[int] = None, lora_rank: int = 0,
@@ -236,7 +266,7 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         ctx = cross_dim or query_dim
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.tp = heads, dim_head, 1
         self.to_q = Linear(query_dim, inner, bias=False)
         self.to_k = Linear(ctx, inner, bias=False)
         self.to_v = Linear(ctx, inner, bias=False)
@@ -254,29 +284,49 @@ class Attention(nn.Module):
                 setattr(self, f"{name}_lora_b",
                         LoRALinear(self.lora_rank, fan_out, zero=True))
 
-    def _lora(self, name: str, y: torch.Tensor,
-              inp: torch.Tensor) -> torch.Tensor:
+    def _lora(self, name: str, y: torch.Tensor, inp: torch.Tensor,
+              copy=_same) -> torch.Tensor:
         if self.lora_rank == 0:
             return y
-        a = getattr(self, f"{name}_lora_a")(inp)
+        a = copy(getattr(self, f"{name}_lora_a")(inp))
         return y + getattr(self, f"{name}_lora_b")(a) * self.lora_scale
+
+    def _attend(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                shard, copy=_same) -> torch.Tensor:
+        """(B, Sq, local inner): this rank's heads' attention output, the
+        inputs taken through `copy` (tp_copy under tp)."""
+        ctx = x if context is None else context
+        xc = copy(x)
+        cc = xc if context is None else copy(context)
+        b, sq, _ = x.shape
+        sk = ctx.shape[1]
+        heads = self.heads // self.tp
+        q = self._lora("to_q", self.to_q(xc), x, copy)
+        k = self._lora("to_k", self.to_k(cc), ctx, copy)
+        v = self._lora("to_v", self.to_v(cc), ctx, copy)
+        o = multi_head_attention(q.view(b, sq, heads, self.dim_head),
+                                 k.view(b, sk, heads, self.dim_head),
+                                 v.view(b, sk, heads, self.dim_head),
+                                 shard=shard if context is None else None)
+        return o.reshape(b, sq, -1)
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 shard=None) -> torch.Tensor:
         """`shard`: self-attention over tokens the sp group splits."""
-        ctx = x if context is None else context
-        b, sq, _ = x.shape
-        sk = ctx.shape[1]
-        q = self._lora("to_q", self.to_q(x), x)
-        k = self._lora("to_k", self.to_k(ctx), ctx)
-        v = self._lora("to_v", self.to_v(ctx), ctx)
-        o = multi_head_attention(q.view(b, sq, self.heads, self.dim_head),
-                                 k.view(b, sk, self.heads, self.dim_head),
-                                 v.view(b, sk, self.heads, self.dim_head),
-                                 shard=shard if context is None else None)
-        o = o.reshape(b, sq, -1)
-        return self._lora("to_out", self.to_out[0](o), o)
+        tp = _tp_shard(self)
+        if tp is None:
+            o = self._attend(x, context, shard)
+            return self._lora("to_out", self.to_out[0](o), o)
+        from diffusion_torch.parallel.sharding import tp_copy, tp_reduce
+        o = self._attend(x, context, shard, lambda t: tp_copy(t, tp))
+        # the row-parallel product summed over the group, then the bias
+        out = tp_reduce(F.linear(o, self.to_out[0].weight.to(o.dtype)), tp)
+        out = out + self.to_out[0].bias.to(out.dtype)
+        if self.lora_rank == 0:
+            return out
+        a = tp_reduce(self.to_out_lora_a(o), tp)
+        return out + self.to_out_lora_b(a) * self.lora_scale
 
 
 class _GEGLU(nn.Module):
@@ -286,22 +336,32 @@ class _GEGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # diffusers' fused value+gate projection, chunked (value, gate); the
-        # JAX module keeps the halves as proj_in/proj_gate (port_jax re-fuses)
+        # JAX module keeps the halves as proj_in/proj_gate (port_jax re-fuses;
+        # a tp slice holds its value rows, then its gate rows)
         a, gate = self.proj(x).chunk(2, dim=-1)
         return a * F.gelu(gate)
 
 
 class FeedForwardGEGLU(nn.Module):
-    """GEGLU feed-forward, exact erf GELU: net.0 = GEGLU, net.2 = output."""
+    """GEGLU feed-forward, exact erf GELU: net.0 = GEGLU, net.2 = output.
+    Sliced for tp ranks (`tp` > 1): net.0 column-parallel, net.2
+    row-parallel."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
+        self.tp = 1
         self.net = nn.ModuleList([_GEGLU(dim, inner), nn.Identity(),
                                   Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        tp = _tp_shard(self)
+        if tp is None:
+            return self.net[2](self.net[0](x))
+        from diffusion_torch.parallel.sharding import tp_copy, tp_reduce
+        h = self.net[0](tp_copy(x, tp))
+        out = tp_reduce(F.linear(h, self.net[2].weight.to(h.dtype)), tp)
+        return out + self.net[2].bias.to(out.dtype)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -65,8 +65,8 @@ class StableDiffusion:
     loss_bins: Tuple[Tuple[float, float], ...] = ((0, 1),)
     train_metric_names: Tuple[str, ...] = ("MeanSquaredError",)
     val_metric_names: Tuple[str, ...] = ("MeanSquaredError",)
-    # recorded for the trainer, as the JAX package records it; sharding
-    # comes with multi-device training (ROADMAP.md queue 1 item 9)
+    # recorded for the trainer, as the JAX package records it: its default
+    # mesh shards over fsdp where this is true (`Trainer._setup_mesh`)
     fsdp: bool = True
     # the local diffusers directory the builder loaded (pretrained=True)
     pretrained_path: Optional[str] = None

@@ -13,9 +13,11 @@ backward (`torch.utils.checkpoint`, non-reentrant) under JAX's "dots"
 policy: the outputs of matrix products without batch dimensions (`mm`,
 `addmm`: every Linear), of convolutions (JAX saves the ResnetBlock convs'
 `conv_out` by default, `DIFFUSION_TPU_SAVE_CONVS=1`; here every conv of
-the block, its 1x1 shortcut too) and of the flash and ring attention ops
-(JAX's `flash_out`/`flash_lse`) are kept; norms, activations, attention's
-batched products and the dropout masks are recomputed. The attention
+the block, its 1x1 shortcut too), of the flash and ring attention ops
+(JAX's `flash_out`/`flash_lse`) and of the tensor-parallel sums
+(`tp_reduce`, whose all-reduce then runs once) are kept; norms,
+activations, attention's batched products and the dropout masks are
+recomputed. The attention
 kernels are dispatcher ops (`torch.library.custom_op`) so that the policy
 sees them: the O(S^2) forward never runs again in the backward.
 
@@ -56,10 +58,11 @@ def remat_saved_ops() -> frozenset:
     policy with the conv and flash names)."""
     from diffusion_torch.ops.flash_attention import flash_attention_op
     from diffusion_torch.ops.ring_attention import ring_attention_op
+    from diffusion_torch.parallel.sharding import tp_reduce_op
     aten = torch.ops.aten
     return frozenset({aten.mm.default, aten.addmm.default,
                       aten.convolution.default, flash_attention_op,
-                      ring_attention_op})
+                      ring_attention_op, tp_reduce_op})
 
 
 def _dots_policy(saved, ctx, op, *args, **kwargs):

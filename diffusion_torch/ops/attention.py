@@ -1,16 +1,15 @@
 """Attention dispatch: plain attention, the flash kernel, or under sequence
-parallelism the ring.
+parallelism the ring; and the tensor-parallel context.
 
-Counterpart of `diffusion_tpu/ops/attention.py` without the tensor-parallel
-context (ROADMAP.md queue 1 item 9b). Every entry point takes (B, S, H, D)
-q/k/v. The eligibility rule is the JAX one, with "the backend is a TPU"
-read as "the tensor lies on a CUDA device", plus what the CUDA kernels
-take: bf16 q/k/v with head dim 64. At 512px the bf16 UNet's S=4096 and
-S=1024 self-attention run the kernel; cross-attention (77 keys), the S=256
-and S=64 stages, CLIP's masked attention, and every fp32, fp16 or
-head-dim-128 call stay on plain torch math (a matmul, a softmax and a
-matmul), which computes the same function (the JAX kernel runs in any
-dtype).
+Counterpart of `diffusion_tpu/ops/attention.py`. Every entry point takes
+(B, S, H, D) q/k/v. The eligibility rule is the JAX one, with "the
+backend is a TPU" read as "the tensor lies on a CUDA device", plus what
+the CUDA kernels take: bf16 q/k/v with head dim 64. At 512px the bf16
+UNet's S=4096 and S=1024 self-attention run the kernel; cross-attention
+(77 keys), the S=256 and S=64 stages, CLIP's masked attention, and every
+fp32, fp16 or head-dim-128 call stay on plain torch math (a matmul, a
+softmax and a matmul), which computes the same function (the JAX kernel
+runs in any dtype).
 
 `sequence_parallel(mesh, min_seq=)` (the Trainer enters it when the mesh's
 sp axis is > 1) makes `active_shard()` the rank's `RowShard`; the UNet then
@@ -19,6 +18,17 @@ token shard. Such a call with at least `min_seq` tokens in all runs as
 ring attention over the group (`ops/ring_attention.py`); a shorter one
 gathers K and V from the group (`parallel/sharding.py::gather_rows`) and
 attends locally. Cross-attention (77 keys) never takes the ring.
+
+`tensor_parallel(mesh)` (the Trainer enters it when the mesh's tp axis is
+> 1) makes `active_tp()` the rank's place in its tp group. The attention
+and GEGLU layers that `parallel/sharding.py::shard_tensor_parallel` sliced
+then run on their own heads and hidden features, and sum their
+row-parallel products over the group (JAX's `_tp_dispatch` and its
+allreduce): a sharded attention layer hands `multi_head_attention` its
+local heads, so the flash kernel runs per head shard. Under both contexts
+each tp rank runs the ring over its sp group on its own heads (JAX's
+`_ring_dispatch` with heads over tp): the sp group of a tp coordinate is
+the mesh's sp group.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 from diffusion_torch.ops.flash_attention import flash_attention
 
 __all__ = ["multi_head_attention", "flash_eligible", "sequence_parallel",
-           "active_shard"]
+           "active_shard", "tensor_parallel", "active_tp"]
 
 # (RowShard, min_seq) while a sequence_parallel context is active
 _SEQ_PARALLEL: list = [None]
@@ -56,6 +66,30 @@ def active_shard():
     """The active sequence_parallel context's RowShard, or None."""
     ctx = _SEQ_PARALLEL[0]
     return None if ctx is None else ctx[0]
+
+
+# the tp group's RowShard while a tensor_parallel context is active
+_TENSOR_PARALLEL: list = [None]
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh):
+    """Run the tp-sliced layers over the mesh's tp group while active. A
+    no-op where the mesh is None or its tp axis has one rank."""
+    from diffusion_torch.parallel.sharding import row_shard
+    shard = row_shard(mesh, "tp")
+    prev = _TENSOR_PARALLEL[0]
+    _TENSOR_PARALLEL[0] = shard
+    try:
+        yield shard
+    finally:
+        _TENSOR_PARALLEL[0] = prev
+
+
+def active_tp():
+    """The active tensor_parallel context's RowShard (the rank's place in
+    its tp group), or None."""
+    return _TENSOR_PARALLEL[0]
 
 
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

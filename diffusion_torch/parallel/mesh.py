@@ -9,12 +9,15 @@ JAX's:
 
 - dcn, fsdp, data: the global batch splits over them; the UNet's
   parameters shard over `fsdp` (FSDP2, `parallel/sharding.py`) and
-  replicate over the others;
+  replicate over the others but `tp`;
 - sp: sequence parallelism. The ranks of an sp group hold the same
   examples and split the UNet body's rows; long self-attention runs as a
   ring over them (`ops/ring_attention.py`);
-- tp: Megatron tensor parallelism, not ported yet (ROADMAP.md queue 1
-  item 9b): `tp > 1` raises.
+- tp: Megatron tensor parallelism, the innermost axis. The ranks of a tp
+  group hold the same examples and split the attention heads and the
+  GEGLU's hidden features (`parallel/sharding.py::shard_tensor_parallel`,
+  `ops/attention.py::tensor_parallel`); convolutions and norms run whole
+  on each of them.
 
 One axis may be -1, inferred from the world size, with JAX's errors.
 """
@@ -38,10 +41,6 @@ def mesh_sizes(n: int, fsdp: int = -1, data: int = 1, dcn: int = 1,
                sp: int = 1, tp: int = 1) -> Dict[str, int]:
     """The axes' sizes for `n` ranks, the one -1 inferred; JAX's
     ValueErrors where they do not cover `n`."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) comes with ROADMAP.md queue 1 item "
-            "9b (Megatron TP, yamls/SD-2-base-512-tp.yaml)")
     sizes = {"dcn": dcn, "fsdp": fsdp, "data": data, "sp": sp, "tp": tp}
     unknown = [k for k, v in sizes.items() if v == -1]
     if len(unknown) > 1:
@@ -58,7 +57,7 @@ def mesh_sizes(n: int, fsdp: int = -1, data: int = 1, dcn: int = 1,
 
 def example_layout(mesh) -> tuple:
     """(rank, world) of this rank over the mesh's batch axes: the ranks that
-    hold different examples (an sp group shares its examples)."""
+    hold different examples (an sp or tp group shares its examples)."""
     coord = dict(zip(MESH_AXES, mesh.get_coordinate()))
     rank, world = 0, 1
     for axis in BATCH_AXES:

@@ -32,12 +32,26 @@ each rank runs its part of the step and the communication is explicit:
   the ring (`ops/ring_attention.py`). The communication runs inside
   dispatcher ops (`torch.library.custom_op`) that name their process group,
   so a selective-checkpoint policy sees one op for each.
+- Megatron tensor parallelism over the mesh's `tp` axis
+  (`shard_tensor_parallel`, JAX's `_tp_dim` table and head gate): each tp
+  rank keeps its slice of the attention and GEGLU pairs' weights, the
+  column-parallel ones (q/k/v and their LoRA B, the GEGLU's value and
+  gate rows) by output features, the row-parallel ones (`to_out` and its
+  LoRA A, the GEGLU's `net.2`) by input features; their biases, the
+  norms, the convolutions and `Transformer2D`'s `proj_in`/`proj_out`
+  stay whole. An attention layer whose heads do not divide over the tp
+  ranks stays whole on each (SD2's 5-head stage at tp = 2). A sharded
+  layer reads its input through `tp_copy` (identity; the backward sums the
+  cotangent over the tp group) and sums its row-parallel product over the
+  group with `tp_reduce` before its bias: one all-reduce a layer forward.
+  FSDP then shards each tp rank's parameters over the other axes; it
+  never averages over `tp`, whose ranks hold different slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -46,7 +60,9 @@ from diffusion_torch.parallel.mesh import MESH_AXES
 
 __all__ = ["RowShard", "row_shard", "halo_rows", "gather_rows", "take_rows",
            "process_group", "register_group", "fsdp_mesh", "shard_unet",
-           "batch_slice"]
+           "batch_slice", "tp_copy", "tp_reduce", "tp_reduce_op",
+           "tp_placement", "model_tp_head_dim", "tp_slice", "tp_join",
+           "shard_tensor_parallel"]
 
 # process groups by name, for the dispatcher ops (whose arguments are
 # tensors, numbers and strings)
@@ -66,8 +82,8 @@ def process_group(name: str):
 
 @dataclasses.dataclass(frozen=True)
 class RowShard:
-    """This rank's place in its sp group: shard `index` of `size`, over
-    the process group named `group` (`register_group`)."""
+    """This rank's place in its sp (or tp) group: shard `index` of `size`,
+    over the process group named `group` (`register_group`)."""
 
     group: str
     index: int
@@ -222,14 +238,20 @@ def take_rows(x: torch.Tensor, shard: RowShard, dim: int = 2
 
 
 def fsdp_mesh(mesh):
-    """The (replicate, shard) mesh FSDP2 runs on: `shard` is the mesh's
-    fsdp axis, `replicate` every other axis, flattened."""
+    """The (replicate, shard) mesh FSDP2 runs on for this rank's tp
+    coordinate: `shard` is the mesh's fsdp axis, `replicate` every other
+    axis but tp, flattened. (Every rank builds the (tp, replicate, shard)
+    mesh, whose process groups all ranks create together, and keeps its
+    tp coordinate's plane.)"""
     from torch.distributed.device_mesh import DeviceMesh
-    fsdp = MESH_AXES.index("fsdp")
-    order = [d for d in range(len(MESH_AXES)) if d != fsdp] + [fsdp]
-    ranks = mesh.mesh.permute(order).reshape(-1, mesh.size(fsdp))
-    return DeviceMesh(mesh.device_type, ranks,
-                      mesh_dim_names=("replicate", "shard"))
+    fsdp, tp = MESH_AXES.index("fsdp"), MESH_AXES.index("tp")
+    order = ([tp] + [d for d in range(len(MESH_AXES)) if d not in (fsdp, tp)]
+             + [fsdp])
+    ranks = mesh.mesh.permute(order).reshape(mesh.size(tp), -1,
+                                             mesh.size(fsdp))
+    planes = DeviceMesh(mesh.device_type, ranks,
+                        mesh_dim_names=("tp", "replicate", "shard"))
+    return planes["replicate", "shard"]
 
 
 def shard_unet(unet: torch.nn.Module, mesh,
@@ -255,3 +277,175 @@ def batch_slice(n: int, rank: int, world: int) -> slice:
                          f"{world} ranks")
     m = n // world
     return slice(rank * m, (rank + 1) * m)
+
+
+# ------------------------------------------------- tensor parallelism
+
+
+@torch.library.custom_op("diffusion_torch::tp_copy", mutates_args=())
+def _tp_copy(x: torch.Tensor, group: str) -> torch.Tensor:
+    return x.clone()
+
+
+def _tp_group_setup(ctx, inputs, output):
+    ctx.group = inputs[1]
+
+
+def _summed(x: torch.Tensor, group: str) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=_GROUPS[group])
+    return out
+
+
+def _tp_copy_backward(ctx, g):
+    return _summed(g, ctx.group), None
+
+
+_tp_copy.register_autograd(_tp_copy_backward, setup_context=_tp_group_setup)
+
+
+@torch.library.custom_op("diffusion_torch::tp_reduce", mutates_args=())
+def _tp_reduce(x: torch.Tensor, group: str) -> torch.Tensor:
+    return _summed(x, group)
+
+
+def _tp_reduce_backward(ctx, g):
+    return g.clone(), None
+
+
+_tp_reduce.register_autograd(_tp_reduce_backward,
+                             setup_context=_tp_group_setup)
+
+tp_reduce_op = torch.ops.diffusion_torch.tp_reduce.default
+
+
+def tp_copy(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
+    """Megatron's f, at a column-parallel layer's input: x itself (the
+    same on every rank of the tp group); the backward sums the ranks'
+    cotangents."""
+    return _tp_copy(x, shard.group)
+
+
+def tp_reduce(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
+    """Megatron's g, after a row-parallel product: the sum of the tp
+    group's partial outputs (an all-reduce); the backward hands the
+    cotangent to each rank as it is."""
+    return _tp_reduce(x, shard.group)
+
+
+# The Megatron table (JAX `sharding.py::_tp_dim`) over the parameters of
+# the port's layers, by their diffusers names inside the layer: the dim of
+# the (out, in) weight that splits over tp. Column-parallel: q/k/v and
+# their LoRA B, the GEGLU's fused value+gate projection and its bias;
+# row-parallel: to_out and its LoRA A, the GEGLU's output projection.
+# Everything else (the row-parallel biases, LoRA A of q/k/v and B of
+# to_out, norms, convolutions, Transformer2D's proj_in/proj_out) is whole.
+_ATTN_TP = {"to_q.weight": 0, "to_k.weight": 0, "to_v.weight": 0,
+            "to_q_lora_b.weight": 0, "to_k_lora_b.weight": 0,
+            "to_v_lora_b.weight": 0,
+            "to_out.0.weight": 1, "to_out_lora_a.weight": 1}
+_FF_TP = {"net.0.proj.weight": 0, "net.0.proj.bias": 0, "net.2.weight": 1}
+# diffusers' fused GEGLU projection: `inner` value rows, then `inner` gate
+_FUSED = ("net.0.proj.weight", "net.0.proj.bias")
+
+
+def _fused(name: str) -> bool:
+    return name.endswith(_FUSED)
+
+
+def model_tp_head_dim(model: Any) -> Optional[int]:
+    """The uniform attention head width of a model's UNet, for the head
+    gate (JAX `model_tp_head_dim`): None without a UNet config, -1 where
+    the width varies over the stages (no attention layer shards)."""
+    cfg = getattr(getattr(model, "unet", None), "config", None)
+    if cfg is None:
+        return None
+    widths = {c // h for c, h in zip(cfg.block_out_channels,
+                                     cfg.attention_head_dim)}
+    return widths.pop() if len(widths) == 1 else -1
+
+
+def tp_placement(module: torch.nn.Module, tp: int,
+                 head_dim: Optional[int] = None) -> Dict[str, int]:
+    """The parameters of `module`'s attention and GEGLU layers that split
+    over `tp` ranks, by name, with the weight dim that splits. A
+    width that does not divide by tp stays whole; with `head_dim`, so does
+    an attention layer whose head count (width // head_dim) does not
+    divide by tp (JAX's `param_spec` head gate; -1 gates every attention
+    layer off). The GEGLU has no heads and is never gated."""
+    from diffusion_torch.models.layers import Attention, FeedForwardGEGLU
+    out: Dict[str, int] = {}
+    if tp <= 1:
+        return out
+    for prefix, m in module.named_modules():
+        if isinstance(m, Attention):
+            table, gated = _ATTN_TP, True
+        elif isinstance(m, FeedForwardGEGLU):
+            table, gated = _FF_TP, False
+        else:
+            continue
+        params = dict(m.named_parameters())
+        for local, d in table.items():
+            p = params.get(local)
+            if p is None:
+                continue
+            width = p.shape[d] // (2 if _fused(local) else 1)
+            if width % tp:
+                continue
+            if gated and head_dim is not None:
+                heads = width // head_dim
+                if width % head_dim or heads <= 0 or heads % tp:
+                    continue
+            out[f"{prefix}.{local}" if prefix else local] = d
+    return out
+
+
+def tp_slice(name: str, whole: torch.Tensor, dim: int, index: int,
+             size: int) -> torch.Tensor:
+    """Rank `index`'s slice of a whole tensor over `size` tp ranks (a view,
+    but for the fused GEGLU projection, which gives each rank its value
+    rows followed by its gate rows, so that its own `chunk(2)` pairs
+    them)."""
+    if _fused(name):
+        n = whole.shape[0] // 2 // size
+        return torch.cat([h.narrow(0, index * n, n)
+                          for h in whole.chunk(2, 0)])
+    n = whole.shape[dim] // size
+    return whole.narrow(dim, index * n, n)
+
+
+def tp_join(name: str, parts: Sequence[torch.Tensor],
+            dim: int) -> torch.Tensor:
+    """The whole tensor from the tp ranks' slices, in rank order (the
+    inverse of `tp_slice`)."""
+    if _fused(name):
+        halves = [p.chunk(2, 0) for p in parts]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves])
+    return torch.cat(list(parts), dim)
+
+
+@torch.no_grad()
+def shard_tensor_parallel(module: torch.nn.Module, index: int, size: int,
+                          head_dim: Optional[int] = None) -> Dict[str, int]:
+    """Keep rank `index`'s slices (of `size` tp ranks) of the parameters
+    `tp_placement` names, in place (the same Parameter objects), and mark
+    each attention and GEGLU layer that now holds slices with `tp = size`
+    (its forward then runs under `ops.attention.tensor_parallel`).
+    Returns the placement."""
+    from diffusion_torch.models.layers import Attention, FeedForwardGEGLU
+    dims = tp_placement(module, size, head_dim)
+    params = dict(module.named_parameters())
+    for name, d in dims.items():
+        p = params[name]
+        p.data = tp_slice(name, p.data, d, index, size).clone(
+            memory_format=torch.contiguous_format)
+    for prefix, m in module.named_modules():
+        key = {Attention: "to_q.weight", FeedForwardGEGLU:
+               "net.0.proj.weight"}.get(type(m))
+        if key is None or (f"{prefix}.{key}" if prefix else key) not in dims:
+            continue
+        if isinstance(m, Attention) and m.heads % size:
+            raise ValueError(f"{prefix}: {m.heads} heads do not split over "
+                             f"{size} tp ranks (give the head width)")
+        m.tp = size
+    return dims

@@ -56,18 +56,29 @@ def adamw(lr: float = 1e-4, betas: Sequence[float] = (0.9, 0.999),
 
 
 def global_norm(tensors: Sequence[torch.Tensor],
-                group: Optional[object] = None) -> torch.Tensor:
+                group: Optional[object] = None,
+                tp_sliced: Optional[Sequence[bool]] = None,
+                tp_group: Optional[object] = None) -> torch.Tensor:
     """sqrt(sum of squares) over every element, fp32 (optax.global_norm).
     With a process `group`, the tensors are this rank's shards and the
-    squares are summed over the group's ranks."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    norm = torch.linalg.vector_norm(torch.stack(norms))
-    if group is None:
-        return norm
+    squares are summed over the group's ranks. With `tp_group`, the
+    tensors marked in `tp_sliced` are tensor-parallel slices, whose squares
+    are summed over the tp group's ranks too; the others are the same on
+    every rank of it and count once."""
     import torch.distributed as dist
-    square = norm * norm
-    dist.all_reduce(square, group=group)
-    return torch.sqrt(square)
+    squares = torch.stack(torch._foreach_norm(
+        [t.float() for t in tensors])).square()
+    sliced = (torch.zeros_like(squares, dtype=torch.bool) if tp_sliced is None
+              else torch.tensor(list(tp_sliced), device=squares.device))
+    zero = squares.new_zeros(())
+    # (the whole tensors' squares, the tp slices')
+    parts = torch.stack([torch.where(sliced, zero, squares).sum(),
+                         torch.where(sliced, squares, zero).sum()])
+    if group is not None:
+        dist.all_reduce(parts, group=group)
+    if tp_group is not None:
+        dist.all_reduce(parts[1:], group=tp_group)
+    return torch.sqrt(parts.sum())
 
 
 class AdamW:

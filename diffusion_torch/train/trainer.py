@@ -72,17 +72,27 @@ appends its profiler.
 
 Several processes (one a card, `torchrun`; `parallel/dist.py`): `mesh` (a
 `parallel.mesh.create_mesh` DeviceMesh) or `mesh_config` ({dcn, fsdp, data,
-sp, tp}, one -1 inferred; tp > 1 raises for ROADMAP.md queue 1 item 9b),
-else JAX's default: fsdp over every rank where the model's `fsdp` and
-`fsdp_config` shard, data otherwise. A mesh of one rank (or no process
-group, with a mesh_config whose axes are all 1) trains as above. On more:
+sp, tp}, one -1 inferred), else JAX's default: fsdp over every rank where
+the model's `fsdp` and `fsdp_config` shard, data otherwise. A mesh of one
+rank (or no process group, with a mesh_config whose axes are all 1)
+trains as above. On more:
 
+- with `tp` > 1, each rank first keeps its tp slices of the UNet's
+  attention and GEGLU layers (`parallel/sharding.py::
+  shard_tensor_parallel`, JAX's Megatron table and head gate: SD2's
+  5-head stage stays whole at tp = 2), and the step and eval run under
+  `ops.attention.tensor_parallel`. A tp rank holds whole examples: the
+  microbatch count divides the mesh's size by tp, as JAX's does;
 - the UNet is FSDP2-sharded over `fsdp` and replicated over the other axes
-  (`parallel/sharding.py::shard_unet`; `fsdp_config.sharding_strategy`
-  `SHARD_GRAD_OP`, the yamls', keeps parameters gathered from forward to
-  backward, `FULL_SHARD` reshards after the forward); the AdamW, its
-  global gradient norm (summed over the fsdp group) and the EMA work on
-  each rank's shards; the frozen towers stay whole on every rank;
+  but tp, on each tp rank's parameters (`parallel/sharding.py::
+  shard_unet`; `fsdp_config.sharding_strategy` `SHARD_GRAD_OP`, the
+  yamls', keeps parameters gathered from forward to backward,
+  `FULL_SHARD` reshards after the forward). Where the mesh has no rank
+  to shard over but tp's, nothing is wrapped: the tp ranks' whole
+  parameters get equal gradients through `tp_copy`. The AdamW, its global
+  gradient norm (summed over the fsdp group, and the tp slices' over the
+  tp group) and the EMA work on each rank's shards; the frozen towers
+  stay whole on every rank;
 - each rank's loader yields its part of the global batch (the readers
   split examples over dcn x fsdp x data: `utils/device.py::rank_and_world`),
   and microbatch i of a step is the batch ranks' microbatches i in rank
@@ -96,12 +106,15 @@ group, with a mesh_config whose axes are all 1) trains as above. On more:
   the sp ranks split the UNet body's rows, and each backpropagates the
   mean loss over its rows (FSDP's average over all ranks then gives the
   examples' mean gradient). Logged losses are averaged over the ranks,
-  eval sums over them; loggers run on rank 0;
-- checkpoints gather the full state, which rank 0 writes in the one-rank
-  format (so either side resumes the other's), and every rank reads and
-  re-shards on load; a SIGTERM is acted on when the ranks agree (an
-  all-reduce of the flag every `preempt_sync_interval` batches, JAX's
-  rule), so every rank saves the same batch.
+  eval sums over them (each example counted once over an sp or tp
+  group); loggers run on rank 0;
+- checkpoints gather the full state (the FSDP shards, then the tp
+  slices, the GEGLU's value and gate rows put back in place), which rank
+  0 writes in the one-rank format (so either side resumes the other's),
+  and every rank reads and re-slices on load; a SIGTERM is acted on when
+  the ranks agree (an all-reduce of the flag every
+  `preempt_sync_interval` batches, JAX's rule), so every rank saves the
+  same batch.
 
 The model is a `StableDiffusion` (with `train_lora_only`, only its UNet's
 adapters require grad, so they alone are trained, EMA'd and checkpointed)
@@ -129,12 +142,17 @@ from diffusion_torch.algorithms.ema import (EMA, apply_ema,
 from diffusion_torch.metrics.base import all_hosts_sum
 from diffusion_torch.metrics.generation_metrics import (
     GENERATION_METRICS, GenerationMetricsHook)
-from diffusion_torch.ops.attention import sequence_parallel
+from diffusion_torch.ops.attention import (sequence_parallel,
+                                           tensor_parallel)
 from diffusion_torch.parallel import dist
 from diffusion_torch.parallel.mesh import (MESH_AXES, create_mesh,
                                            example_layout, mesh_sizes)
 from diffusion_torch.parallel.sharding import (batch_slice, fsdp_mesh,
-                                               shard_unet)
+                                               model_tp_head_dim,
+                                               process_group, row_shard,
+                                               shard_tensor_parallel,
+                                               shard_unet, tp_join,
+                                               tp_slice)
 from diffusion_torch.train import checkpoint as ckpt
 from diffusion_torch.train.events import Algorithm, Callback, Event, EventEngine
 from diffusion_torch.train.optim import (build_optimizer, constant_scheduler,
@@ -344,6 +362,8 @@ class Trainer:
             else dict.fromkeys(MESH_AXES, 1)
         self._batch_rank, self._batch_world = (
             example_layout(mesh) if self._sharded else (0, 1))
+        # FSDP runs over the ranks of this rank's tp coordinate
+        self._fsdp = self._sharded and mesh.size() > self._axes["tp"]
 
     def _init_device_state(self, optimizers, schedulers, grad_clip_norm,
                            micro_size) -> None:
@@ -355,8 +375,16 @@ class Trainer:
                   if p.requires_grad}
         if not params:
             raise ValueError("the model's UNet has no trainable parameters")
-        self._fsdp_group = None
+        self._fsdp_group, self._fsdp_index = None, 0
+        self._tp_shard, self._tp_dims = row_shard(self.mesh, "tp"), {}
+        if self._tp_shard is not None:
+            self._tp_dims = shard_tensor_parallel(
+                self.model.unet, self._tp_shard.index, self._tp_shard.size,
+                model_tp_head_dim(self.model))
         if self._sharded:
+            self._dparams = [p for p in self.model.unet.parameters()
+                             if p.requires_grad]
+        if self._fsdp:
             strategy = (self.fsdp_config or {}).get("sharding_strategy",
                                                     "SHARD_GRAD_OP")
             fmesh = fsdp_mesh(self.mesh)
@@ -389,6 +417,9 @@ class Trainer:
         return sequence_parallel(self.mesh if self._sharded else None,
                                  min_seq=self.sequence_parallel_min_seq)
 
+    def _tensor_parallel(self):
+        return tensor_parallel(self.mesh if self._sharded else None)
+
     def _train_step(self, batch: Dict[str, torch.Tensor],
                     local_batch: int) -> Dict[str, torch.Tensor]:
         """One optimizer step over `batch` (this rank's part of the global
@@ -396,7 +427,8 @@ class Trainer:
         ts = self.train_state
         params = self._dparams if self._sharded else list(ts.params.values())
         global_batch = local_batch * self._batch_world
-        n_dev = self.mesh.size() if self._sharded else 1
+        # a tp rank holds whole rows (JAX divides tp out too)
+        n_dev = self.mesh.size() // self._axes["tp"] if self._sharded else 1
         n_accum = (grad_accum_steps(global_batch, self.micro_size * n_dev)
                    if self.micro_size else 1)
         if local_batch % n_accum:
@@ -411,7 +443,7 @@ class Trainer:
             p.grad = None
         loss = torch.zeros((), device=self.device)
         self.model.unet.train()
-        with self._sequence_parallel():
+        with self._sequence_parallel(), self._tensor_parallel():
             for i in range(n_accum):
                 mb = {k: v[i * micro:(i + 1) * micro]
                       for k, v in batch.items()}
@@ -426,16 +458,19 @@ class Trainer:
                 micro_loss = self.model.loss_fn(mb, gen, *draws, **kwargs)
                 micro_loss.backward()
                 loss += micro_loss.detach()
+        grads = [p.grad.to_local() if self._fsdp else p.grad for p in params]
         if self._sharded:
-            grads = [p.grad.to_local() for p in params]
             torch.distributed.all_reduce(loss)
             loss /= self.mesh.size()
-        else:
-            grads = [p.grad for p in params]
         if n_accum > 1:
             torch._foreach_div_(grads, float(n_accum))
             loss /= n_accum
-        gnorm = global_norm(grads, self._fsdp_group)
+        if self._tp_shard is None:
+            gnorm = global_norm(grads, self._fsdp_group)
+        else:
+            gnorm = global_norm(grads, self._fsdp_group,
+                                [n in self._tp_dims for n in ts.params],
+                                process_group(self._tp_shard.group))
         metrics = {"loss/train/total": loss, "grad/global_norm": gnorm}
         ok = True
         if self.skip_nonfinite_updates:
@@ -597,14 +632,15 @@ class Trainer:
             n = int(next(iter(batch.values())).shape[0])
             kwargs["examples"] = (self._batch_rank * n,
                                   n * self._batch_world)
-        with self._sequence_parallel():
+        with self._sequence_parallel(), self._tensor_parallel():
             out = model.eval_forward(batch, gen, *draws, **kwargs)
         pred, target, t = out["pred"], out["target"], out["timesteps"]
         err = torch.square(pred.float() - target.float())
         per_example = err.mean(dim=tuple(range(1, err.ndim)))
         # an sp rank holds 1 / sp of each example's rows: its part of the
-        # example's mean and of the example itself
-        share = self._axes["sp"]
+        # example's mean and of the example itself; the tp ranks hold the
+        # same examples
+        share = self._axes["sp"] * self._axes["tp"]
         out = {"MeanSquaredError": (float(per_example.sum()) / share,
                                     float(per_example.numel()) / share)}
         for lo, hi in getattr(model, "loss_bins", ()) or ():
@@ -647,7 +683,8 @@ class Trainer:
                     a, b = accum.get(name, (0.0, 0.0))
                     accum[name] = (a + num, b + den)
                 for hook in hooks:
-                    hook.eval_batch(self, evaluator, state, batch, i)
+                    with self._tensor_parallel():
+                        hook.eval_batch(self, evaluator, state, batch, i)
                 self.engine.run(Event.EVAL_BATCH_END, state, logger)
             if self._sharded:
                 names = sorted(accum)
@@ -706,39 +743,69 @@ class Trainer:
         return path
 
     @torch.no_grad()
+    def _whole(self, tensors: Sequence[torch.Tensor], empty: bool = False
+               ) -> List[torch.Tensor]:
+        """The whole tensors, in the one-rank format, of this rank's parts
+        of tensors laid out as the trainable parameters (the parameters, a
+        moment, the EMA, the gradients), in their order, on every rank (a
+        collective): FSDP's shards gathered over the fsdp group, then the
+        tp slices over the tp group. With `empty`, zeros of those shapes."""
+        from torch.distributed.tensor import DTensor
+        out = []
+        for name, local, dp in zip(self.train_state.params, tensors,
+                                   self._dparams):
+            dim = self._tp_dims.get(name)
+            if empty:
+                shape = list(dp.shape)
+                if dim is not None:
+                    shape[dim] *= self._tp_shard.size
+                out.append(torch.zeros(shape, dtype=local.dtype,
+                                       device=local.device))
+                continue
+            t = local
+            if self._fsdp:
+                t = DTensor.from_local(
+                    local, dp.device_mesh, dp.placements, run_check=False,
+                    shape=dp.shape, stride=dp.stride()).full_tensor()
+            if dim is not None:
+                parts = [torch.empty_like(t) for _ in
+                         range(self._tp_shard.size)]
+                torch.distributed.all_gather(
+                    parts, t.contiguous(),
+                    group=process_group(self._tp_shard.group))
+                t = tp_join(name, parts, dim)
+            out.append(t)
+        return out
+
+    @torch.no_grad()
     def _full_state(self, empty: bool = False) -> TrainState:
         """The whole train state of a sharded run, on every rank (a
         collective): the parameters, moments and EMA gathered from the
         shards; with `empty`, zeros of those shapes to load into."""
-        from torch.distributed.tensor import DTensor
         ts, opt = self.train_state, self.train_state.optimizer
-
-        def full(local, like):
-            if empty:
-                return torch.zeros(like.shape, dtype=local.dtype,
-                                   device=local.device)
-            return DTensor.from_local(
-                local, like.device_mesh, like.placements, run_check=False,
-                shape=like.shape, stride=like.stride()).full_tensor()
-
-        names, dps = list(ts.params), self._dparams
+        names = list(ts.params)
         holder = copy.copy(opt)
-        holder.mu = [full(m, dp) for m, dp in zip(opt.mu, dps)]
-        holder.nu = [full(v, dp) for v, dp in zip(opt.nu, dps)]
-        holder.params = [full(ts.params[n], dp) for n, dp in zip(names, dps)]
-        ema = None if ts.ema_params is None else {
-            n: full(ts.ema_params[n], dp) for n, dp in zip(names, dps)}
+        holder.mu = self._whole(opt.mu, empty)
+        holder.nu = self._whole(opt.nu, empty)
+        holder.params = self._whole(list(ts.params.values()), empty)
+        ema = None if ts.ema_params is None else dict(zip(names, self._whole(
+            list(ts.ema_params.values()), empty)))
         return TrainState(step=ts.step, params=dict(zip(names, holder.params)),
                           optimizer=holder, ema_params=ema)
 
     @torch.no_grad()
     def _load_shards(self, full: TrainState, weights_only: bool) -> None:
-        """Copy this rank's shards (FSDP2's `torch.chunk` of dim 0 over the
-        fsdp axis) of a whole train state into the live one."""
+        """Copy this rank's parts of a whole train state into the live one:
+        its tp slices, then of those FSDP2's `torch.chunk` of dim 0 over the
+        fsdp axis."""
         ts, opt = self.train_state, self.train_state.optimizer
-        n = self._axes["fsdp"]
+        n = self._axes["fsdp"] if self._fsdp else 1
 
-        def put(local, whole):
+        def put(local, whole, name):
+            dim = self._tp_dims.get(name)
+            if dim is not None:
+                whole = tp_slice(name, whole, dim, self._tp_shard.index,
+                                 self._tp_shard.size)
             chunks = torch.chunk(whole, n, dim=0)
             part = (chunks[self._fsdp_index] if self._fsdp_index < len(chunks)
                     else whole[:0])
@@ -746,16 +813,16 @@ class Trainer:
 
         names = list(ts.params)
         for name in names:
-            put(ts.params[name], full.params[name])
+            put(ts.params[name], full.params[name], name)
         if weights_only:
             return
-        for i in range(len(names)):
-            put(opt.mu[i], full.optimizer.mu[i])
-            put(opt.nu[i], full.optimizer.nu[i])
+        for i, name in enumerate(names):
+            put(opt.mu[i], full.optimizer.mu[i], name)
+            put(opt.nu[i], full.optimizer.nu[i], name)
         opt.count = full.optimizer.count
         if ts.ema_params is not None:
             for name in names:
-                put(ts.ema_params[name], full.ema_params[name])
+                put(ts.ema_params[name], full.ema_params[name], name)
         ts.step = full.step
 
     def _finish_checkpoints(self) -> None:

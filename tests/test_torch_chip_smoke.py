@@ -446,3 +446,24 @@ def test_sp_phase_overrides_compose_the_1024_yaml(tmp_path, remat):
     assert config["callbacks"]["chip_smoke"]["_target_"].endswith(
         ".SpRecord")
     assert "wandb" not in (config.get("logger") or {})
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_tp_phase_overrides_compose(tp):
+    """Phase 17's overrides of the unedited yamls/SD-2-base-512-tp.yaml:
+    the yaml's tp 2 stays for the ranks (fsdp and data cut to 1), the
+    reference sets tp 1; batch 16 in the yaml's microbatches of 8, 3
+    batches, no eval, the phase's callback."""
+    from diffusion_torch.config import load_config
+    config = load_config(
+        os.path.join(chip_smoke._ROOT, "yamls", chip_smoke.TP_YAML),
+        chip_smoke._tp_overrides("/shards", tp))
+    assert config["trainer"]["mesh_config"] == {"dcn": 1, "fsdp": 1,
+                                                "data": 1, "tp": tp}
+    assert config["batch_size"] == chip_smoke.TP_BATCH == 16
+    assert config["trainer"]["device_train_microbatch_size"] == 8
+    assert config["trainer"]["max_duration"] == f"{chip_smoke.TP_STEPS}ba"
+    assert "eval_dataset" not in config["dataset"]
+    assert config["dataset"]["train_dataset"]["remote"] == "/shards"
+    assert config["callbacks"]["chip_smoke"]["_target_"].endswith(
+        ".TpRecord")

@@ -368,10 +368,10 @@ def test_yaml_trainer_sections_reach_the_trainer(name):
     """The `trainer:` sections of the 512px and 1024px yamls, with their
     `load_weights_only: true` and empty `load_path:`, build a Trainer (tiny
     model, CPU): the keywords are taken, where the port's Trainer once
-    raised TypeError on them. The tp yaml's mesh then stops at the
-    tensor-parallel item (9b); the sp yaml's mesh, cut to one process
-    (data 1, sp 1, as chip_smoke.py runs it on one card), builds one with
-    the yaml's FSDP strategy and ring threshold."""
+    raised TypeError on them. The sp and tp yamls' meshes, cut to one
+    process (data 1, sp 1; data 1, fsdp 1, tp 1), build one with the yaml's
+    FSDP strategy (and ring threshold); the tp yaml's own tp 2 reaches
+    `mesh_config` as it is."""
     import os
     from diffusion_torch.config import load_config
     full = load_config(os.path.join(os.path.dirname(os.path.dirname(
@@ -383,8 +383,15 @@ def test_yaml_trainer_sections_reach_the_trainer(name):
         "_target_": "diffusion_tpu.models.models.stable_diffusion_tiny",
         "precomputed_latents": True, "device": "cpu"}}
     if section.get("mesh_config", {}).get("tp", 1) > 1:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build_trainer(config)
+        assert section["mesh_config"] == {"dcn": 1, "fsdp": -1, "data": 4,
+                                          "tp": 2}
+        section["mesh_config"] = dict(section["mesh_config"], data=1,
+                                      fsdp=1, tp=1)
+        tr = build_trainer(config)
+        assert tr.mesh is None and not tr.train_state.shards
+        assert tr.fsdp_config == {"sharding_strategy": "SHARD_GRAD_OP"}
+        assert tr.save_interval == 10000 and tr.max_batches == 850000
+        tr.close()
         return
     if "mesh_config" in section:
         section["mesh_config"] = dict(section["mesh_config"], data=1, sp=1)

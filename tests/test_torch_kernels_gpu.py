@@ -8,6 +8,9 @@ This file imports no JAX module of its own, so it also runs where only the
 port's dependencies are installed.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,11 @@ def cuda():
         pytest.skip("needs a CUDA device (the kernels are built for sm_90a)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a backward through a plain kernel first: the autograd engine's device
+    # thread then holds the CUDA context before a test's backward reaches
+    # cuBLAS, which warns (an error here) on a thread without one
+    x = torch.ones(1, device="cuda", requires_grad=True)
+    (x * 2).sum().backward()
     return torch.device("cuda")
 
 
@@ -765,3 +773,49 @@ def test_sp_ops_on_a_one_rank_nccl_group(cuda, tmp_path):
             _assert_close_rel(leaf.grad, w, _FA_BWD_REL, _FA_BWD_RTOL)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("heads,tokens", [(10, 1024), (5, 4096)])
+def test_tp_attention_shards_match_the_whole(cuda, heads, tokens):
+    """SD2's 10-head and 5-head self-attention at 512px (64 x heads
+    channels, batch 2, bf16) as tp = 2 shards in one process
+    (`chip_smoke.py::tp_local_twin`: the partials summed where `tp_reduce`
+    would) against the whole layer through the kernels: the 10-head
+    layer's shards run the flash kernel on 5 heads each, within two bf16
+    ulps of the largest output, input gradient and weight gradient; the
+    5-head layer stays whole (the head gate) and equals itself bit for
+    bit."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from chip_smoke import tp_local_twin, tp_twin_grads
+    from diffusion_torch.models.layers import Attention, init_like_flax_
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    channels = 64 * heads
+    layer = Attention(channels, heads, 64).to(cuda)
+    init_like_flax_(layer, gen)
+    with torch.no_grad():
+        layer.to_out[0].bias.normal_(0, 0.1, generator=gen)
+    twin = tp_local_twin(layer, 2, 64)
+    x = _randn((2, tokens, channels), 0, torch.bfloat16, cuda)
+    dy = _randn((2, tokens, channels), 1, torch.bfloat16, cuda)
+    got = []
+    for m in (layer, twin):
+        xi = x.clone().requires_grad_()
+        before = fa.launches.value
+        y = m(xi)
+        calls = fa.launches.value - before
+        y.backward(dy)
+        grads = (tp_twin_grads(m) if m is twin else
+                 {n: p.grad for n, p in m.named_parameters()})
+        got.append((y.detach(), xi.grad, grads, calls))
+    (y1, dx1, g1, n1), (y2, dx2, g2, n2) = got
+    if heads % 2:
+        assert twin is not layer and n2 == n1 == 1
+        assert torch.equal(y2, y1) and torch.equal(dx2, dx1)
+        return
+    assert (n1, n2) == (1, 2)
+    assert sorted(g2) == sorted(g1)
+    for a, b in [(y2, y1), (dx2, dx1)] + [(g2[n], g1[n]) for n in g1]:
+        bound = 2.0 ** -6 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= bound

@@ -1,17 +1,24 @@
 """The port's Trainer on a process mesh of gloo ranks on the CPU against the
 one-rank port run on the same global batches, and against the JAX Trainer
-on the same (data 2, sp 2) mesh of virtual devices (tiny model, 16x16
-latents, AdamW, EMA 0.9, 2 steps of 8 examples).
+on the same (data 2, sp 2) and (data 2, tp 2) meshes of virtual devices
+(tiny model, 16x16 latents, AdamW, EMA 0.9, 2 steps of 8 examples).
 
-Two spawns: 2 ranks for (fsdp 2); 4 ranks for (data 2, sp 2) and (fsdp 2,
-sp 2) (each also evaluates two batches of 4 across its ranks, against the
-one-rank eval), a (data 2, sp 2) run with JAX's draws that also saves, a
-restore of a one-rank checkpoint on the mesh, an (fsdp 2, data 2) run that
-rank 0 alone flags for preemption, and `yamls/SD-2-base-1024-sp.yaml`
-composed with dotted overrides (tiny model, (data 2, sp 2), one step).
-The sp runs split the UNet's rows over 2 ranks at both levels and run the
-level-0 self-attention (256 tokens) as a ring (`sequence_parallel_min_seq`
-256), the level-1 one (64) by gathering K/V.
+Two spawns: 2 ranks for (fsdp 2); 4 ranks for (data 2, sp 2), (fsdp 2,
+sp 2), (fsdp 2, tp 2), (sp 2, tp 2) and (data 2, tp 2) (each also
+evaluates two batches of 4 across its ranks, against the one-rank eval),
+a (data 2, sp 2) run with JAX's draws that also saves, a (data 2, tp 2)
+run with the draws of JAX's tp run, a restore of a one-rank checkpoint on
+the mesh, an (fsdp 2, data 2) run that rank 0 alone flags for
+preemption, and `yamls/SD-2-base-1024-sp.yaml` and
+`yamls/SD-2-base-512-tp.yaml` composed with dotted overrides (tiny model,
+(data 2, sp 2) and (data 2, tp 2), one step each) through
+`diffusion_torch.run.main`. The sp runs split the UNet's rows over 2
+ranks at both levels and run the level-0 self-attention (256 tokens) as a
+ring (`sequence_parallel_min_seq` 256), the level-1 one (64) by gathering
+K/V. The tp runs split the 2-head and 4-head attention layers and the
+GEGLUs over 2 ranks (Megatron), and their tp groups hold the whole
+(unsliced) parameters, moments and EMA bit-equal; (fsdp 2, tp 2) saves a
+checkpoint that one rank resumes.
 
 Tolerances: losses and gradient norms rel 1e-5; each step's gradients
 within 1e-5 (1e-3 rel against JAX, the train-step test's bound); the
@@ -81,9 +88,10 @@ class _JaxRecorder(JaxCallback):
                                         state.train_state.ema_params)))
 
 
-def _jax_run(batches):
-    """The JAX Trainer on (data 2, sp 2) of 4 virtual devices; its draws
-    and each step's gradient at its own parameters."""
+def _jax_run(batches, mesh, micro, n_accum, m):
+    """The JAX Trainer on `mesh` ((data 2, sp 2) or (data 2, tp 2)) of 4
+    virtual devices, `micro` examples a device, so `n_accum` microbatches
+    of `m`; its draws and each step's gradient at its own parameters."""
     jrec = _JaxRecorder()
     model = jax_tiny(precomputed_latents=True)
     jtr = JaxTrainer(
@@ -91,13 +99,12 @@ def _jax_run(batches):
                                        for b in batches],
         optimizers=joptim.adamw(lr=torch_ranks.LR, weight_decay=0.01),
         algorithms=[JaxEMA(smoothing=0.9, ema_start="0ba")],
-        callbacks=[jrec], max_duration="2ba", device_train_microbatch_size=1,
+        callbacks=[jrec], max_duration="2ba",
+        device_train_microbatch_size=micro,
         seed=SEED, image_size=128, sequence_parallel_min_seq=256,
-        mesh=jax_create_mesh(fsdp=1, data=2, sp=2,
-                             devices=jax.devices()[:4]))
+        mesh=jax_create_mesh(fsdp=1, devices=jax.devices()[:4], **mesh))
     initial = jax.tree.map(np.array, jtr.train_state.params)
     jtr.fit()
-    n_accum, m = 2, 4       # ceil(8 / (1 x 4 devices)) microbatches of 4
     grad_fn = jax.jit(jax.grad(model.loss_fn))
     draws, grads = [], []
     for step, (params, batch) in enumerate(
@@ -142,6 +149,41 @@ def _image_data(root):
             w.write({"image": buf.getvalue(), "captions": [f"c {i}"]})
 
 
+def _latent_data(root):
+    """LAION-style precomputed latents at 64px (8x8) with 77x32 caption
+    latents, for the 512-tp yaml's reader."""
+    rng = np.random.default_rng(4)
+    with MDSWriter(str(root / "latents"), {
+            "caption": "str", "caption_latents": "bytes",
+            "latents_64": "bytes"}) as w:
+        for i in range(8):
+            w.write({"caption": f"c{i}",
+                     "caption_latents": rng.standard_normal(
+                         (77, 32)).astype(np.float16).tobytes(),
+                     "latents_64": rng.standard_normal((4, 8, 8)).astype(
+                         np.float16).tobytes()})
+
+
+def _tp_yaml_overrides(root):
+    """`yamls/SD-2-base-512-tp.yaml`, unedited, cut to the tiny model on a
+    (data 2, tp 2) gloo mesh (fsdp inferred 1): batch 4 in microbatches of
+    1 a rank, one batch over 64px latents, no eval; remat on, so the
+    rematerialized blocks run their tp ops again in the backward."""
+    return [
+        "model._target_=diffusion_tpu.models.models.stable_diffusion_tiny",
+        "+model.device=cpu", "+trainer.device=cpu", "~logger",
+        "+model.remat=true",
+        "batch_size=4", "trainer.device_train_microbatch_size=1",
+        "trainer.max_duration=1ba", "trainer.mesh_config.data=2",
+        f"dataset.train_dataset.remote={root}/latents",
+        f"dataset.train_dataset.local={root}/latents",
+        "dataset.train_dataset.resize_size=64",
+        "+dataset.train_dataset.caption_latent_dim=32",
+        "dataset.train_dataset.num_workers=0",
+        "dataset.train_dataset.persistent_workers=false",
+        "~dataset.eval_dataset"]
+
+
 def _yaml_overrides(root):
     """`yamls/SD-2-base-1024-sp.yaml`, unedited, cut to the tiny model on a
     (data 2, sp 2) gloo mesh: batch 4 in microbatches of 1 a rank, one
@@ -167,7 +209,11 @@ def mesh_runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         # JAX gradients on the XLA paths (ROADMAP.md queue 3, fault 1)
         mp.setenv("DIFFUSION_TPU_PALLAS_INTERPRET", "0")
-        jax_run = _jax_run(_batches())
+        # (data 2, sp 2): ceil(8 / (1 x 4 devices)) microbatches of 4;
+        # (data 2, tp 2) at 2 a device: tp ranks hold whole rows, so
+        # ceil(8 / (2 x 2)) microbatches of 4
+        jax_run = _jax_run(_batches(), {"data": 2, "sp": 2}, 1, 2, 4)
+        jax_tp = _jax_run(_batches(), {"data": 2, "tp": 2}, 2, 2, 4)
     initial, batches = jax_run["initial"], _batches()
     tmp = tmp_path_factory.mktemp("mesh")
     ref = {}
@@ -196,11 +242,25 @@ def mesh_runs(tmp_path_factory):
              initial, 1, None, SP, str(tmp / "one" / "ba2")),
             ("preempt", {"fsdp": 2, "data": 2}, batches * 2, 2, initial, 1,
              None, {"save_folder": str(tmp / "preempt"), "preempt_at": 1,
-                    "preempt_sync_interval": 1}, None)]
+                    "preempt_sync_interval": 1}, None),
+            # tp: 2 examples a rank, so 2 microbatches of 4 (the one-rank
+            # run of 4 a microbatch)
+            ("fsdp_tp", {"fsdp": 2, "data": 1, "tp": 2}, batches, 2,
+             initial, 2, None, dict(EVAL, save_folder=str(tmp / "tp_ckpt")),
+             None),
+            ("sp_tp", {"fsdp": 1, "data": 1, "sp": 2, "tp": 2}, batches, 2,
+             initial, 2, None, dict(SP, **EVAL), None),
+            ("dp_tp", {"fsdp": 1, "data": 2, "tp": 2}, batches, 2, initial,
+             2, None, EVAL, None),
+            ("dp_tp_jax", {"fsdp": 1, "data": 2, "tp": 2}, batches, 2,
+             jax_tp["initial"], 2, jax_tp["draws"], {}, None)]
+    _latent_data(tmp)
+    yamls = [("yaml", "SD-2-base-1024-sp.yaml", _yaml_overrides(tmp)),
+             ("tp_yaml", "SD-2-base-512-tp.yaml", _tp_yaml_overrides(tmp))]
     four = torch_ranks.spawn(torch_ranks.mesh_case, 4, tmp / "four", runs,
-                             _yaml_overrides(tmp), timeout=300)[0]
-    return {"ref": ref, "jax": jax_run, **two, **four, "tmp": tmp,
-            "initial": initial}
+                             yamls, timeout=300)[0]
+    return {"ref": ref, "jax": jax_run, "jax_tp": jax_tp, **two, **four,
+            "tmp": tmp, "initial": initial}
 
 
 def _check_state(got, want, got_grads, want_grads, nus, grad_rtol=1e-5,
@@ -227,7 +287,8 @@ def _check_state(got, want, got_grads, want_grads, nus, grad_rtol=1e-5,
 
 
 @pytest.mark.parametrize("name,n_dev", [("fsdp2", 2), ("dp_sp", 4),
-                                        ("fsdp_sp", 4)])
+                                        ("fsdp_sp", 4), ("fsdp_tp", 4),
+                                        ("sp_tp", 4), ("dp_tp", 4)])
 def test_mesh_steps_match_one_rank(mesh_runs, name, n_dev):
     got, ref = mesh_runs[name], mesh_runs["ref"][n_dev]
     assert len(got["metrics"]) == len(ref["metrics"]) == 2
@@ -237,6 +298,8 @@ def test_mesh_steps_match_one_rank(mesh_runs, name, n_dev):
     _check_state(got["state"], ref["state"], got["grads"], ref["grads"],
                  got["nu"])
     assert got["state"]["step"] == 2 and got["state"]["count"] == 2
+    # a tp group's whole parameters, moments and EMA stay bit-equal
+    assert got["tp_replicas_differ"] == ([] if "tp" in name else None)
     # the eval over the ranks (each its block of the eval batches; an sp
     # rank its rows of them) against the one-rank eval of the whole
     # batches, with the EMA swapped in on both sides
@@ -262,6 +325,22 @@ def test_dp_sp_mesh_matches_jax_trainer(mesh_runs):
                  grad_rtol=1e-3, slack=2.0 ** -20)
 
 
+def test_dp_tp_mesh_matches_jax_trainer(mesh_runs):
+    """The (data 2, tp 2) mesh with JAX's draws against the JAX Trainer on
+    (data 2, tp 2) virtual devices: the Megatron slices, tp_copy and
+    tp_reduce against XLA's partitioning of JAX's parameter specs and its
+    head-sharded attention (`_tp_dispatch`), JAX's bound as the sp
+    mesh's."""
+    got, want = mesh_runs["dp_tp_jax"], mesh_runs["jax_tp"]
+    for g, w in zip(got["metrics"], want["metrics"]):
+        for k in ("loss/train/total", "grad/global_norm"):
+            assert g[k] == pytest.approx(w[k], rel=1e-5), k
+    _check_state(got["state"], want, got["grads"], want["grads"], got["nu"],
+                 grad_rtol=1e-3, slack=2.0 ** -20)
+    assert got["state"]["step"] == 2 and got["state"]["count"] == 2
+    assert got["tp_replicas_differ"] == []
+
+
 def _same(a, b):
     for key in ("params", "ema"):
         assert sorted(a[key]) == sorted(b[key])
@@ -281,6 +360,19 @@ def test_mesh_checkpoint_resumes_on_one_rank(mesh_runs):
         save_folder=str(mesh_runs["tmp"] / "mesh_ckpt"), autoresume=True)
     try:
         _same(torch_ranks.full_state(tr), mesh_runs["dp_sp_jax"]["state"])
+    finally:
+        tr.close()
+
+
+def test_tp_checkpoint_resumes_on_one_rank(mesh_runs):
+    """The (fsdp 2, tp 2) run's save (the FSDP shards and the tp slices
+    gathered, the GEGLU's value and gate rows back in place) restores into
+    a one-rank Trainer bit for bit."""
+    tr, _ = torch_ranks.make_trainer(
+        _batches(), mesh_runs["initial"], 4, max_duration="3ba",
+        save_folder=str(mesh_runs["tmp"] / "tp_ckpt"), autoresume=True)
+    try:
+        _same(torch_ranks.full_state(tr), mesh_runs["fsdp_tp"]["state"])
     finally:
         tr.close()
 
@@ -312,10 +404,28 @@ def test_1024_sp_yaml_trains_on_a_gloo_mesh(mesh_runs):
     assert out["ring_calls"] and all(s[1] == 32 for s in out["ring_calls"])
 
 
+def test_512_tp_yaml_trains_on_a_gloo_mesh(mesh_runs):
+    """`yamls/SD-2-base-512-tp.yaml` through `diffusion_torch.run.main` on
+    (data 2, tp 2), remat on: the yaml's tp 2; each rank holds its tp
+    slices of the 2-head and 4-head stages' attention and of the GEGLUs."""
+    out = mesh_runs["tp_yaml"]
+    assert out["batch"] == 1 and out["shards"] and out["remat"]
+    assert out["mesh"] == [1, 1, 2, 1, 2]
+    assert out["tp_replicas_differ"] == []
+    assert np.isfinite(out["metrics"]["loss/train/total"])
+    # 4 Transformer2Ds (down, mid, 2 up): 8 attention layers, 4 GEGLUs
+    assert out["tp_layers"] == {"Attention": 8, "FeedForwardGEGLU": 4}
+    # attention ran head-sharded: 1 of level 0's 2 heads, 2 of the mid
+    # block's 4 a rank
+    assert out["attn_heads"] == {1, 2}
+
+
 @pytest.mark.parametrize("config", [
     {}, {"fsdp": 2, "data": -1}, {"fsdp": -1, "data": 2, "sp": 2},
     {"dcn": 2, "fsdp": 2, "data": 1, "sp": -1}, {"fsdp": 8},
-    {"fsdp": -1, "data": -1}, {"fsdp": 3, "data": -1}])
+    {"fsdp": -1, "data": -1}, {"fsdp": 3, "data": -1},
+    {"fsdp": -1, "tp": 2}, {"data": 2, "tp": 4},
+    {"sp": 2, "tp": 2, "data": 2}, {"fsdp": -1, "tp": 3}])
 def test_mesh_sizes_match_jax(config):
     """Inference of the -1 axis and the errors, against JAX's create_mesh
     on the 8 virtual devices."""
@@ -327,7 +437,3 @@ def test_mesh_sizes_match_jax(config):
         return
     assert mesh_sizes(8, **config) == want
 
-
-def test_tensor_parallel_is_item_9b():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mesh_sizes(8, fsdp=-1, tp=2)

@@ -13,6 +13,7 @@ or a run past `timeout` seconds raises in the caller.
 from __future__ import annotations
 
 import os
+import sys
 import traceback
 
 import torch
@@ -70,7 +71,8 @@ def spawn(fn, world: int, tmp, *args, timeout: float = 240.0):
 def ops_case(rank, world, tmp, inputs):
     """Ring attention, the halo convolution and sp GroupNorm on the full
     group of `world` ranks, on groups of 2 and on one-rank groups: each
-    rank's outputs and gradients of its shard."""
+    rank's outputs and gradients of its shard; then the tensor-parallel
+    ops and layers (`_tp_ops`)."""
     import torch.distributed as dist
 
     from diffusion_torch.models.layers import Conv2d
@@ -113,6 +115,53 @@ def ops_case(rank, world, tmp, inputs):
                 y.backward(take_rows(inputs["gy"], shard, dim=1))
                 out[(name, n, act)] = (y.detach(), x.grad, scale.grad,
                                        bias.grad)
+    out.update(_tp_ops(rank, world, inputs))
+    return out
+
+
+def tp_layers(inputs=None):
+    """The tensor-parallel ops test's layers, whole (with `inputs`'
+    weights): self- and cross-attention with LoRA (4 heads of 8) and the
+    GEGLU."""
+    from diffusion_torch.models.layers import Attention, FeedForwardGEGLU
+    layers = {"attn": Attention(32, 4, 8, lora_rank=2),
+              "xattn": Attention(32, 4, 8, cross_dim=16, lora_rank=2),
+              "ff": FeedForwardGEGLU(32)}
+    for name, layer in layers.items():
+        if inputs is not None:
+            layer.load_state_dict(inputs["tp_" + name])
+    return layers
+
+
+def _tp_ops(rank, world, inputs):
+    """tp_copy, tp_reduce and the sliced layers over tp groups of 2 (a
+    (data 2, tp 2) mesh) and of 4: each rank's outputs and gradients."""
+    from diffusion_torch.ops.attention import tensor_parallel
+    from diffusion_torch.parallel.mesh import create_mesh
+    from diffusion_torch.parallel.sharding import (shard_tensor_parallel,
+                                                   tp_copy, tp_reduce)
+    out = {}
+    for n in (2, 4):
+        mesh = create_mesh(fsdp=1, data=world // n, tp=n)
+        with tensor_parallel(mesh) as tp:
+            # f: the same x on every rank, each rank's own cotangent
+            x = inputs["tp_x"].clone().requires_grad_(True)
+            y = tp_copy(x, tp)
+            y.backward(inputs["tp_g"][rank])
+            out[("tp_copy", n)] = (y.detach(), x.grad)
+            # g: each rank's own partial, one cotangent
+            x = inputs["tp_g"][rank].clone().requires_grad_(True)
+            y = tp_reduce(x, tp)
+            y.backward(inputs["tp_x"])
+            out[("tp_reduce", n)] = (y.detach(), x.grad)
+            for name, layer in tp_layers(inputs).items():
+                shard_tensor_parallel(layer, tp.index, n, 8)
+                h = inputs["tp_h"].clone().requires_grad_(True)
+                args = (inputs["tp_ctx"],) if name == "xattn" else ()
+                y = layer(h, *args)
+                y.backward(inputs["tp_dy"])
+                out[(name, n)] = (y.detach(), h.grad, {
+                    k: p.grad for k, p in layer.named_parameters()})
     return out
 
 
@@ -180,16 +229,29 @@ def make_trainer(batches, initial, micro, mesh=None, draws=None, **kw):
 LR = 1e-3
 
 
+def tp_replicas_differ(trainer):
+    """The whole tensors of this tp rank's train state (parameters, AdamW
+    moments, EMA; FSDP's local shards under FSDP) whose bits differ from
+    another rank's of its tp group (`chip_smoke.py::tp_replicas_differ`,
+    a collective over the group), or None without tp."""
+    if trainer._tp_shard is None:
+        return None
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from chip_smoke import (tp_replicas_differ as differ, tp_sliced_names,
+                            train_state_checksums)
+    from diffusion_torch.parallel.sharding import process_group
+    return differ(*train_state_checksums(trainer.train_state),
+                  tp_sliced_names(trainer._tp_dims),
+                  process_group(trainer._tp_shard.group))
+
+
 def _whole(trainer, tensors):
     """Whole tensors from this rank's shards (a collective on a mesh)."""
     if not trainer.train_state.shards:
         return [t.clone() for t in tensors]
-    from torch.distributed.tensor import DTensor
     # full_tensor() returns the local tensor itself on one shard: copy
-    return [DTensor.from_local(t, p.device_mesh, p.placements,
-                               run_check=False, shape=p.shape,
-                               stride=p.stride()).full_tensor().clone()
-            for t, p in zip(tensors, trainer._dparams)]
+    return [t.clone() for t in trainer._whole(tensors)]
 
 
 def _record_updates(trainer, rec):
@@ -254,7 +316,8 @@ class _Preempt(Callback):
 def trainer_case(rank, world, tmp, runs):
     """Each run: (name, mesh_config, batches (global), n_accum, initial
     weights, micro, draws, trainer keywords, load_path): the fitted
-    trainer's whole state, per-step metrics and, with an
+    trainer's whole state, per-step metrics, the whole tensors its tp
+    group does not hold bit-equal (`tp_replicas_differ`) and, with an
     `eval_dataloader` keyword (global batches: each rank takes its block),
     an eval's results; a `preempt_at` keyword raises rank 0's preemption
     flag after that batch (or, with load_path, the state a fresh trainer
@@ -282,7 +345,8 @@ def trainer_case(rank, world, tmp, runs):
             if preempt is not None and rank == 0:
                 trainer.engine.callbacks.append(_Preempt(trainer, preempt))
             trainer.fit()
-            out[name] = {"state": full_state(trainer), "metrics": rec.steps,
+            out[name] = {"tp_replicas_differ": tp_replicas_differ(trainer),
+                         "state": full_state(trainer), "metrics": rec.steps,
                          "grads": rec.grads, "nu": rec.nu,
                          "eval": trainer.eval() if trainer.evaluators
                          else None,
@@ -291,39 +355,58 @@ def trainer_case(rank, world, tmp, runs):
     return out
 
 
-def yaml_case(overrides):
-    """Compose yamls/SD-2-base-1024-sp.yaml with `overrides` and train it
-    through `train(config)`: the last step's metrics, the mesh's shape and
-    the ring's calls."""
+def yaml_case(name, overrides):
+    """Compose yamls/`name` with `overrides` and train it through
+    `diffusion_torch.run.main`: the last step's metrics, the mesh's shape,
+    the ring's calls, the head counts attention ran with, the layers
+    holding tp slices and `tp_replicas_differ`."""
+    import diffusion_torch.models.layers as layers
     import diffusion_torch.ops.ring_attention as ring_mod
-    from diffusion_torch.config import load_config
-    from diffusion_torch.train.train import train
+    import diffusion_torch.train.train as train_mod
+    from diffusion_torch import run
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    calls = []
-    real = ring_mod.ring_attention
+    calls, heads, trainers = [], set(), []
+    real_ring, real_mha = ring_mod.ring_attention, layers.multi_head_attention
+    real_train = train_mod.train
 
     def counted(q, k, v, shard):
         calls.append(tuple(q.shape))
-        return real(q, k, v, shard)
+        return real_ring(q, k, v, shard)
 
-    ring_mod.ring_attention = counted
+    def seen(q, k, v, *args, **kwargs):
+        heads.add(q.shape[2])
+        return real_mha(q, k, v, *args, **kwargs)
+
+    ring_mod.ring_attention, layers.multi_head_attention = counted, seen
+    train_mod.train = lambda config: trainers.append(
+        real_train(config)) or trainers[-1]
     try:
-        config = load_config(os.path.join(root, "yamls",
-                                          "SD-2-base-1024-sp.yaml"),
-                             overrides)
-        trainer = train(config)
+        run.main(["--config-path", os.path.join(root, "yamls"),
+                  "--config-name", name, *overrides])
     finally:
-        ring_mod.ring_attention = real
+        ring_mod.ring_attention, layers.multi_head_attention = (real_ring,
+                                                                real_mha)
+        train_mod.train = real_train
+    trainer = trainers[-1]
     mesh = trainer.mesh
-    return {"metrics": {k: float(v) for k, v in trainer.state.metrics.items()},
+    tp_layers = {}
+    for m in trainer.model.unet.modules():
+        if getattr(m, "tp", 1) > 1:
+            kind = type(m).__name__
+            tp_layers[kind] = tp_layers.get(kind, 0) + 1
+    return {"tp_replicas_differ": tp_replicas_differ(trainer),
+            "metrics": {k: float(v) for k, v in trainer.state.metrics.items()},
             "batch": trainer.state.timestamp.batch,
             "mesh": [mesh.size(d) for d in range(mesh.ndim)],
-            "ring_calls": calls, "remat": trainer.model.unet.remat,
+            "ring_calls": calls, "attn_heads": heads,
+            "tp_layers": tp_layers, "remat": trainer.model.unet.remat,
             "shards": trainer.train_state.shards}
 
 
-def mesh_case(rank, world, tmp, runs, yaml_overrides=None):
+def mesh_case(rank, world, tmp, runs, yamls=()):
+    """`trainer_case`'s runs, then each (key, yaml name, overrides) of
+    `yamls` through `yaml_case`."""
     out = trainer_case(rank, world, tmp, runs)
-    if yaml_overrides is not None:
-        out["yaml"] = yaml_case(yaml_overrides)
+    for key, name, overrides in yamls:
+        out[key] = yaml_case(name, overrides)
     return out

@@ -47,7 +47,8 @@ def _inputs():
     with torch.no_grad():
         conv.weight.copy_(_t(rng, 8, 8, 3, 3, scale=0.2))
         conv.bias.copy_(_t(rng, 8, scale=0.2))
-    return {"attn": [_t(rng, B, S, H, D) for _ in range(4)],
+    return {**_tp_inputs(),
+            "attn": [_t(rng, B, S, H, D) for _ in range(4)],
             "x": _t(rng, 2, 8, 16, 12).contiguous(memory_format=cl),
             "dy1": _t(rng, 2, 8, 16, 12).contiguous(memory_format=cl),
             "dy2": _t(rng, 2, 8, 8, 6).contiguous(memory_format=cl),
@@ -57,6 +58,18 @@ def _inputs():
             "gy": _t(rng, 2, 64, 16),
             "scale": _t(rng, 16, scale=0.5, mean=1.0),
             "bias": _t(rng, 16, scale=0.5)}
+
+
+def _tp_inputs():
+    """The tensor-parallel cases' weights (every one drawn, LoRA B too)
+    and activations; `tp_g` holds 4 ranks' own tensors."""
+    rng = np.random.default_rng(1)
+    out = {"tp_" + name: {k: _t(rng, *v.shape, scale=0.3)
+                          for k, v in layer.state_dict().items()}
+           for name, layer in torch_ranks.tp_layers().items()}
+    return dict(out, tp_x=_t(rng, 2, 6, 32), tp_g=_t(rng, 4, 2, 6, 32),
+                tp_h=_t(rng, 2, 6, 32), tp_ctx=_t(rng, 2, 5, 16),
+                tp_dy=_t(rng, 2, 6, 32))
 
 
 @pytest.fixture(scope="module")
@@ -185,3 +198,47 @@ def test_sp_group_norm_large_mean_two_pass(ops_ranks, monkeypatch, n):
                                           True))
     got = _joined(results, ("gn_mean", n, "silu"), n, 0, 1).numpy()
     np.testing.assert_allclose(got, want, atol=3e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_tp_copy_and_reduce(ops_ranks, n):
+    """Megatron's f and g over tp groups of n gloo ranks: tp_copy is the
+    identity whose backward sums the group's cotangents; tp_reduce sums
+    the group's partials and hands the cotangent back as it is."""
+    inputs, results = ops_ranks
+    for first in range(0, 4, n):
+        group = range(first, first + n)
+        g_sum = sum(inputs["tp_g"][r] for r in group)
+        for r in group:
+            y, dx = results[r][("tp_copy", n)]
+            assert torch.equal(y, inputs["tp_x"])
+            _close(dx, g_sum)
+            y, dx = results[r][("tp_reduce", n)]
+            _close(y, g_sum)
+            assert torch.equal(dx, inputs["tp_x"])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", ["attn", "xattn", "ff"])
+def test_tp_layers_match_the_whole_layer(ops_ranks, name, n):
+    """An Attention (self and cross, LoRA on: q/k/v's B and to_out's A
+    sliced, the other factors whole) and a GEGLU sliced over n tp ranks
+    against the whole layer: every rank's output and input gradient, its
+    slices' gradients against the whole gradient's slices, and its whole
+    parameters' gradients against the whole's, within 1e-5."""
+    from diffusion_torch.parallel.sharding import tp_placement, tp_slice
+    inputs, results = ops_ranks
+    layer = torch_ranks.tp_layers(inputs)[name]
+    placed = tp_placement(layer, n, 8)
+    assert len(placed) == {"attn": 8, "xattn": 8, "ff": 3}[name]
+    h = inputs["tp_h"].clone().requires_grad_(True)
+    y = layer(h, inputs["tp_ctx"]) if name == "xattn" else layer(h)
+    y.backward(inputs["tp_dy"])
+    for r in range(4):
+        got_y, got_dh, grads = results[r][(name, n)]
+        _close(got_y, y.detach())
+        _close(got_dh, h.grad)
+        for k, p in layer.named_parameters():
+            want = p.grad if k not in placed else tp_slice(
+                k, p.grad, placed[k], r % n, n)
+            _close(grads[k], want)

@@ -185,11 +185,13 @@ def test_skip_holds_the_schedule_count(runs):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Only tensor parallelism is left (item 9b); a mesh of one process's
-    axes trains as one rank, and axes that need more processes raise JAX's
-    ValueError."""
+    """Every mesh axis is ported: a mesh of one process's axes trains as
+    one rank, and axes that need more processes, tensor parallelism's
+    too, raise JAX's ValueError."""
     model = stable_diffusion_tiny(device="cpu", precomputed_latents=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError) as want:
+        create_mesh(tp=2, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match=str(want.value)):
         Trainer(model=model, device="cpu", mesh_config={"tp": 2})
     tr = Trainer(model=model, device="cpu",
                  mesh_config={"fsdp": -1, "data": 1, "sp": 1})
