@@ -256,6 +256,23 @@ Phases, each raising on failure (exit code 1):
      output, dx and every parameter's gradient within bf16 bounds, the
      flash calls' shapes, the times; (d) one line saying where tp ranks
      have run.
+ 18. The FLOP count and MFU (run right after phase 7, on its model): (a)
+     one 256px loss-and-grad microbatch of 16 and one 512px CFG UNet step
+     at batch 4 counted on the card by `utils/flops.py` (dot, conv, flash);
+     the flash class must equal the three flash wrappers' launches times
+     their formulas (2 / 3 / 4 units at each launch's shapes), and the
+     launch counters the wrappers' calls; the same model built on the
+     meta device (shapes only) and routed as the card must count the same
+     in every class, and routed as the CPU the same conv and dot + 6/9 of
+     the flash class (2/2 forward only); (b) `flops_per_batch` of the recipe's batch of 32
+     and the MFU of phase 7's step and of phase 5's CFG step against
+     `device_peak_flops()`; (c) the unedited yamls/SD-2-base-256.yaml
+     through `train(config)` on phase 8's shards, 3 batches, with
+     `callbacks.speed_monitor.flops_per_batch` from (a):
+     `throughput/device/mfu` must be logged and lie in (0, 1); (d)
+     `enable_compile_cache` on one fresh directory in two child
+     processes: the first runs nvcc into it (while (c) trains), the
+     second loads the library without nvcc.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -5117,6 +5134,300 @@ def _eval_job_phase(card: str) -> dict:
     return {n: fid_launches[n] + coco_launches[n] for n in counters}
 
 
+# ---------------- phase 18: the FLOP count, MFU and the compile cache -----
+
+CFG_BATCH = 4            # phase 5's CFG step: 2 prompts x 2
+FLOPS_YAML_STEPS = 3     # batches of the MFU run of the 256 yaml
+
+
+class _FlashSpy:
+    """Wraps the three flash kernels' wrappers while active: each launch
+    adds its formula's FLOPs (`utils/flops.py`) at its own shapes."""
+
+    def __init__(self):
+        from diffusion_torch.ops import flash_attention as fa
+        from diffusion_torch.utils import flops
+        self.flops = {"flash_attention": 0, "flash_attention_bwd_dq": 0,
+                      "flash_attention_bwd_dkv": 0}
+        self.launches = dict.fromkeys(self.flops, 0)
+        self._fa = fa
+        self._wrapped = {}
+        for name, attr, units in (
+                ("flash_attention", "flash_attention_cuda",
+                 flops.FLASH_FWD_UNITS),
+                ("flash_attention_bwd_dq", "flash_attention_bwd_dq_cuda",
+                 flops.FLASH_BWD_DQ_UNITS),
+                ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_cuda",
+                 flops.FLASH_BWD_DKV_UNITS)):
+            self._wrapped[attr] = self._spy(name, getattr(fa, attr), units,
+                                            flops.attention_unit)
+
+    def _spy(self, name, fn, units, unit):
+        def wrapper(q, k, *args):
+            self.launches[name] += 1
+            self.flops[name] += units * unit(q.shape, k.shape)
+            return fn(q, k, *args)
+        return fn, wrapper
+
+    def __enter__(self):
+        for attr, (_, wrapper) in self._wrapped.items():
+            setattr(self._fa, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, (fn, _) in self._wrapped.items():
+            setattr(self._fa, attr, fn)
+
+
+def _flops_by_route(count, card_flops: dict, what: str,
+                    plain: tuple) -> dict:
+    """`count()` on the meta device routed as the card and as the CPU; the
+    card's route must equal `card_flops` (counted on the card) in every
+    class, and the CPU's must equal it in conv and in dot + p/f of flash,
+    `plain` = (p, f): the plain attention's products where the flash ops
+    price f units (2 / 2 forward, 6 / 9 with the backward)."""
+    from diffusion_torch.utils.device import route_meta_as
+    got = {}
+    for route in ("cuda", "cpu"):
+        with route_meta_as(route):
+            got[route] = count()
+    print(f"flops: {what}, counted on the meta device (the host, no data) "
+          f"routed as the card: {_classes(got['cuda'])}; as the CPU: "
+          f"{_classes(got['cpu'])}")
+    _check(got["cuda"] == card_flops,
+           f"{what}: the card's count {card_flops} differs from the meta "
+           f"device's on the card's route {got['cuda']}")
+    cpu = got["cpu"]
+    p, f = plain
+    _check(cpu["flash"] == 0 and cpu["conv"] == card_flops["conv"]
+           and f * cpu["dot"] == f * card_flops["dot"]
+           + p * card_flops["flash"],
+           f"{what}: the CPU route's count {cpu} is not the card's with "
+           f"plain attention")
+    return got
+
+
+def _classes(by_class: dict) -> str:
+    total = sum(by_class.values())
+    return (", ".join(f"{k} {v:.6e}" for k, v in by_class.items())
+            + f", total {total:.6e}")
+
+
+def _flops_count_phase(model, card: str, train_step_s: float,
+                       cfg_ms: float) -> tuple:
+    """Phase 18 (a) and (b), on phase 7's training model: one 256px
+    microbatch of 16 of the recipe's step and one 512px CFG UNet step at
+    batch 4 counted on the card, the flash class held to the launches
+    times the formulas, dot and conv to the meta device's count; then
+    `flops_per_batch` of the recipe's batch of 32 and the MFU of phase 7's
+    step and of phase 5's CFG step. Returns (flops_per_batch, the kernels'
+    launches while counting)."""
+    import torch
+
+    from diffusion_torch.models.models import stable_diffusion_2
+    from diffusion_torch.scripts.measure_flops import microbatch_flops
+    from diffusion_torch.utils.flops import device_peak_flops, flops_by_class
+
+    t_phase = time.perf_counter()
+    unet = model.unet
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    counts = {}
+    with _FlashSpy() as spy:
+        t0 = time.perf_counter()
+        counts["step"] = microbatch_flops(model, TRAIN_MICRO, TRAIN_SIZE)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+        unet.zero_grad(set_to_none=True)
+        step_spy = dict(spy.flops), dict(spy.launches)
+        side = SIZE // 8
+        lat = torch.randn((CFG_BATCH, 4, side, side), device=DEVICE
+                          ).contiguous(memory_format=torch.channels_last)
+        t = torch.full((CFG_BATCH,), 500, device=DEVICE, dtype=torch.int64)
+        ctx = torch.randn((CFG_BATCH, 77, unet.config.cross_attention_dim),
+                          device=DEVICE)
+        with torch.no_grad():
+            counts["cfg"] = flops_by_class(unet, lat, t, ctx)
+        torch.cuda.synchronize()
+    launches = {name: c.value for name, c in counters.items()}
+    cfg_spy = ({k: v - step_spy[0][k] for k, v in spy.flops.items()},
+               {k: v - step_spy[1][k] for k, v in spy.launches.items()})
+    _check(spy.launches == {k: launches[k] for k in spy.launches},
+           f"the launch counters {launches} differ from the wrappers' calls "
+           f"{spy.launches}")
+    for what, by_class, (flops, n) in (
+            (f"256px microbatch of {TRAIN_MICRO}, loss and grad",
+             counts["step"], step_spy),
+            (f"{SIZE}px UNet CFG step, batch {CFG_BATCH}", counts["cfg"],
+             cfg_spy)):
+        print(f"flops: {what}, counted on the card: {_classes(by_class)}; "
+              f"flash launches {json.dumps(n)} x their formulas "
+              f"(2 / 3 / 4 units) = {sum(flops.values()):.6e} [{card}]")
+        _check(by_class["flash"] == sum(flops.values()) > 0,
+               f"{what}: the flash class {by_class['flash']} is not the "
+               f"launches times their formulas {flops}")
+        _check(by_class["dot"] > 0 and by_class["conv"] > 0,
+               f"{what}: no dot or conv FLOPs counted")
+    _check(cfg_spy[1]["flash_attention"] > 0
+           and not cfg_spy[1]["flash_attention_bwd_dq"],
+           f"the CFG step's launches {cfg_spy[1]}")
+    t0 = time.perf_counter()
+    meta = stable_diffusion_2(precomputed_latents=True, device="meta")
+    meta_lat = torch.empty(lat.shape, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    meta_t = torch.empty(t.shape, device="meta", dtype=torch.int64)
+    meta_ctx = torch.empty(ctx.shape, device="meta")
+
+    def meta_cfg():
+        with torch.no_grad():
+            return flops_by_class(meta.unet, meta_lat, meta_t, meta_ctx)
+
+    _flops_by_route(lambda: microbatch_flops(meta, TRAIN_MICRO, TRAIN_SIZE),
+                    counts["step"], "256px microbatch", (6, 9))
+    _flops_by_route(meta_cfg, counts["cfg"], f"{SIZE}px CFG step", (2, 2))
+    meta_s = time.perf_counter() - t0
+    del meta
+
+    peak = device_peak_flops()
+    _check(peak is not None, f"no bf16 peak for {torch.cuda.get_device_name(0)}")
+    per_batch = TRAIN_BATCH // TRAIN_MICRO * sum(counts["step"].values())
+    cfg_flops = sum(counts["cfg"].values())
+    train_mfu = per_batch / train_step_s / peak
+    cfg_mfu = cfg_flops / (cfg_ms / 1e3) / peak
+    print(f"flops: flops_per_batch {per_batch:.6e} for the recipe's batch of "
+          f"{TRAIN_BATCH} ({TRAIN_BATCH // TRAIN_MICRO} microbatches of "
+          f"{TRAIN_MICRO} at {TRAIN_SIZE}px; the optimizer's and EMA's "
+          f"elementwise work not counted), {cfg_flops:.6e} a CFG step")
+    print(f"flops: MFU against {peak / 1e12:.0f} TFLOP/s (bf16 dense, "
+          f"device_peak_flops) [{card}]: phase 7's step "
+          f"{train_step_s * 1e3:.1f} ms -> {per_batch / train_step_s / 1e12:.2f}"
+          f" TFLOP/s, MFU {train_mfu:.4f}; phase 5's CFG step {cfg_ms:.2f} ms "
+          f"-> {cfg_flops / cfg_ms / 1e9:.2f} TFLOP/s, MFU {cfg_mfu:.4f}")
+    print(f"flops: the counted microbatch took {step_wall:.2f} s under the "
+          f"counter, the meta counts {meta_s:.2f} s on the host; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    _check(0 < train_mfu < 1 and 0 < cfg_mfu < 1,
+           f"MFU outside (0, 1): {train_mfu}, {cfg_mfu}")
+    return per_batch, launches
+
+
+def _flops_yaml_overrides(tmp: str, metrics_file: str,
+                          flops_per_batch: float) -> list:
+    """Phase 8's shards and overrides for phase 18 (c): 3 batches, no eval,
+    the SpeedMonitor given `flops_per_batch` (its peak from the card)."""
+    return _composed_overrides(tmp, "flops", metrics_file) + [
+        f"trainer.max_duration={FLOPS_YAML_STEPS}ba",
+        "trainer.eval_interval=1000ba",
+        f"+callbacks.speed_monitor.flops_per_batch={flops_per_batch!r}"]
+
+
+def _flops_yaml_phase(card: str, flops_per_batch: float) -> dict:
+    """Phase 18 (c): yamls/SD-2-base-256.yaml through `train(config)` for 3
+    batches with `flops_per_batch` from (a): `throughput/device/mfu` must be
+    logged and lie in (0, 1). Returns the kernels' launches."""
+    import tempfile
+
+    import torch
+
+    from diffusion_torch.config import load_config
+    from diffusion_torch.train.train import train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flops_") as tmp:
+        metrics_file = os.path.join(tmp, "metrics.jsonl")
+        overrides = _flops_yaml_overrides(tmp, metrics_file, flops_per_batch)
+        config = load_config(os.path.join(_ROOT, "yamls",
+                                          "SD-2-base-256.yaml"), overrides)
+        # WandBLogger is a no-op without wandb; with it, it stays offline
+        os.environ.setdefault("WANDB_MODE", "disabled")
+        counters = _counters()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        trainer = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in counters.items()}
+        with open(metrics_file) as f:
+            records = [json.loads(line) for line in f]
+    _check(trainer.state.timestamp.batch == FLOPS_YAML_STEPS,
+           f"the MFU run did not take {FLOPS_YAML_STEPS} batches")
+    mfu = [(r["step"], r["throughput/device/mfu"],
+            r["throughput/flops_per_sec"]) for r in records
+           if "throughput/device/mfu" in r]
+    print(f"flops: yamls/SD-2-base-256.yaml, {FLOPS_YAML_STEPS} batches of "
+          f"{TRAIN_BATCH} with callbacks.speed_monitor.flops_per_batch="
+          f"{flops_per_batch:.6e}: run {wall:.1f} s; throughput/device/mfu "
+          + ", ".join(f"{m:.4f} at batch {s} ({fps / 1e12:.2f} TFLOP/s)"
+                      for s, m, fps in mfu) + f" [{card}]")
+    _check(mfu and all(0 < m < 1 for _, m, _ in mfu),
+           f"throughput/device/mfu not logged or outside (0, 1): {mfu}")
+    for name in launches:
+        _check(launches[name] > 0, f"{name} was not launched in the MFU run")
+    return launches
+
+
+_CACHE_CHILD = """
+import json, sys, time
+from diffusion_torch.ops import _build
+from diffusion_torch.utils.compile_cache import enable_compile_cache
+calls, nvcc = [], _build._nvcc
+_build._nvcc = lambda: calls.append(1) or nvcc()
+path = enable_compile_cache(sys.argv[1])
+t0 = time.perf_counter()
+_build.library()
+print(json.dumps({"dir": path, "library": _build.library_path(),
+                  "nvcc_calls": len(calls),
+                  "seconds": time.perf_counter() - t0}))
+"""
+
+
+def _cache_child(cache: str) -> tuple:
+    """Start a child process that enables the compile cache on `cache` and
+    loads the kernel library; returns (process, start time)."""
+    return (subprocess.Popen([sys.executable, "-c", _CACHE_CHILD, cache],
+                             cwd=_ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def _cache_result(child: tuple) -> tuple:
+    proc, t0 = child
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    _check(proc.returncode == 0, f"compile cache child failed: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def _compile_cache_phase(card: str, during):
+    """Phase 18 (d): two child processes call `enable_compile_cache` on one
+    fresh directory and load the kernel library; the first runs nvcc into
+    it (while `during()` runs here), the second must not. Returns what
+    `during()` returns."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cc_") as cache:
+        first = _cache_child(cache)
+        try:
+            result = during()
+        finally:
+            runs = [_cache_result(first)]
+        runs.append(_cache_result(_cache_child(cache)))
+    for i, (r, wall) in enumerate(runs):
+        print(f"compile cache: process {i + 1} on {r['dir']}: "
+              f"{r['nvcc_calls']} nvcc call(s), library() {r['seconds']:.2f} "
+              f"s, process {wall:.1f} s{' (beside (c))' if i == 0 else ''} "
+              f"[{card}]")
+        _check(os.path.dirname(r["library"]) == r["dir"] == cache,
+               f"the library is not under the cache: {r}")
+    _check(runs[0][0]["nvcc_calls"] == 1 and runs[1][0]["nvcc_calls"] == 0,
+           f"the second process on the cache ran nvcc: {runs}")
+    return result
+
+
 def _device_profile(events, window: str, what: str, card: str) -> None:
     """Print the device's busy time (the union of kernel intervals), the
     idle share of the first-to-last kernel span, and device time by kernel
@@ -5398,8 +5709,8 @@ def main(argv=None) -> int:
             ms = _time_ms(lambda: unet(lat, t, ctx[:batch]), iters=5, warmup=2)
         print(f"times: UNet CFG step, batch {batch} ({batch // 2} prompt(s) "
               f"x 2), {SIZE}px: {ms:.2f} ms [{card}]")
-        if batch == 4:       # profiled at the end, after every timed phase
-            serve_inputs = (lat, t, ctx)
+        if batch == CFG_BATCH:  # profiled at the end, after every timed phase
+            serve_inputs, cfg_ms = (lat, t, ctx), ms
     print(f"times: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
 
@@ -5426,7 +5737,15 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s (UNet only, trainable)")
     _grad_reference_phase(train_model, card)
     train_launches, train_step_s = _train_phase(train_model, card)
+    # 18. the FLOP count and MFU on phase 7's model, the MFU through the
+    # 256 yaml, and the kernel library's compile cache
+    flops_per_batch, flops_launches = _flops_count_phase(
+        train_model, card, train_step_s, cfg_ms)
     del train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops_yaml_launches = _compile_cache_phase(
+        card, lambda: _flops_yaml_phase(card, flops_per_batch))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5504,7 +5823,8 @@ def main(argv=None) -> int:
                          + checkpoint_launches[name]
                          + lora_launches[name] + reader_launches[name]
                          + pixel_launches[name] + recipe_launches[name]
-                         + sp_launches[name] + tp_launches[name]),
+                         + sp_launches[name] + tp_launches[name]
+                         + flops_launches[name] + flops_yaml_launches[name]),
             "max_abs_err": max(c["err"] for c in cases),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -6,14 +6,14 @@ yamls/hydra-yamls/SD-2-base-256-mixdata.yaml:96-107 — SpeedMonitor(
 window_size=10), LRMonitor, MemoryMonitor, RuntimeEstimator,
 OptimizerMonitor). What differs:
 
-- the per-device throughput divides by the trainer's device count (the
-  port trains on one card);
+- the per-device throughput and MFU divide by the process group's size
+  (one card a rank), else 1: `jax.device_count()`'s counterpart;
 - MemoryMonitor reads `torch.cuda.memory_stats` and the card's total memory
   (nothing on the CPU);
 - OptimizerMonitor takes its parameter norm from `train/optim.py`
   `global_norm`;
-- SpeedMonitor logs MFU only with `flops_per_batch` and
-  `peak_tflops_per_device` both given (there is no table of peaks).
+- SpeedMonitor's peak, where `peak_tflops_per_device` is not given, is
+  `utils/flops.py::device_peak_flops`' table of Hopper parts.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import gc
 from typing import Deque, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from diffusion_torch.train.events import Callback
 from diffusion_torch.train.optim import global_norm
@@ -31,15 +32,21 @@ from diffusion_torch.utils.time import time_to_batches
 __all__ = ["SpeedMonitor", "LRMonitor", "MemoryMonitor", "RuntimeEstimator",
            "OptimizerMonitor", "ScheduledGarbageCollector"]
 
-# the port's Trainer drives one device
-_DEVICE_COUNT = 1
+def _device_count() -> int:
+    """The cards a run spans: the process group's size, else 1 (the
+    counterpart of `jax.device_count()`; an sp or tp group's ranks each
+    count, unlike `utils/device.py::rank_and_world`)."""
+    return dist.get_world_size() if (dist.is_available()
+                                     and dist.is_initialized()) else 1
 
 
 class SpeedMonitor(Callback):
     """samples/sec over a rolling window (+ per-device), logged per batch.
 
-    With `flops_per_batch` it also logs `throughput/flops_per_sec`, and with
-    `peak_tflops_per_device` as well `throughput/device/mfu`
+    With `flops_per_batch` (a number, from `utils/flops.py`'s count or
+    `python -m diffusion_torch.scripts.measure_flops`) it also logs
+    `throughput/flops_per_sec` and, when the card's bf16 peak is known or
+    `peak_tflops_per_device` is given, `throughput/device/mfu`
     (composer.callbacks.speed_monitor parity)."""
 
     def __init__(self, window_size: int = 10,
@@ -63,18 +70,22 @@ class SpeedMonitor(Callback):
         if wct <= 0 or samples <= 0:
             return
         sps = samples / wct
+        n_dev = _device_count()
         metrics = {
             "throughput/samples_per_sec": sps,
-            "throughput/device/samples_per_sec": sps / _DEVICE_COUNT,
+            "throughput/device/samples_per_sec": sps / n_dev,
             "throughput/batches_per_sec": (len(self.window) - 1) / wct,
             "wall_clock/train": state.total_wct,
         }
         if self.flops_per_batch:
             fps = self.flops_per_batch * metrics["throughput/batches_per_sec"]
             metrics["throughput/flops_per_sec"] = fps
+            if self._peak is None:
+                from diffusion_torch.utils.flops import device_peak_flops
+                # an unknown device: probe once, then skip
+                self._peak = device_peak_flops() or 0.0
             if self._peak:
-                metrics["throughput/device/mfu"] = (
-                    fps / _DEVICE_COUNT / self._peak)
+                metrics["throughput/device/mfu"] = fps / n_dev / self._peak
         logger.log_metrics(metrics, step=state.timestamp.batch)
 
 

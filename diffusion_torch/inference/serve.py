@@ -7,7 +7,8 @@ lifting them into a shared framework-free module. Beyond the copy, `Batcher`
 has `close()`, which stops its worker thread, and the server's
 `server_close()` calls it.
 
-  python -m diffusion_torch.inference.serve --device cuda --port 8000
+  python -m diffusion_torch.inference.serve --device cuda --port 8000 \
+      [--compile-cache DIR]
 
 POST /predict  {"prompt": "...", "guidance_scale": 7.5, ...}
   -> {"images": ["<base64 png>", ...]}
@@ -29,6 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 from diffusion_torch.inference.inference_model import StableDiffusionInference
+from diffusion_torch.utils.compile_cache import enable_compile_cache
 
 __all__ = ["make_server", "Batcher", "main"]
 
@@ -204,7 +206,7 @@ def make_server(endpoint: StableDiffusionInference, host: str = "0.0.0.0",
     return server
 
 
-def main() -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--checkpoint", default=None,
                    help="a Trainer checkpoint directory (ba<N>) or a "
@@ -226,7 +228,16 @@ def main() -> None:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--batch-wait-ms", type=float, default=20.0)
-    args = p.parse_args()
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="where the kernel library is built and found: a "
+                        "restarted server loads it instead of running nvcc "
+                        "again (also honors $DIFFUSION_TORCH_COMPILE_CACHE)")
+    return p
+
+
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
+    enable_compile_cache(args.compile_cache)
     endpoint = StableDiffusionInference(
         checkpoint_path=args.checkpoint, model_name=args.model_name,
         pretrained=args.pretrained,

@@ -179,14 +179,16 @@ def _build(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
         towers = ((AutoencoderKL(vae_cfg, dtype=dtype),
                    CLIPTextModel(text_cfg, dtype=dtype))
                   if init_frozen_towers else (None, None))
-    gen = torch.Generator(device=device).manual_seed(seed)
-    init_like_flax_(unet, gen)
+    if device.type != "meta":    # shapes only (a FLOP count): nothing to draw
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for module in (unet, *towers):
+            if module is not None:
+                init_like_flax_(module, gen)
     unet.train()
     if train_lora_only:
         freeze_base(unet)        # raises where the UNet has no adapter
     for module in towers:
         if module is not None:
-            init_like_flax_(module, gen)
             module.eval().requires_grad_(False)
     model = StableDiffusion(unet=unet, vae=towers[0], text_encoder=towers[1],
                             tokenizer=tokenizer,

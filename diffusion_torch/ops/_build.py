@@ -5,7 +5,9 @@ build with `nvcc -shared` in seconds, without PyTorch's headers, into
 `build/diffusion_torch/` at the repository root. The library's name carries
 a hash of the sources and flags: an edit rebuilds, an unchanged tree reuses
 the library. The first kernel call in a process builds and loads it;
-importing this module does neither.
+importing this module does neither. `set_build_dir` moves the library to
+another directory, which several processes or hosts may share
+(`utils/compile_cache.py`).
 
 Every wrapper that launches a kernel counts its launches in a
 `LaunchCounter`, so a run can show that its main path went through the
@@ -22,7 +24,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["LaunchCounter", "library", "build_log", "BUILD_DIR"]
+__all__ = ["LaunchCounter", "library", "library_path", "build_log",
+           "set_build_dir", "BUILD_DIR"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -93,10 +96,23 @@ def build_log() -> str:
     return os.path.join(BUILD_DIR, f"build_{_digest()}.log")
 
 
+def library_path() -> str:
+    """Where `library()` finds, or builds, the shared library."""
+    return os.path.join(BUILD_DIR, f"libdiffusion_torch_{_digest()}.so")
+
+
+def set_build_dir(path: str) -> None:
+    """From now on, `library()` builds and loads the library under
+    `path`."""
+    global BUILD_DIR
+    BUILD_DIR = path
+    library.cache_clear()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
-    out = os.path.join(BUILD_DIR, f"libdiffusion_torch_{_digest()}.so")
+    out = library_path()
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"

@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import torch
 
 from diffusion_torch.ops.flash_attention import flash_attention
+from diffusion_torch.utils.device import kernel_device_type
 
 __all__ = ["multi_head_attention", "flash_eligible", "sequence_parallel",
            "active_shard", "tensor_parallel", "active_tp"]
@@ -137,7 +138,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return ring_attention(q, k, v, shard)
         from diffusion_torch.parallel.sharding import gather_rows
         k, v = gather_rows(k, shard, dim=1), gather_rows(v, shard, dim=1)
-    if mask is None and flash_eligible(q.device.type, q.dtype, q.shape,
-                                       k.shape, False):
+    if mask is None and flash_eligible(kernel_device_type(q.device), q.dtype,
+                                       q.shape, k.shape, False):
         return flash_attention(q, k, v)[0]
     return _xla_attention(q, k, v, mask)

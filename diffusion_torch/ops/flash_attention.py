@@ -11,10 +11,12 @@ The backward takes those and the output's cotangent and returns
 `flash_attention` is differentiable in q, k and v: a dispatcher op
 (`torch.library.custom_op`, `flash_attention_op`) whose forward saves
 `(q, k, v, out, lse)` only (no S x S residual), as JAX's `_flash_fwd_rule`
-does; a selective-checkpoint policy can keep its outputs by naming the op. On CUDA tensors it
-launches the kernels (`csrc/flash_attention.cu` forward,
+does; a selective-checkpoint policy can keep its outputs by naming the op.
+Its backward is a dispatcher op too (`flash_attention_bwd_op`), so that a
+dispatch mode counts both (`utils/flops.py`). On CUDA tensors they
+launch the kernels (`csrc/flash_attention.cu` forward,
 `csrc/flash_attention_bwd.cu` dQ and dK/dV: bf16, head dim 64, sequence
-lengths a multiple of 64) or raises; on CPU tensors it runs
+lengths a multiple of 64) or raise; on CPU tensors they run
 `flash_attention_reference` and `flash_attention_bwd_reference`, which
 mirror JAX's `_xla_attention_with_lse` and `_xla_attention_bwd_with_lse`.
 """
@@ -26,8 +28,9 @@ from typing import Optional, Tuple
 import torch
 
 from diffusion_torch.ops._build import LaunchCounter, library
+from diffusion_torch.utils.device import kernel_device_type
 
-__all__ = ["flash_attention", "flash_attention_op",
+__all__ = ["flash_attention", "flash_attention_op", "flash_attention_bwd_op",
            "flash_attention_reference",
            "flash_attention_cuda", "flash_attention_bwd_reference",
            "flash_attention_bwd_cuda", "flash_attention_bwd_dq_cuda",
@@ -208,28 +211,51 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return fwd(q, k, v)
 
 
+@_flash_op.register_fake
+def _flash_fake(q, k, v):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("diffusion_torch::flash_attention_bwd",
+                         mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as one dispatcher op, so that a dispatch mode (the FLOP
+    count of `utils/flops.py`) sees it: the dQ and dK/dV kernels (CUDA) or
+    the plain version (CPU)."""
+    if q.is_cuda:
+        if not _view_ok(do):
+            do = do.contiguous()
+        return flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    return flash_attention_bwd_reference(q, k, v, out, lse, do)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, do):
+    return (q.new_empty(q.shape), k.new_empty(k.shape),
+            v.new_empty(v.shape))
+
+
 def _flash_setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs, *output)
 
 
 def _flash_backward(ctx, dout, _dlse):
     """lse is an output for callers but carries no gradient."""
-    q, k, v, out, lse = ctx.saved_tensors
-    if q.is_cuda:
-        if not _view_ok(dout):
-            dout = dout.contiguous()
-        return flash_attention_bwd_cuda(q, k, v, out, lse, dout)
-    return flash_attention_bwd_reference(q, k, v, out, lse, dout)
+    return _flash_bwd_op(*ctx.saved_tensors, dout)
 
 
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 flash_attention_op = torch.ops.diffusion_torch.flash_attention.default
+flash_attention_bwd_op = torch.ops.diffusion_torch.flash_attention_bwd.default
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T / sqrt(d)) v over (B, S, H, D) and its logsumexp;
     differentiable in q, k and v."""
-    if q.device.type not in ("cuda", "cpu"):
+    if kernel_device_type(q.device) not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
     return _flash_op(q, k, v)

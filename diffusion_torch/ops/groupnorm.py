@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from diffusion_torch.ops._build import LaunchCounter, library
+from diffusion_torch.utils.device import kernel_device_type
 
 __all__ = ["group_norm", "group_norm_reference", "group_norm_cuda",
            "group_norm_bwd_reference", "group_norm_bwd_cuda", "Plan", "plan",
@@ -718,7 +719,7 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     `num_groups`. With `shard` (`parallel/sharding.py::RowShard`), `x` is
     this rank's rows of each image and the statistics span the sp
     group's."""
-    if x.device.type not in ("cuda", "cpu"):
+    if kernel_device_type(x.device) not in ("cuda", "cpu"):
         raise ValueError(f"group_norm runs on CUDA or CPU, not {x.device}")
     if shard is not None:
         _check(x, num_groups, act)

@@ -13,8 +13,9 @@ resolves them under `diffusion_torch.`. Launched on several processes
 where the yaml has `trainer.mesh_config`, builds the process mesh before
 the readers, so the batch divides over the ranks that read different
 examples (dcn x fsdp x data; an sp group shares its examples) and the
-readers split them so (`utils/device.py::rank_and_world`). There is no
-compile cache (XLA's, out of scope for the port).
+readers split them so (`utils/device.py::rank_and_world`). The yaml's
+`compile_cache_dir` (or $DIFFUSION_TORCH_COMPILE_CACHE) is where the kernel
+library is built and found (`utils/compile_cache.py`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from diffusion_torch.parallel.mesh import create_mesh
 from diffusion_torch.train import optim as optim_mod
 from diffusion_torch.train.optim import adamw, constant_scheduler
 from diffusion_torch.train.trainer import Evaluator, Trainer
+from diffusion_torch.utils.compile_cache import enable_compile_cache
 from diffusion_torch.utils.device import rank_and_world
 
 __all__ = ["train", "build_trainer"]
@@ -156,6 +158,7 @@ def build_trainer(config: Dict[str, Any]) -> Trainer:
 
 def train(config: Dict[str, Any]) -> Trainer:
     """Full composition + eval-first + fit (reference train.py:130-138)."""
+    enable_compile_cache(config.get("compile_cache_dir"))
     trainer = build_trainer(config)
     try:
         if config.get("eval_first") and trainer.evaluators:

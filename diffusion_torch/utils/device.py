@@ -1,16 +1,18 @@
 """The port's device default: its entry points run on the card unless the
 caller asks for the CPU. And this process's rank and world size, over the
-processes that hold different examples."""
+processes that hold different examples. And the routing of meta tensors
+(shapes without data), for a FLOP count (`utils/flops.py`)."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Device", "resolve_device", "rank_and_world",
-           "set_example_layout"]
+           "set_example_layout", "route_meta_as", "kernel_device_type"]
 
 Device = Union[str, torch.device, None]
 
@@ -47,3 +49,34 @@ def rank_and_world() -> Tuple[int, int]:
             return layout
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+# the device type whose routes meta tensors take (`route_meta_as`), or None
+_META_ROUTE: list = [None]
+
+
+@contextlib.contextmanager
+def route_meta_as(device_type: str = "cuda"):
+    """While active, a meta tensor (a shape without data) takes the route a
+    tensor of its shape and dtype takes on `device_type`: on "cuda" the
+    flash op where the kernels' rule takes the shape, whose fake version
+    stands in for the kernels; on "cpu" the plain versions. A FLOP count
+    of either path on a host without a card (`utils/flops.py`). Outside
+    it, the entry points refuse meta tensors."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"meta tensors take the cuda or cpu routes, not "
+                         f"{device_type!r}")
+    prev = _META_ROUTE[0]
+    _META_ROUTE[0] = device_type
+    try:
+        yield
+    finally:
+        _META_ROUTE[0] = prev
+
+
+def kernel_device_type(device: torch.device) -> str:
+    """The device type whose route a tensor on `device` takes: a meta
+    tensor's under `route_meta_as`, else the device's own type."""
+    if device.type == "meta" and _META_ROUTE[0] is not None:
+        return _META_ROUTE[0]
+    return device.type

@@ -143,6 +143,24 @@ def test_composed_phase_evaluates_on_coco_shards(tmp_path):
         "laion.build_streaming_laion_dataloader")
 
 
+def test_flops_phase_yaml_overrides(tmp_path):
+    """Phase 18 (c): phase 8's shards and overrides, 3 batches, no eval,
+    and the SpeedMonitor given `flops_per_batch` (the yaml's own
+    SpeedMonitor, its peak left to the card)."""
+    from diffusion_torch.config import load_config
+
+    yaml = os.path.join(chip_smoke._ROOT, "yamls", "SD-2-base-256.yaml")
+    config = load_config(yaml, chip_smoke._flops_yaml_overrides(
+        str(tmp_path), "m.jsonl", 1.7580072e13))
+    monitor = config["callbacks"]["speed_monitor"]
+    assert monitor["_target_"].endswith("monitors.SpeedMonitor")
+    assert monitor["flops_per_batch"] == 1.7580072e13
+    assert "peak_tflops_per_device" not in monitor
+    assert config["trainer"]["max_duration"] == "3ba"
+    assert config["trainer"]["eval_interval"] == "1000ba"
+    assert config["batch_size"] == chip_smoke.TRAIN_BATCH
+
+
 def test_inpainting_mask_and_images():
     import numpy as np
     mask = chip_smoke._left_half_mask(8, 6)

@@ -25,6 +25,7 @@ from diffusion_tpu.train import trainer as jtrainer
 from diffusion_tpu.metrics.mse import MeanSquaredError as JaxMSE
 from diffusion_tpu.train.events import Callback as JaxCallback
 from diffusion_tpu.train.train import build_trainer as jax_build_trainer
+from diffusion_tpu.utils import flops as jflops
 from diffusion_tpu.utils.logging import Logger as JaxLogger
 from diffusion_torch import run as trun
 from diffusion_torch.callbacks import monitors as tmonitors
@@ -35,6 +36,7 @@ from diffusion_torch.models.port_jax import unet_from_jax
 from diffusion_torch.train import trainer as ttrainer
 from diffusion_torch.train.events import Callback
 from diffusion_torch.train.train import build_trainer
+from diffusion_torch.utils import flops as tflops
 from diffusion_torch.utils.logging import Logger
 from diffusion_torch.utils.time import Timestamp
 
@@ -434,9 +436,26 @@ class _State:
     ("SpeedMonitor", {"window_size": 3, "flops_per_batch": 2e12,
                       "peak_tflops_per_device": 989}),
     ("LRMonitor", {}), ("RuntimeEstimator", {}),
-    ("OptimizerMonitor", {"interval": 2})])
+    ("OptimizerMonitor", {"interval": 2}),
+    # two devices: jax.device_count() and the port's process group size
+    ("SpeedMonitor", {"window_size": 3, "flops_per_batch": 2e12,
+                      "peak_tflops_per_device": 989, "devices": 2}),
+    # no peak given: each side probes its device's peak once
+    ("SpeedMonitor", {"window_size": 3, "flops_per_batch": 2e12,
+                      "devices": 2, "probed_peak": 989e12}),
+    ("SpeedMonitor", {"window_size": 3, "flops_per_batch": 2e12,
+                      "probed_peak": None})])
 def test_monitors_log_what_jax_logs(monkeypatch, name, kwargs):
-    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    kwargs = dict(kwargs)
+    devices = kwargs.pop("devices", 1)
+    monkeypatch.setattr(jax, "device_count", lambda: devices)
+    monkeypatch.setattr(tmonitors, "_device_count", lambda: devices)
+    probes = []
+    if "probed_peak" in kwargs:
+        peak = kwargs.pop("probed_peak")
+        for mod in (jflops, tflops):
+            monkeypatch.setattr(mod, "device_peak_flops",
+                                lambda mod=mod: probes.append(mod) or peak)
     rng = np.random.default_rng(0)
     params = {"a": rng.standard_normal((3, 4)).astype(np.float32),
               "b": rng.standard_normal(5).astype(np.float32)}
@@ -459,6 +478,36 @@ def test_monitors_log_what_jax_logs(monkeypatch, name, kwargs):
         assert sorted(g) == sorted(w)
         for k in w:
             assert g[k] == pytest.approx(w[k], rel=1e-6), k
+    if "flops_per_batch" in kwargs and "peak_tflops_per_device" not in kwargs:
+        assert probes == [jflops, tflops]            # once a side
+    if devices > 1:
+        _, last = logs["torch"][-1]
+        assert last["throughput/device/samples_per_sec"] == pytest.approx(
+            last["throughput/samples_per_sec"] / devices)
+
+
+@pytest.mark.parametrize("card,peak", [("NVIDIA H100 80GB HBM3", 989e12),
+                                       ("NVIDIA A100-SXM4-80GB", None)])
+def test_speed_monitor_reads_the_cards_peak(monkeypatch, card, peak):
+    """Without `peak_tflops_per_device`, the MFU divides by the card's
+    peak from `utils/flops.py`'s table, over the process group's size; an
+    unknown card logs no MFU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: card)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    assert tmonitors._device_count() == 2
+    cb, rec = tmonitors.SpeedMonitor(window_size=3,
+                                     flops_per_batch=2e12), _Record()
+    for b in range(1, 5):
+        cb.batch_end(_State({}, {}, 0.5, b, 4 * b), rec)
+    _, last = rec.calls[-1]
+    assert last["throughput/flops_per_sec"] == pytest.approx(4e12)
+    if peak is None:
+        assert "throughput/device/mfu" not in last
+    else:
+        assert last["throughput/device/mfu"] == pytest.approx(
+            4e12 / 2 / peak)
 
 
 def test_mean_squared_error_matches_jax():

@@ -403,6 +403,27 @@ def test_flash_bwd_dq_kernel_with_strongly_negative_lse(cuda, b, sq, skv, h):
     assert torch.equal(dq, again) and torch.equal(delta, again_delta)
 
 
+def test_flash_bwd_op_launches_one_dq_and_one_dkv(cuda):
+    """The backward's dispatcher op (what autograd and a FLOP count see)
+    on CUDA tensors: one dQ and one dK/dV launch, the wrapper's results,
+    the same from a strided cotangent."""
+    q, k, v, out, lse, do = _flash_bwd_case(2, 1024, 1024, 5, cuda)
+    before = (fa.launches_bwd_dq.value, fa.launches_bwd_dkv.value)
+    got = fa.flash_attention_bwd_op(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq.value, fa.launches_bwd_dkv.value) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    wide = torch.zeros((*do.shape[:3], 128), device=cuda,
+                       dtype=do.dtype)
+    wide[..., 32:96] = do
+    strided = fa.flash_attention_bwd_op(q, k, v, out, lse, wide[..., 32:96])
+    for a, w in zip(strided, want):
+        assert torch.equal(a, w)
+
+
 def test_flash_bwd_kernel_reads_strided_views(cuda):
     qkv = _randn((2, 256, 4, 192), 3, torch.bfloat16, cuda)
     q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
