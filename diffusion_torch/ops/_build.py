@@ -11,7 +11,10 @@ another directory, which several processes or hosts may share
 
 Every wrapper that launches a kernel counts its launches in a
 `LaunchCounter`, so a run can show that its main path went through the
-kernels (chip_smoke.py reads the counts around a serving run).
+kernels (chip_smoke.py reads the counts around a serving run), and sums
+there its host time from its entry to the launch's return
+(`LaunchCounter.launched`); `utils/profiler.py` records how far the sum
+over all counters grows in each training step.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
 import threading
+import time
 
 __all__ = ["LaunchCounter", "library", "library_path", "build_log",
            "set_build_dir", "BUILD_DIR"]
@@ -51,16 +56,44 @@ _SIGNATURES = {
 }
 
 
+_HOST_NS = operator.attrgetter("_host_ns")
+
+
 class LaunchCounter:
-    """A thread-safe count of one kernel's launches."""
+    """A thread-safe count of one kernel's launches, and the host
+    nanoseconds its wrapper took for those counted through `launched`
+    (`reset` leaves them: they only grow)."""
+
+    _all: "list[LaunchCounter]" = []     # every counter made, kept
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._n = 0
+        self._host_ns = 0
+        LaunchCounter._all.append(self)
 
     def add(self) -> None:
         with self._lock:
             self._n += 1
+
+    def launched(self, start_ns: int) -> None:
+        """Count one launch whose wrapper was entered at `start_ns`
+        (`time.perf_counter_ns()`), and add the host time since."""
+        ns = time.perf_counter_ns() - start_ns
+        with self._lock:
+            self._n += 1
+            self._host_ns += ns
+
+    @property
+    def host_ns(self) -> int:
+        with self._lock:
+            return self._host_ns
+
+    @classmethod
+    def total_host_ns(cls) -> int:
+        """The host time of every counter in the process, summed (each
+        read of an int is atomic: no lock)."""
+        return sum(map(_HOST_NS, cls._all))
 
     def reset(self) -> None:
         with self._lock:

@@ -23,6 +23,7 @@ mirror JAX's `_xla_attention_with_lse` and `_xla_attention_bwd_with_lse`.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -120,6 +121,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on (B, S, H, 64) bf16 views with unit last
     stride."""
+    t0 = time.perf_counter_ns()
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
@@ -133,15 +135,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"CUDA error {rc}")
-    launches.add()
+    launches.launched(t0)
     return out, lse
 
 
-def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do
+def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
+                                start_ns: Optional[int] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dQ kernel alone on inputs `flash_attention_bwd_cuda` has
     checked: returns (dq, delta), delta = rowsum(dO * O) (B, H, Sq) fp32,
-    which the dK/dV kernel reads."""
+    which the dK/dV kernel reads. Its host time counts from `start_ns`
+    (the checking caller's entry), else from here."""
+    t0 = time.perf_counter_ns() if start_ns is None else start_ns
     b, sq, h, d = q.shape
     delta = torch.empty_like(lse)
     dq = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
@@ -154,7 +159,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do
     if rc != 0:
         raise RuntimeError(f"flash attention dQ kernel launch failed: "
                            f"CUDA error {rc}")
-    launches_bwd_dq.add()
+    launches_bwd_dq.launched(t0)
     return dq, delta
 
 
@@ -162,6 +167,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel alone on checked inputs and the dQ launch's
     delta: returns (dk, dv)."""
+    t0 = time.perf_counter_ns()
     b, sq, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(dk)
@@ -174,7 +180,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta
     if rc != 0:
         raise RuntimeError(f"flash attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
-    launches_bwd_dkv.add()
+    launches_bwd_dkv.launched(t0)
     return dk, dv
 
 
@@ -187,6 +193,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     the dK/dV kernel. q/k/v/out/do: (B, S, H, 64) bf16 views with unit last
     stride; lse: the forward's contiguous (B, H, Sq) fp32. Returns
     contiguous dq, dk, dv."""
+    t0 = time.perf_counter_ns()
     _check_qkv(q, k, v)
     _check_views(q, out=out, do=do)
     b, sq, h, _ = q.shape
@@ -197,7 +204,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             or lse.shape != (b, h, sq) or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous fp32 ({b}, {h}, {sq}) "
                          f"tensor on {q.device}")
-    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, t0)
     return (dq, *flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta))
 
 

@@ -25,6 +25,7 @@ import dataclasses
 import functools
 import math
 import threading
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -296,6 +297,7 @@ def group_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     act: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the kernel: returns (y, mean, rstd); mean/rstd are (B, G)."""
+    t0 = time.perf_counter_ns()
     _check(x, num_groups, act)
     if not x.is_cuda:
         raise ValueError("group_norm_cuda needs a CUDA tensor")
@@ -328,7 +330,7 @@ def group_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             int(x.dtype == torch.bfloat16), pl.vec, stream)
     if rc != 0:
         raise RuntimeError(f"group_norm kernel launch failed: CUDA error {rc}")
-    launches.add()
+    launches.launched(t0)
     return y, stats[0], stats[1]
 
 
@@ -340,6 +342,7 @@ def group_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
     """Launch the backward kernel: returns (dx, dscale, dbias); x and g
     are contiguous slabs of one shape and dtype, mean/rstd the forward's
     (B, G)."""
+    t0 = time.perf_counter_ns()
     _check(x, num_groups, act)
     if not x.is_cuda:
         raise ValueError("group_norm_bwd_cuda needs a CUDA tensor")
@@ -380,7 +383,7 @@ def group_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"group_norm backward kernel launch failed: "
                            f"CUDA error {rc}")
-    launches_bwd.add()
+    launches_bwd.launched(t0)
     return dx, dparams[0], dparams[1]
 
 
@@ -420,6 +423,7 @@ def group_norm_partials_cuda(x: torch.Tensor, num_groups: int = 32
                              ) -> torch.Tensor:
     """Stage 1 of the forward on a CUDA slab: (B, parts, G, 2) fp32, each
     row chunk's per-group (mean, M2)."""
+    t0 = time.perf_counter_ns()
     _check_slab(x, num_groups, None, "group_norm stage 1")
     b, c = x.shape[0], x.shape[-1]
     pl = _stage_plan(x, num_groups, False)
@@ -435,7 +439,7 @@ def group_norm_partials_cuda(x: torch.Tensor, num_groups: int = 32
     if rc != 0:
         raise RuntimeError(f"group_norm stage 1 launch failed: CUDA error "
                            f"{rc}")
-    launches.add()
+    launches.launched(t0)
     return part
 
 
@@ -447,6 +451,7 @@ def group_norm_apply_cuda(x: torch.Tensor, scale: torch.Tensor,
                                      torch.Tensor]:
     """Stage 2 of the forward: `partials` (n, B, parts, G, 2), every rank's
     stage 1 in rank order, merged; returns (y, mean, rstd)."""
+    t0 = time.perf_counter_ns()
     _check_slab(x, num_groups, act, "group_norm stage 2")
     b, c = x.shape[0], x.shape[-1]
     _check_params(x, c, scale=scale, bias=bias)
@@ -472,7 +477,7 @@ def group_norm_apply_cuda(x: torch.Tensor, scale: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"group_norm stage 2 launch failed: CUDA error "
                            f"{rc}")
-    launches.add()
+    launches.launched(t0)
     return y, mean, rstd
 
 
@@ -482,6 +487,7 @@ def group_norm_bwd_partials_cuda(x, scale, bias, mean, rstd, g,
     """Stage 1 of the backward: (cpart (B, parts, C, 2) per-channel (sum dz,
     sum dz x-hat), gpart (B, parts, G, 2) per-group (sum scale dz, sum
     scale dz x-hat)) over this slab's row chunks."""
+    t0 = time.perf_counter_ns()
     _check_slab(x, num_groups, act, "group_norm backward stage 1")
     b, c = x.shape[0], x.shape[-1]
     _check_params(x, c, scale=scale, bias=bias)
@@ -504,7 +510,7 @@ def group_norm_bwd_partials_cuda(x, scale, bias, mean, rstd, g,
     if rc != 0:
         raise RuntimeError(f"group_norm backward stage 1 launch failed: "
                            f"CUDA error {rc}")
-    launches_bwd.add()
+    launches_bwd.launched(t0)
     return cpart, gpart
 
 
@@ -514,6 +520,7 @@ def group_norm_bwd_apply_cuda(x, scale, bias, mean, rstd, g, cpart,
     """Stage 2 of the backward: `gpartials` (n, B, parts, G, 2), every
     rank's per-group sums in rank order; returns (dx, dscale, dbias), the
     last two over this slab's rows."""
+    t0 = time.perf_counter_ns()
     _check_slab(x, num_groups, act, "group_norm backward stage 2")
     b, c = x.shape[0], x.shape[-1]
     pl = _stage_plan(x, num_groups, True, g)
@@ -539,7 +546,7 @@ def group_norm_bwd_apply_cuda(x, scale, bias, mean, rstd, g, cpart,
     if rc != 0:
         raise RuntimeError(f"group_norm backward stage 2 launch failed: "
                            f"CUDA error {rc}")
-    launches_bwd.add()
+    launches_bwd.launched(t0)
     return dx, dparams[0], dparams[1]
 
 

@@ -26,6 +26,13 @@ training batch is one step:
   and, when skipping is on, `trainer/nonfinite_skipped`; `lr` is logged
   from the schedule at the trainer step, as JAX logs it.
 
+Each batch is a `step` span of `utils/profiler.py`, keyed by the step
+index, from BEFORE_DATALOADER to the end of its loop body (events, logging,
+eval and checkpoints included). Inside it: `data` (the loader's next batch
+on the device); per microbatch `forward` (its draws and `loss_fn`) and
+`backward`; `update` (the gradients' average, the global norm, the
+non-finite test, the optimizer, and `ema` inside it).
+
 Eval runs after batch `b` when `b % eval_interval == 0` and `b` is not the
 last, and on `eval()`. Each evaluator's loader restarts at epoch 0 and is
 cut at `eval_subset_num_batches`; under EVAL_START/EVAL_END (the EMA swaps
@@ -161,7 +168,7 @@ from diffusion_torch.train.state import State, TrainState
 from diffusion_torch.utils.device import Device, resolve_device
 from diffusion_torch.utils.logging import (ConsoleLogger, Logger,
                                            LoggerCollection)
-from diffusion_torch.utils.profiler import TorchProfiler
+from diffusion_torch.utils.profiler import TorchProfiler, span
 from diffusion_torch.utils.time import Time, Timestamp, time_to_batches
 
 __all__ = ["Trainer", "Evaluator", "grad_accum_steps"]
@@ -445,48 +452,55 @@ class Trainer:
         self.model.unet.train()
         with self._sequence_parallel(), self._tensor_parallel():
             for i in range(n_accum):
-                mb = {k: v[i * micro:(i + 1) * micro]
-                      for k, v in batch.items()}
-                draws = ()
-                if self.noise_hook is not None:
-                    draws = tuple(d[rows] for d in self.noise_hook(
-                        ts.step, i, n_accum, mb))
-                kwargs = {"dropout_key": (self.seed, ts.step, i,
-                                          self._batch_rank)}
-                if self._sharded:
-                    kwargs["examples"] = (rows.start, global_batch // n_accum)
-                micro_loss = self.model.loss_fn(mb, gen, *draws, **kwargs)
-                micro_loss.backward()
+                with span("forward", micro=i):
+                    mb = {k: v[i * micro:(i + 1) * micro]
+                          for k, v in batch.items()}
+                    draws = ()
+                    if self.noise_hook is not None:
+                        draws = tuple(d[rows] for d in self.noise_hook(
+                            ts.step, i, n_accum, mb))
+                    kwargs = {"dropout_key": (self.seed, ts.step, i,
+                                              self._batch_rank)}
+                    if self._sharded:
+                        kwargs["examples"] = (rows.start,
+                                              global_batch // n_accum)
+                    micro_loss = self.model.loss_fn(mb, gen, *draws,
+                                                    **kwargs)
+                with span("backward", micro=i):
+                    micro_loss.backward()
                 loss += micro_loss.detach()
-        grads = [p.grad.to_local() if self._fsdp else p.grad for p in params]
-        if self._sharded:
-            torch.distributed.all_reduce(loss)
-            loss /= self.mesh.size()
-        if n_accum > 1:
-            torch._foreach_div_(grads, float(n_accum))
-            loss /= n_accum
-        if self._tp_shard is None:
-            gnorm = global_norm(grads, self._fsdp_group)
-        else:
-            gnorm = global_norm(grads, self._fsdp_group,
-                                [n in self._tp_dims for n in ts.params],
-                                process_group(self._tp_shard.group))
-        metrics = {"loss/train/total": loss, "grad/global_norm": gnorm}
-        ok = True
-        if self.skip_nonfinite_updates:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
-            metrics["trainer/nonfinite_skipped"] = torch.tensor(
-                0.0 if ok else 1.0)
-        if ok:
-            ts.optimizer.step(grad_norm=gnorm, grads=grads)
-        if ts.ema_params is not None:
-            eff = ema_smoothing_for_step(
-                ts.step, self.ema_algorithm.smoothing(),
-                self.state.ema_start_batch,
-                int(self.ema_algorithm.update_interval.value))
-            apply_ema(ts.ema_params, ts.params, eff if ok else 1.0)
-        for p in params:
-            p.grad = None
+        with span("update"):
+            grads = [p.grad.to_local() if self._fsdp else p.grad
+                     for p in params]
+            if self._sharded:
+                torch.distributed.all_reduce(loss)
+                loss /= self.mesh.size()
+            if n_accum > 1:
+                torch._foreach_div_(grads, float(n_accum))
+                loss /= n_accum
+            if self._tp_shard is None:
+                gnorm = global_norm(grads, self._fsdp_group)
+            else:
+                gnorm = global_norm(grads, self._fsdp_group,
+                                    [n in self._tp_dims for n in ts.params],
+                                    process_group(self._tp_shard.group))
+            metrics = {"loss/train/total": loss, "grad/global_norm": gnorm}
+            ok = True
+            if self.skip_nonfinite_updates:
+                ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+                metrics["trainer/nonfinite_skipped"] = torch.tensor(
+                    0.0 if ok else 1.0)
+            if ok:
+                ts.optimizer.step(grad_norm=gnorm, grads=grads)
+            if ts.ema_params is not None:
+                with span("ema"):
+                    eff = ema_smoothing_for_step(
+                        ts.step, self.ema_algorithm.smoothing(),
+                        self.state.ema_start_batch,
+                        int(self.ema_algorithm.update_interval.value))
+                    apply_ema(ts.ema_params, ts.params, eff if ok else 1.0)
+            for p in params:
+                p.grad = None
         ts.step += 1
         return metrics
 
@@ -548,52 +562,54 @@ class Trainer:
             epoch_had_batches = False
             batches = self._device_batches()
             while state.timestamp.batch < self.max_batches:
-                self.engine.run(Event.BEFORE_DATALOADER, state, logger)
-                try:
-                    batch, samples = next(batches)
-                except StopIteration:
-                    break
-                epoch_had_batches = True
-                state.batch = batch
-                self.engine.run(Event.AFTER_DATALOADER, state, logger)
-                self.engine.run(Event.BATCH_START, state, logger)
+                with span("step", step=self.train_state.step):
+                    self.engine.run(Event.BEFORE_DATALOADER, state, logger)
+                    try:
+                        with span("data"):
+                            batch, samples = next(batches)
+                    except StopIteration:
+                        break
+                    epoch_had_batches = True
+                    state.batch = batch
+                    self.engine.run(Event.AFTER_DATALOADER, state, logger)
+                    self.engine.run(Event.BATCH_START, state, logger)
 
-                step_idx = state.timestamp.batch
-                self.engine.run(Event.BEFORE_TRAIN_BATCH, state, logger)
-                metrics = self._train_step(batch, samples)
-                state.train_state = self.train_state
-                state.loss = metrics["loss/train/total"]
-                state.metrics = metrics
-                state.outputs = None
-                self.engine.run(Event.AFTER_TRAIN_BATCH, state, logger)
+                    step_idx = state.timestamp.batch
+                    self.engine.run(Event.BEFORE_TRAIN_BATCH, state, logger)
+                    metrics = self._train_step(batch, samples)
+                    state.train_state = self.train_state
+                    state.loss = metrics["loss/train/total"]
+                    state.metrics = metrics
+                    state.outputs = None
+                    self.engine.run(Event.AFTER_TRAIN_BATCH, state, logger)
 
-                state.timestamp.to_next_batch(
-                    samples=samples * self._batch_world)
-                now = _time.monotonic()
-                # the first delta absorbs the warm-up: report 0
-                state.batch_wct = 0.0 if first_timed_batch else (
-                    now - last_batch_end)
-                first_timed_batch = False
-                last_batch_end = now
-                state.total_wct = now - fit_start
-                state.lr = float(self._base_lr) * float(
-                    self._schedule(step_idx))
-                self.engine.run(Event.BATCH_END, state, logger)
+                    state.timestamp.to_next_batch(
+                        samples=samples * self._batch_world)
+                    now = _time.monotonic()
+                    # the first delta absorbs the warm-up: report 0
+                    state.batch_wct = 0.0 if first_timed_batch else (
+                        now - last_batch_end)
+                    first_timed_batch = False
+                    last_batch_end = now
+                    state.total_wct = now - fit_start
+                    state.lr = float(self._base_lr) * float(
+                        self._schedule(step_idx))
+                    self.engine.run(Event.BATCH_END, state, logger)
 
-                b = state.timestamp.batch
-                if b % 100 == 0 or b <= 1:
-                    logger.log_metrics(
-                        {k: float(v) for k, v in metrics.items()}
-                        | {"lr": state.lr, "time/batch": b}, step=b)
-                if self.eval_interval and b % self.eval_interval == 0 \
-                        and b < self.max_batches and self.evaluators:
-                    self.eval()
-                if self.save_folder and self.save_interval \
-                        and b % self.save_interval == 0:
-                    self.save_checkpoint()
-                self.engine.run(Event.BATCH_CHECKPOINT, state, logger)
-                if self._stop_for_preemption(b):
-                    break
+                    b = state.timestamp.batch
+                    if b % 100 == 0 or b <= 1:
+                        logger.log_metrics(
+                            {k: float(v) for k, v in metrics.items()}
+                            | {"lr": state.lr, "time/batch": b}, step=b)
+                    if self.eval_interval and b % self.eval_interval == 0 \
+                            and b < self.max_batches and self.evaluators:
+                        self.eval()
+                    if self.save_folder and self.save_interval \
+                            and b % self.save_interval == 0:
+                        self.save_checkpoint()
+                    self.engine.run(Event.BATCH_CHECKPOINT, state, logger)
+                    if self._stop_for_preemption(b):
+                        break
             if not epoch_had_batches:
                 raise RuntimeError("train_dataloader yielded no batches")
             if self._stop_for_preemption(state.timestamp.batch):

@@ -1,0 +1,19 @@
+"""Host ms a training step in the Trainer's `backward` spans (both
+microbatches' `backward()`), from the program's span recorder, over the
+untraced window's steps but its last."""
+
+
+def read(run):
+    try:
+        from diffusion_torch.utils.profiler import recorder
+    except ImportError:      # a program that records no spans
+        return None
+    first = run.traffic["checked_steps"]
+    # the window's steps but its last, whose end holds the closing
+    # synchronize
+    stop = first + run.window.get("steps", 0) - 1
+    records = recorder.steps(first, stop) if stop > first else []
+    if not records:
+        return None
+    ns = sum(r.total_ns("backward") for r in records)
+    return ns / 1e6 / len({r.step for r in records})
