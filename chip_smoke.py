@@ -68,9 +68,12 @@ Phases, each raising on failure (exit code 1):
      warmup, global batch 32 in two microbatches of 16) with the 512
      recipe's EMA (0.9999, from batch 0): finite losses and grad norms,
      changed params and EMA, all five kernels' launch counters above zero
-     for the fit; step time, samples/s, peak memory, launches per step;
-     then two more steps under torch.profiler for the device's busy time,
-     idle share and time by kernel category;
+     for the fit; step 0 eager (the warm-up), step 1 capturing the step's
+     CUDA graph, steps 2-5 replaying it (`utils.profiler.step_graph`);
+     the replayed steps' time, samples/s, peak memory, launches per step
+     (every step's, a replay's being its captured nodes); then a new
+     3-step fit whose replayed third step runs under torch.profiler for
+     the device's busy time, idle share and time by kernel category;
   8. composed run: the unedited yamls/SD-2-base-256.yaml composed through
      diffusion_torch's config loader with dotted overrides only (global
      batch 32, the LAION reader over precomputed-latent MDS shards that the
@@ -1273,8 +1276,8 @@ def _grad_reference_phase(model, card: str) -> None:
 
 def _train_phase(model, card: str):
     """`Trainer.fit()` over the SD-2-base-256 recipe; returns the five
-    kernels' launch counts during the fit and the step time (s) after the
-    first step."""
+    kernels' launch counts during the fit and the replayed steps' time
+    (s): step 0 runs eagerly, step 1 captures the step's CUDA graph."""
     import torch
 
     from diffusion_torch.algorithms.ema import EMA
@@ -1282,6 +1285,7 @@ def _train_phase(model, card: str):
     from diffusion_torch.train.events import Callback
     from diffusion_torch.train.optim import adamw, multi_step_with_warmup
     from diffusion_torch.train.trainer import Trainer
+    from diffusion_torch.utils.profiler import step_graph
 
     class Record(Callback):
         """Syncs on each step's metrics; keeps them and the host time."""
@@ -1317,9 +1321,16 @@ def _train_phase(model, card: str):
     for c in (*counters.values(), gn.contiguity_copies):
         c.reset()
     torch.cuda.reset_peak_memory_stats()
+    graph0 = (step_graph.captures, step_graph.replays,
+              sum(step_graph.eager.values()))
     t0 = time.perf_counter()
     trainer.fit()
     torch.cuda.synchronize()
+    graph = (step_graph.captures - graph0[0], step_graph.replays - graph0[1],
+             sum(step_graph.eager.values()) - graph0[2])
+    _check(graph == (1, TRAIN_STEPS - 1, 1),
+           f"the step's CUDA graph: (captures, replays, eager steps) "
+           f"{graph}, not (1, {TRAIN_STEPS - 1}, 1)")
     launches = {name: c.value for name, c in counters.items()}
     copies = gn.contiguity_copies.value
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1347,21 +1358,25 @@ def _train_phase(model, card: str):
            "params or EMA did not change")
     times = [b - a for (_, a, _), (_, b, _) in zip(record.steps,
                                                    record.steps[1:])]
-    step_s = sum(times) / len(times)
+    # times[0] is step 1's, the capture's
+    step_s = sum(times[1:]) / len(times[1:])
     print(f"train: SD-2-base {TRAIN_SIZE}px, global batch {TRAIN_BATCH} "
           f"({TRAIN_BATCH // TRAIN_MICRO} microbatches of {TRAIN_MICRO}), "
-          f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s: step "
-          f"time after the first {step_s * 1e3:.1f} ms (steps: "
+          f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s (step 0 "
+          f"eager, 1 capturing the CUDA graph, 2-{TRAIN_STEPS - 1} "
+          f"replaying it): replayed step time {step_s * 1e3:.1f} ms (steps "
+          f"1-{TRAIN_STEPS - 1}: "
           f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms), "
           f"{TRAIN_BATCH / step_s:.2f} samples/s, peak device memory "
           f"{peak:.2f} GiB [{card}]")
-    print(f"train: kernel launches during the fit {json.dumps(launches)}; "
-          f"per step " + json.dumps(
+    print(f"train: kernel launches during the fit {json.dumps(launches)} "
+          f"(a replay counts the nodes it launched); per step " + json.dumps(
               {k: v / TRAIN_STEPS for k, v in launches.items()})
           + f"; GroupNorm cotangents copied to contiguous: {copies} "
           f"({copies / TRAIN_STEPS:.1f} per step)")
     for name, n in launches.items():
         _check(n > 0, f"{name} kernel was not launched during the fit")
+    trainer.close()     # frees the step's CUDA graph's memory pool
     del trainer
     _profile_phase(model, batches, card)
     return launches, step_s
@@ -1500,6 +1515,7 @@ def _composed_phase(card: str, train_step_s: float):
     from diffusion_torch.config import load_config
     from diffusion_torch.data import native
     from diffusion_torch.train.train import train
+    from diffusion_torch.utils.profiler import step_graph
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_laion_") as tmp:
         metrics_file = os.path.join(tmp, "metrics.jsonl")
@@ -1515,9 +1531,12 @@ def _composed_phase(card: str, train_step_s: float):
         for c in counters.values():
             c.reset()
         torch.cuda.reset_peak_memory_stats()
+        graph0 = (step_graph.captures, step_graph.replays)
         t0 = time.perf_counter()
         trainer = train(config)
         torch.cuda.synchronize()
+        graph = (step_graph.captures - graph0[0],
+                 step_graph.replays - graph0[1])
         wall = time.perf_counter() - t0
         launches = {name: c.value for name, c in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1550,8 +1569,10 @@ def _composed_phase(card: str, train_step_s: float):
                for v in m.values()),
            "a loss or grad norm of the composed run is not finite")
     times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
-    # the batch after the eval carries the eval: leave it out
-    train_times = [t for i, t in enumerate(times) if i + 1 != COMPOSED_EVAL_AT]
+    # the batch after the eval carries the eval, step 1 the CUDA graph's
+    # capture (where it engaged): leave them out
+    train_times = [t for i, t in enumerate(times) if i + 1 != COMPOSED_EVAL_AT
+                   and not (i == 0 and graph[0])]
     step_s = sum(train_times) / len(train_times)
     waits = record.waits[1:]
     wait_s = sum(waits) / len(waits)
@@ -1562,7 +1583,9 @@ def _composed_phase(card: str, train_step_s: float):
           f"{TRAIN_BATCH}: run {wall:.2f} s (composition and the model's "
           f"build included); step time after the first {step_s * 1e3:.1f} ms"
           f" (steps: {', '.join(f'{x * 1e3:.1f}' for x in times)} ms, the "
-          f"one after the eval left out), {TRAIN_BATCH / step_s:.2f} "
+          f"one after the eval and the capture left out; the step's CUDA "
+          f"graph: {graph[0]} capture(s), {graph[1]} replays), "
+          f"{TRAIN_BATCH / step_s:.2f} "
           f"samples/s, against {train_step_s * 1e3:.1f} ms and "
           f"{TRAIN_BATCH / train_step_s:.2f} samples/s from memory (phase "
           f"7); dataloader wait {wait_s * 1e3:.1f} ms a step after the first "
@@ -3424,6 +3447,7 @@ def _recipe_phase(card: str) -> dict:
     import torch
 
     from diffusion_torch.ops import attention as attn_mod
+    from diffusion_torch.utils.profiler import step_graph
 
     t_phase = time.perf_counter()
     build = os.path.join(_ROOT, "build")
@@ -3492,6 +3516,7 @@ def _recipe_phase(card: str) -> dict:
         torch.cuda.empty_cache()
 
         # phase 2 at 512px, warm-started from phase 1's checkpoint
+        captures = step_graph.captures
         attn_mod.flash_attention = flash_spy
         try:
             trainer, record, launches2, peak2, wall2, records, loads = \
@@ -3527,8 +3552,12 @@ def _recipe_phase(card: str) -> dict:
                f"phase 2 steps {len(record.steps)}, the EMA tracking the "
                f"weights before ema_start: {record.ema_tracks}")
         times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+        # the batch after the eval carries the eval, step 1 the CUDA
+        # graph's capture (where it engaged): leave them out
+        captured = step_graph.captures > captures
         train_times = [t for i, t in enumerate(times)
-                       if i + 1 != RECIPE_P2_EVAL_AT]
+                       if i + 1 != RECIPE_P2_EVAL_AT
+                       and not (i == 0 and captured)]
         step_s = sum(train_times) / len(train_times)
         wait_s = sum(record.waits[1:]) / len(record.waits[1:])
         evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
@@ -3544,7 +3573,8 @@ def _recipe_phase(card: str) -> dict:
               f"run {wall2:.2f} s (build and load included); step time "
               f"after the first {step_s * 1e3:.1f} ms (steps: "
               f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms, the one "
-              f"after the eval left out), {RECIPE_P2_BATCH / step_s:.2f} "
+              f"after the eval{' and the capture' if captured else ''} "
+              f"left out), {RECIPE_P2_BATCH / step_s:.2f} "
               f"samples/s; dataloader wait {wait_s * 1e3:.1f} ms a step "
               f"after the first; peak device memory {peak2:.2f} GiB; eval "
               f"after batch {RECIPE_P2_EVAL_AT} on COCO at 512px "
@@ -4417,12 +4447,14 @@ def _tp_overrides(shards: str, tp: int, steps: int = TP_STEPS) -> list:
 def _tp_run(shards: str, tp: int, steps: int = TP_STEPS) -> dict:
     """One run of the tp yaml through `diffusion_torch.run.main` for
     `steps` batches, the counters at 0 right before it: what its TpRecord
-    holds, its launches and the flash calls a microbatch by query
-    shape."""
+    holds, its launches and the flash calls a microbatch by query shape
+    (over the steps that call the wrapper: tp 1 replays the step's CUDA
+    graph from its third step on)."""
     import torch
 
     from diffusion_torch import run
     from diffusion_torch.ops import flash_attention as fa
+    from diffusion_torch.utils.profiler import step_graph
 
     shapes = []
     real = fa.flash_attention_cuda
@@ -4434,6 +4466,7 @@ def _tp_run(shards: str, tp: int, steps: int = TP_STEPS) -> dict:
     for c in _counters().values():
         c.reset()
     TpRecord.runs.clear()
+    graph0 = (step_graph.replays, step_graph.captures)
     fa.flash_attention_cuda = spy
     try:
         t0 = time.perf_counter()
@@ -4444,6 +4477,10 @@ def _tp_run(shards: str, tp: int, steps: int = TP_STEPS) -> dict:
         wall = time.perf_counter() - t0
     finally:
         fa.flash_attention_cuda = real
+    # a replay launches from the graph, not through the wrapper; the
+    # capturing step calls it once, and replays too
+    called = (steps - (step_graph.replays - graph0[0])
+              + (step_graph.captures - graph0[1]))
     record = TpRecord.runs[-1]
     _check(len(record.steps) == steps,
            f"tp {tp}: {len(record.steps)} steps, {steps} expected")
@@ -4454,7 +4491,7 @@ def _tp_run(shards: str, tp: int, steps: int = TP_STEPS) -> dict:
             "peak": max(record.peaks), "held": record.held,
             "n_params": record.n_params, "grads": record.grads,
             "micro": record.micro, "checksums": record.checksums,
-            "flash": {str(s): shapes.count(s) / (steps * 2)
+            "flash": {str(s): shapes.count(s) / (called * 2)
                       for s in sorted(set(shapes))}}
 
 
@@ -5476,8 +5513,9 @@ def _device_profile(events, window: str, what: str, card: str) -> None:
 
 
 def _profile_phase(model, batches, card: str) -> None:
-    """Two more steps of the recipe under torch.profiler (CUDA activity);
-    the device profile of the second step."""
+    """Three more steps of the recipe, the third under torch.profiler (CUDA
+    activity): step 0 runs eagerly, step 1 captures the step's CUDA graph
+    (the profiler off), step 2 replays it. The device profile of step 2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5486,37 +5524,51 @@ def _profile_phase(model, batches, card: str) -> None:
     from diffusion_torch.train.optim import adamw, multi_step_with_warmup
     from diffusion_torch.train.trainer import Trainer
 
+    from diffusion_torch.utils.profiler import step_graph
+
     class Mark(Callback):
-        """Brackets each step, synchronized, in a named profiler range."""
+        """Runs step 2 under the profiler, synchronized on both sides, in
+        a named profiler range."""
 
         def __init__(self):
-            self.step, self.range = 0, None
+            self.step, self.range, self.replays = 0, None, None
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
 
         def batch_start(self, state, logger):
-            torch.cuda.synchronize()
-            self.range = torch.profiler.record_function(
-                f"chip_smoke_step_{self.step}")
-            self.range.__enter__()
+            if self.step == 2:
+                torch.cuda.synchronize()
+                self.replays = step_graph.replays
+                self.prof.start()
+                self.range = torch.profiler.record_function(
+                    "chip_smoke_step_2")
+                self.range.__enter__()
 
         def batch_end(self, state, logger):
-            torch.cuda.synchronize()
-            self.range.__exit__(None, None, None)
+            if self.step == 2:
+                torch.cuda.synchronize()
+                self.range.__exit__(None, None, None)
+                self.prof.stop()
+                self.replays = step_graph.replays - self.replays
             self.step += 1
 
+    mark = Mark()
     trainer = Trainer(
-        model=model, train_dataloader=batches[:2],
+        model=model, train_dataloader=batches[:3],
         optimizers=adamw(lr=1e-4, weight_decay=0.01),
         schedulers=multi_step_with_warmup(t_warmup="10000ba",
                                           milestones=["200ep"]),
         algorithms=[EMA(smoothing=0.9999, ema_start="0ba")],
-        callbacks=[Mark()], max_duration="2ba",
+        callbacks=[mark], max_duration="3ba",
         device_train_microbatch_size=TRAIN_MICRO, seed=18, device=DEVICE)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.fit()
-        torch.cuda.synchronize()
-    _device_profile(prof.events(), "chip_smoke_step_1",
-                    "training step (second of two, profiler on)", card)
+    trainer.fit()
+    torch.cuda.synchronize()
+    trainer.close()
+    _check(mark.replays == 1, "the profiled step did not replay the step's "
+           "CUDA graph")
+    _device_profile(mark.prof.events(), "chip_smoke_step_2",
+                    "training step (third of three, replayed from the "
+                    "step's CUDA graph, profiler on)", card)
 
 
 def _profile_serving_step(unet, lat, t, ctx, card: str) -> None:

@@ -63,6 +63,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -728,16 +731,53 @@ __global__ void __launch_bounds__(512)
   if (clustered) cluster_wait();
 }
 
+// The attributes set so far on each kernel, per device. A CUDA graph checks
+// its launches against their function's attributes where it is
+// instantiated, not where each launch was captured: the attributes only
+// grow, so every launch captured before stays valid. They are set only
+// where a launch needs more: no other runtime call is made per launch.
+struct FuncAttrs {
+  int device;
+  const void* fn;
+  int smem;
+  bool wide;  // clusters above the portable 8 blocks allowed
+};
+std::mutex g_attrs_mu;
+std::vector<FuncAttrs> g_attrs;
+
+cudaError_t grow_attributes(const void* fn, int smem, int cluster) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(g_attrs_mu);
+  FuncAttrs* a = nullptr;
+  for (FuncAttrs& e : g_attrs)
+    if (e.device == device && e.fn == fn) a = &e;
+  if (a == nullptr) {
+    g_attrs.push_back({device, fn, 0, false});
+    a = &g_attrs.back();
+  }
+  if (smem > a->smem) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    a->smem = smem;
+  }
+  if (cluster > 8 && !a->wide) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    a->wide = true;
+  }
+  return cudaSuccess;
+}
+
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, const Plan& p, int threads, int smem, int cluster,
            cudaStream_t st, Args... args) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // clusters above the portable 8 blocks
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, cluster > 8);
+  cudaError_t err = grow_attributes(reinterpret_cast<const void*>(kernel),
+                                    smem, cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.parts, p.C / p.width, p.B);

@@ -24,7 +24,7 @@ latents are NCHW views of the same memory (channels_last).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +39,15 @@ __all__ = ["StableDiffusion"]
 # VAE and CLIP latents
 _IMAGE, _IDS = "image", "captions"
 _LATENTS, _CAPTIONS = "image_latents", "caption_latents"
+
+
+def _draw(shape, fn, examples: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """`fn(shape)`; with `examples=(offset, total)`, rows offset.. of
+    `fn` over the whole `total`-example batch."""
+    if examples is None:
+        return fn(tuple(shape))
+    offset, total = examples
+    return fn((total, *shape[1:]))[offset:offset + shape[0]]
 
 
 @dataclasses.dataclass
@@ -145,36 +154,22 @@ class StableDiffusion:
         drawn after the noise. Under sequence parallelism the
         prediction and target are this rank's rows."""
         device = self.device
-
-        def draw(shape, fn):
-            if examples is None:
-                return fn(tuple(shape))
-            offset, total = examples
-            return fn((total, *shape[1:]))[offset:offset + shape[0]]
-
         if self.precomputed_latents and _LATENTS in batch:
             latents = batch[_LATENTS].to(device, torch.float32)
             conditioning = batch[_CAPTIONS].to(device, torch.float32)
         else:
             if latent_noise is None and examples is not None:
                 b, h, w = batch[_IMAGE].shape[:3]
-                latent_noise = draw(
+                latent_noise = _draw(
                     (b, h // 8, w // 8, self.unet.config.in_channels),
                     lambda shp: torch.randn(shp, generator=generator,
-                                            device=device))
+                                            device=device), examples)
             latents = self.encode_images(batch[_IMAGE], latent_noise,
                                          generator)
             with torch.no_grad():
                 conditioning = self.encode_text(batch[_IDS])
-        bsz = latents.shape[0]
-        if timesteps is None:
-            timesteps = draw((bsz,), lambda shp: torch.randint(
-                0, self.noise_scheduler.num_train_timesteps, shp,
-                generator=generator, device=device))
-        if noise is None:
-            noise = draw(latents.shape, lambda shp: torch.randn(
-                shp, generator=generator, device=device,
-                dtype=torch.float32))
+        timesteps, noise = self.training_draws(latents.shape, generator,
+                                               timesteps, noise, examples)
         timesteps = timesteps.to(device)
         noise = noise.to(device, torch.float32)
         if not self.unet.drops:
@@ -203,6 +198,27 @@ class StableDiffusion:
             target = take_rows(target, active_shard(), dim=1)
         return pred, target, timesteps
 
+    def training_draws(self, shape: Sequence[int],
+                       generator: Optional[torch.Generator] = None,
+                       timesteps: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       examples: Optional[Tuple[int, int]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(timesteps, noise) for latents of `shape` (B, h, w, C), in the
+        order `forward` draws them: timesteps, then noise, each from
+        `generator` on the model's device unless given; with `examples`,
+        drawn for the whole batch and sliced, as `forward`'s."""
+        device = self.device
+        if timesteps is None:
+            timesteps = _draw((shape[0],), lambda shp: torch.randint(
+                0, self.noise_scheduler.num_train_timesteps, shp,
+                generator=generator, device=device), examples)
+        if noise is None:
+            noise = _draw(shape, lambda shp: torch.randn(
+                shp, generator=generator, device=device,
+                dtype=torch.float32), examples)
+        return timesteps, noise
+
     def loss(self, outputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
         """MSE(pred, target) in fp32, optionally min-SNR weighted per
         sample: epsilon min(SNR, g)/SNR, v min(SNR, g)/(SNR+1), sample
@@ -212,7 +228,7 @@ class StableDiffusion:
         if self.min_snr_gamma is None:
             return se.mean()
         t = outputs[2]
-        abar = self.noise_scheduler.alphas_cumprod.to(t.device)[t]
+        abar = self.noise_scheduler.alphas_cumprod_on(t.device)[t]
         snr = abar / torch.clamp(1.0 - abar, min=1e-12)
         g = float(self.min_snr_gamma)
         if self.prediction_type == "epsilon":

@@ -72,9 +72,12 @@ class LaunchCounter:
         self._host_ns = 0
         LaunchCounter._all.append(self)
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        """Count `n` launches (a CUDA graph's replay adds those it
+        captured; a capture takes back those it recorded), with no host
+        time."""
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def launched(self, start_ns: int) -> None:
         """Count one launch whose wrapper was entered at `start_ns`
@@ -88,6 +91,11 @@ class LaunchCounter:
     def host_ns(self) -> int:
         with self._lock:
             return self._host_ns
+
+    @classmethod
+    def counters(cls) -> "list[LaunchCounter]":
+        """Every counter made in the process."""
+        return list(cls._all)
 
     @classmethod
     def total_host_ns(cls) -> int:

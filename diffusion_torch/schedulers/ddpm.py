@@ -94,6 +94,12 @@ def _expand(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape(t.shape[0], *([1] * (ndim - 1)))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_table(scheduler: "DDPMScheduler",
+                  device: torch.device) -> torch.Tensor:
+    return scheduler.alphas_cumprod.to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class DDPMScheduler:
     """The training noise schedule: ``add_noise(x, eps, t) = sqrt(abar_t) x +
@@ -131,8 +137,14 @@ class DDPMScheduler:
     def __len__(self) -> int:
         return self.num_train_timesteps
 
+    def alphas_cumprod_on(self, device: torch.device) -> torch.Tensor:
+        """`alphas_cumprod` on `device`, made once per schedule and device
+        and then only read: indexing it copies nothing from the host, so a
+        training step can be captured in a CUDA graph."""
+        return _device_table(self, torch.device(device))
+
     def _sqrt_coefficients(self, timesteps: torch.Tensor, ndim: int):
-        abar = self.alphas_cumprod.to(timesteps.device)[timesteps]
+        abar = self.alphas_cumprod_on(timesteps.device)[timesteps]
         return (_expand(torch.sqrt(abar), ndim),
                 _expand(torch.sqrt(1.0 - abar), ndim))
 

@@ -33,6 +33,16 @@ on the device); per microbatch `forward` (its draws and `loss_fn`) and
 `backward`; `update` (the gradients' average, the global norm, the
 non-finite test, the optimizer, and `ema` inside it).
 
+On one CUDA device, with precomputed latents and a UNet that does not
+drop, the microbatches' forward and backward are replayed
+from one CUDA graph (`train/step_graph.py`) from the second such step on,
+while the parameters keep the storage it was captured with: the `forward`
+spans then hold the draws and their copy into the graph's inputs, a
+`replay` span the replay, and there is no `backward` span (on the first,
+a `capture` span holds the captured loop's `forward` and `backward`
+spans). The step before the first replay runs eagerly on the graph's
+stream. The draws and the update stay eager, as above.
+
 Eval runs after batch `b` when `b % eval_interval == 0` and `b` is not the
 last, and on `eval()`. Each evaluator's loader restarts at epoch 0 and is
 cut at `eval_subset_num_batches`; under EVAL_START/EVAL_END (the EMA swaps
@@ -165,6 +175,7 @@ from diffusion_torch.train.events import Algorithm, Callback, Event, EventEngine
 from diffusion_torch.train.optim import (build_optimizer, constant_scheduler,
                                          global_norm)
 from diffusion_torch.train.state import State, TrainState
+from diffusion_torch.train.step_graph import LATENTS, StepGraph
 from diffusion_torch.utils.device import Device, resolve_device
 from diffusion_torch.utils.logging import (ConsoleLogger, Logger,
                                            LoggerCollection)
@@ -293,6 +304,7 @@ class Trainer:
         self.skip_nonfinite_updates = skip_nonfinite_updates
         self.noise_hook = noise_hook
         self.eval_noise_hook = eval_noise_hook
+        self._step_graph = StepGraph()
 
         if loggers is None:
             loggers = [ConsoleLogger(log_interval=100)] if log_to_console else []
@@ -448,27 +460,15 @@ class Trainer:
         gen = self._generator(self.seed, ts.step)
         for p in params:
             p.grad = None
-        loss = torch.zeros((), device=self.device)
         self.model.unet.train()
-        with self._sequence_parallel(), self._tensor_parallel():
-            for i in range(n_accum):
-                with span("forward", micro=i):
-                    mb = {k: v[i * micro:(i + 1) * micro]
-                          for k, v in batch.items()}
-                    draws = ()
-                    if self.noise_hook is not None:
-                        draws = tuple(d[rows] for d in self.noise_hook(
-                            ts.step, i, n_accum, mb))
-                    kwargs = {"dropout_key": (self.seed, ts.step, i,
-                                              self._batch_rank)}
-                    if self._sharded:
-                        kwargs["examples"] = (rows.start,
-                                              global_batch // n_accum)
-                    micro_loss = self.model.loss_fn(mb, gen, *draws,
-                                                    **kwargs)
-                with span("backward", micro=i):
-                    micro_loss.backward()
-                loss += micro_loss.detach()
+        why = self._step_graph.reason(self, batch)
+        if why is None:
+            loss = self._graph_step(batch, gen, n_accum, micro, rows,
+                                    global_batch, params)
+        else:
+            with self._step_graph.eager(why, self.device):
+                loss = self._eager_step(batch, gen, n_accum, micro, rows,
+                                        global_batch)
         with span("update"):
             grads = [p.grad.to_local() if self._fsdp else p.grad
                      for p in params]
@@ -503,6 +503,75 @@ class Trainer:
                 p.grad = None
         ts.step += 1
         return metrics
+
+    def _eager_step(self, batch: Dict[str, torch.Tensor],
+                    gen: Optional[torch.Generator], n_accum: int,
+                    micro: int, rows: slice, global_batch: int,
+                    draws: Optional[List[Tuple[torch.Tensor,
+                                               torch.Tensor]]] = None
+                    ) -> torch.Tensor:
+        """The microbatches' forward and backward, op by op: each
+        microbatch's loss backpropagated into the parameters' `.grad`.
+        Microbatch `i`'s `(noise, timesteps)` are `draws[i]` where given,
+        else the `noise_hook`'s, else `loss_fn`'s from `gen`. Returns the
+        summed loss."""
+        step = self.train_state.step
+        loss = torch.zeros((), device=self.device)
+        with self._sequence_parallel(), self._tensor_parallel():
+            for i in range(n_accum):
+                with span("forward", micro=i):
+                    mb = {k: v[i * micro:(i + 1) * micro]
+                          for k, v in batch.items()}
+                    given = ()
+                    if draws is not None:
+                        given = draws[i]
+                    elif self.noise_hook is not None:
+                        given = tuple(d[rows] for d in self.noise_hook(
+                            step, i, n_accum, mb))
+                    kwargs = {"dropout_key": (self.seed, step, i,
+                                              self._batch_rank)}
+                    if self._sharded:
+                        kwargs["examples"] = (rows.start,
+                                              global_batch // n_accum)
+                    micro_loss = self.model.loss_fn(mb, gen, *given,
+                                                    **kwargs)
+                with span("backward", micro=i):
+                    micro_loss.backward()
+                loss += micro_loss.detach()
+        return loss
+
+    def _graph_step(self, batch: Dict[str, torch.Tensor],
+                    gen: torch.Generator, n_accum: int, micro: int,
+                    rows: slice, global_batch: int,
+                    params: List[torch.nn.Parameter]) -> torch.Tensor:
+        """The forward and backward of an unsharded step from the step's
+        CUDA graph (`train/step_graph.py`): each microbatch's draws, made
+        as the eager step makes them, and its rows go into the graph's
+        inputs; on the first call `_eager_step`'s loop over those inputs
+        is captured. The graph's gradients become the parameters' `.grad`.
+        Returns the summed loss, a fresh tensor."""
+        graph, step = self._step_graph, self.train_state.step
+        for i in range(n_accum):
+            with span("forward", micro=i):
+                mb_rows = slice(i * micro, (i + 1) * micro)
+                mb = {k: v[mb_rows] for k, v in batch.items()}
+                if self.noise_hook is not None:
+                    noise, timesteps = self.noise_hook(step, i, n_accum,
+                                                       mb)[:2]
+                else:
+                    timesteps, noise = self.model.training_draws(
+                        mb[LATENTS].shape, gen)
+                graph.load(i, mb_rows, mb, noise, timesteps, batch)
+        if graph.graph is None:
+            with span("capture"):
+                graph.capture(lambda: self._eager_step(
+                    graph.inputs, None, n_accum, micro, rows, global_batch,
+                    graph.draws), params, self.model.unet)
+        with span("replay"):
+            graph.replay()
+        for p, grad in zip(params, graph.grads):
+            p.grad = grad
+        return graph.loss.clone()
 
     def _to_device(self, host_batch: Mapping[str, Any]
                    ) -> Dict[str, torch.Tensor]:
@@ -909,6 +978,8 @@ class Trainer:
         for hook in self.metric_hooks:
             hook.close()
         self.metric_hooks = []
+        # the step's CUDA graph, and with it its memory pool
+        self._step_graph = StepGraph()
         # persistent-worker loaders keep a process or thread pool alive
         for loader in [self.train_dataloader] + [
                 e.dataloader for e in self.evaluators]:

@@ -21,6 +21,12 @@ the kernel wrappers' host time (`LaunchCounter.total_host_ns`) grew while
 it was open. While a torch.profiler is running, and only then, a span also
 opens a `record_function` range named `diffusion_torch.<name>`, so the
 trace shows it on the profiler's clock around the operators it issued.
+
+`step_graph` counts, for the process, how the training step's CUDA graph
+(`train/step_graph.py`) engaged: its `captures`, its `replays`, and the
+steps that ran eagerly by reason. A replayed step has a `replay` span in
+place of the `backward` spans; its `forward` spans hold the draws and their
+copy into the graph's inputs.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from diffusion_torch.ops._build import LaunchCounter
 from diffusion_torch.train.events import Callback
 
 __all__ = ["TorchProfiler", "Span", "StepRecord", "SpanRecorder", "recorder",
-           "span", "MAX_STEPS", "RANGE_PREFIX"]
+           "span", "MAX_STEPS", "RANGE_PREFIX", "StepGraphCounts",
+           "step_graph"]
 
 MAX_STEPS = 4096          # records kept: an 850,000-step run holds no more
 RANGE_PREFIX = "diffusion_torch."
@@ -247,3 +254,19 @@ class SpanRecorder:
 recorder = SpanRecorder()
 # ``with span("forward", micro=i): ...``: a span in the process-wide recorder
 span = recorder.span
+
+
+class StepGraphCounts:
+    """How often the training step's CUDA graph engaged: `captures`,
+    `replays` (the one after a capture included) and `eager`, the steps
+    that ran without it, by reason (`device`, `sharded`, `dropout`,
+    `raw_batch`, `shape`, `storage`, `warmup`)."""
+
+    def __init__(self) -> None:
+        self.captures = 0
+        self.replays = 0
+        self.eager: "collections.Counter[str]" = collections.Counter()
+
+
+# the process's counts: `step_graph.replays`, `step_graph.eager["shape"]`
+step_graph = StepGraphCounts()
