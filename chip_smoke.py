@@ -21,7 +21,11 @@ Phases, each raising on failure (exit code 1):
      parent's dQ kernel in turns) and the wrapper's host time per call;
      for the flash kernels also TFLOP/s, and dQ + dK/dV beside SDPA's
      flash backward in a CUDA graph (the backward at 256px batch 16 and
-     at 512px batch 4 and 8, the 512 recipe's microbatch). The GroupNorm
+     at 512px batch 4 and 8, the 512 recipe's microbatch). The three flash
+     kernels also at the MMDiT's joint attention at 1,024px, (2, 4250, 24,
+     64), and at 4,096 queries against its 4,250 keys: the tail instances,
+     whose launch counters must read 1 a call there and 0 at whole tiles,
+     with the bound at the true lengths. The GroupNorm
      forward also at the
      VAE encoder's largest slabs (256px, microbatch 16). Then all 61
      GroupNorm calls of one UNet forward (256px batch 16, 512px batch 4)
@@ -385,6 +389,13 @@ def _kernel_name(mangled: str) -> str:
                     else "")
 
 
+def _instances(usage: dict, name: str) -> dict:
+    """The entries of `_ptxas_usage` for kernel `name`: the plain kernel,
+    or each instance of a template (`name` plus mangled arguments)."""
+    return {k: u for k, u in usage.items()
+            if k == name or k.startswith(name + "I")}
+
+
 def _ptxas_usage(log: str) -> dict:
     """{kernel: ptxas figures} from nvcc's -Xptxas -v log, with the codes
     of ptxas's notes that it serialized a kernel's wgmma instructions
@@ -593,6 +604,16 @@ def _unet_group_norm_phase(card: str) -> dict:
     return out
 
 
+def _lengths(sq: int, skv: int, tails: int) -> str:
+    """A flash case's lengths and its tail launches, for its `kernel`
+    line: the key length where it is not the query length, and the tail
+    instance's launches where a length is not a multiple of 64."""
+    text = f" Skv={skv}" if skv != sq else ""
+    if sq % 64 or skv % 64:
+        text += f" tail launches {tails}"
+    return text
+
+
 def _graph_turns(case, fn, parent_fn) -> None:
     """case["graph_ms"] from `fn` and, where the parent's kernels were
     built, case["parent_graph_ms"] from `parent_fn`, timed in turns (parent,
@@ -719,20 +740,31 @@ def _kernel_phase(card: str, parent=None):
                f"group_norm_bwd disagrees with its plain version at {shape}")
         results["group_norm_bwd"].append(case)
 
-    # flash forward: the serving shapes, then the 256px training one; the
-    # library call is SDPA's flash backend on the (B, H, S, D) views
-    for shape in ((2, 4096, 5, 64), (2, 1024, 10, 64), (16, 1024, 5, 64)):
-        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+    # flash forward: the serving shapes, the 256px training one, then the
+    # MMDiT's joint attention at 1,024px (4,250 tokens, the tail instance)
+    # and a whole-tile query block against its ragged keys; the library call
+    # is SDPA's flash backend on the (B, H, S, D) views
+    for shape, skv in (((2, 4096, 5, 64), 4096), ((2, 1024, 10, 64), 1024),
+                       ((16, 1024, 5, 64), 1024), ((2, 4250, 24, 64), 4250),
+                       ((2, 4096, 24, 64), 4250)):
+        b, s, h, d = shape
+        q = randn(*shape)
+        k, v = randn(b, skv, h, d), randn(b, skv, h, d)
+        ragged = bool(s % 64 or skv % 64)
+        fa.launches_tail.reset()
         out, lse = fa.flash_attention_cuda(q, k, v)
+        tails = fa.launches_tail.value
+        _check(tails == int(ragged), f"flash_attention at {shape}, Skv = "
+               f"{skv}: {tails} tail launches, not {int(ragged)}")
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
         err = (out.float() - ref_out.float()).abs().max().item()
         ref_max = ref_out.float().abs().max().item()
         rel_l2 = ((out.float() - ref_out.float()).norm()
                   / ref_out.float().norm()).item()
         lse_err = (lse - ref_lse).abs().max().item()
-        b, s, h, d = shape
-        flops = 4 * b * h * s * s * d
-        bms, by = _bound(flops, 4 * _nbytes(q) + _nbytes(lse))
+        flops = 4 * b * h * s * skv * d
+        bms, by = _bound(flops, 2 * _nbytes(q) + 2 * _nbytes(k)
+                         + _nbytes(lse))
         # the kernel's times first, before any CUDA graph is captured
         case = {"err": err, "bound_ms": bms, "bound_by": by,
                 "ms": _time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
@@ -756,25 +788,38 @@ def _kernel_phase(card: str, parent=None):
         report("flash_attention", shape, case,
                f"out max_abs_err {err:.3e} (bound {out_bound:.3e}), relative "
                f"L2 error {rel_l2:.3e} (bound {2.0 ** -7:.3e}), lse "
-               f"max_abs_err {lse_err:.3e} (bound 1e-3)")
+               f"max_abs_err {lse_err:.3e} (bound 1e-3)",
+               _lengths(s, skv, tails))
         _check(err <= out_bound and rel_l2 <= 2.0 ** -7 and lse_err <= 1e-3,
-               f"flash_attention disagrees with its plain version at {shape}")
+               f"flash_attention disagrees with its plain version at {shape}"
+               f", Skv = {skv}")
         results["flash_attention"].append(case)
 
     # flash backward: 256px training (first stage, batch 16), then 512px:
-    # batch 4, and the 512 recipe's microbatch of 8
-    for shape in ((16, 1024, 5, 64), (4, 4096, 5, 64), (8, 4096, 5, 64)):
-        q, k, v, do = (randn(*shape) for _ in range(4))
+    # batch 4, and the 512 recipe's microbatch of 8; then the MMDiT's joint
+    # attention (the tail instances) and whole-tile queries on ragged keys
+    for shape, skv in (((16, 1024, 5, 64), 1024), ((4, 4096, 5, 64), 4096),
+                       ((8, 4096, 5, 64), 4096), ((2, 4250, 24, 64), 4250),
+                       ((2, 4096, 24, 64), 4250)):
+        b, s, h, d = shape
+        q, do = randn(*shape), randn(*shape)
+        k, v = randn(b, skv, h, d), randn(b, skv, h, d)
+        ragged = bool(s % 64 or skv % 64)
         out, lse = fa.flash_attention_cuda(q, k, v)
+        fa.launches_bwd_dq_tail.reset()
+        fa.launches_bwd_dkv_tail.reset()
         dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
         dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        tails = (fa.launches_bwd_dq_tail.value, fa.launches_bwd_dkv_tail.value)
+        _check(tails == (int(ragged),) * 2, f"flash backward at {shape}, "
+               f"Skv = {skv}: {tails} tail launches (dQ, dK/dV), not "
+               f"{int(ragged)} each")
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
         # both round p and ds to bf16 before their products and the outputs
         # once more: one bf16 ulp of the largest element, doubled
         errs = [((a.float() - w.float()).abs().max().item(),
                  2.0 ** -6 * w.float().abs().max().item())
                 for a, w in zip((dq, dk, dv), want)]
-        b, s, h, d = shape
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         do_t = do.transpose(1, 2)
@@ -789,7 +834,7 @@ def _kernel_phase(card: str, parent=None):
         lib_graph = _graph_ms(lib_run) if lib_run else None
         plain = _time_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, do), 5, 1)
-        flops = 2 * b * h * s * s * d             # one S x S x d product
+        flops = 2 * b * h * s * skv * d           # one Sq x Skv x d product
         small = _nbytes(lse) + _nbytes(delta)
         # delta = rowsum(dO * O) in fp32 on both sides, summed in another
         # order: 1e-5 of the row's sum of |dO * O|
@@ -798,11 +843,15 @@ def _kernel_phase(card: str, parent=None):
                      / prod.abs().sum(-1).transpose(1, 2)).max().item()
         graph = {}
         for name, n_mm, nbytes, fn, (err, bound), theirs in (
-                ("flash_attention_bwd_dq", 3, 6 * _nbytes(q) + small,
+                ("flash_attention_bwd_dq", 3,
+                 4 * _nbytes(q) + 2 * _nbytes(k) + small,
                  lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do),
                  errs[0],
-                 parent and (lambda: parent.dq(q, k, v, out, lse, do))),
-                ("flash_attention_bwd_dkv", 4, 6 * _nbytes(q) + small,
+                 # the parent's kernels take whole tiles only
+                 parent and not ragged
+                 and (lambda: parent.dq(q, k, v, out, lse, do))),
+                ("flash_attention_bwd_dkv", 4,
+                 2 * _nbytes(q) + 4 * _nbytes(k) + small,
                  lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse,
                                                          delta),
                  max(errs[1:]), None)):
@@ -817,21 +866,25 @@ def _kernel_phase(card: str, parent=None):
                           f"1e-5)" if name.endswith("_dq") else "")
             report(name, shape, case,
                    f"max_abs_err {err:.3e} (bound {bound:.3e}){delta_text}; "
-                   f"plain and library times are the whole backward")
+                   f"plain and library times are the whole backward",
+                   _lengths(s, skv, tails[name.endswith("_dkv")]))
             _check(err <= bound and (delta_err <= 1e-5
                                      or not name.endswith("_dq")),
-                   f"{name} disagrees with its plain version at {shape}")
+                   f"{name} disagrees with its plain version at {shape}, "
+                   f"Skv = {skv}")
             results[name].append(case)
         both = sum(graph.values())
         lib_text = (f"{lib_graph:.4f} ms ({lib_graph / both:.2f}x ours)"
                     if lib_graph else "not measured")
-        print(f"kernel flash_attention_bwd dQ + dK/dV {shape} bf16: in a "
+        print(f"kernel flash_attention_bwd dQ + dK/dV {shape} bf16"
+              f"{_lengths(s, skv, tails[0])}: in a "
               f"CUDA graph {both:.4f} ms ({graph['flash_attention_bwd_dq']:.4f}"
               f" + {graph['flash_attention_bwd_dkv']:.4f}) vs library (SDPA "
               f"flash backward alone, in a CUDA graph) {lib_text} [{card}]")
         ours = _time_ms(lambda: fa.flash_attention_bwd_cuda(
             q, k, v, *fa.flash_attention_cuda(q, k, v), do))
-        print(f"kernel flash_attention forward+backward {shape} bf16: "
+        print(f"kernel flash_attention forward+backward {shape} bf16"
+              f"{_lengths(s, skv, tails[0])}: "
               f"{ours:.4f} ms vs library (SDPA flash) {lib_both:.4f} ms "
               f"[{card}]")
     return results
@@ -5661,11 +5714,15 @@ def main(argv=None) -> int:
               + (f", wgmma serialized ({', '.join(u['wgmma_serialized'])})"
                  if "wgmma_serialized" in u else ""))
     for name in _NO_SPILL:
-        u = usage.get(name)
-        _check(u is not None and u.get("spill_stores") == 0
-               and u.get("spill_loads") == 0,
-               f"ptxas reports spills (or no entry) for {name}: {u}")
-    _check("wgmma_serialized" not in usage["flash_bwd_dq_kernel"],
+        # each instance: the flash kernels' whole-tile and tail templates
+        found = _instances(usage, name)
+        _check(len(found) == 2 and all(
+            u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+            for u in found.values()),
+            f"ptxas reports spills (or not its two instances) for {name}: "
+            f"{found}")
+    _check(not any("wgmma_serialized" in u for u in
+                   _instances(usage, "flash_bwd_dq_kernel").values()),
            "ptxas serialized the dQ kernel's wgmma pipeline")
 
     # 3. kernels against their plain versions

@@ -37,7 +37,10 @@
 //    over their strides, so the caller's head fold (the TPU's `_fold`
 //    transpose) costs nothing. Rows past the end read as zeros: keys at or
 //    past Skv are masked to -inf before the row max, and q rows at or past
-//    Sq are not stored.
+//    Sq are not stored. Where a length is not a multiple of 64 (MMDiT's
+//    4,250 joint tokens) the tail instance runs, which masks any number of
+//    keys in the last tile; the whole-tile instance is the path of the
+//    UNet's calls.
 
 #include <math.h>
 
@@ -70,16 +73,24 @@ constexpr int kSmemBytes = sizeof(Smem) + 1024;   // + alignment slack
 // updates the running max m (log2 units of the scaled scores) and this
 // thread's share l of the normalizer, returns the rescale factors of what
 // came before, and packs P (fp32 -> bf16, as the TPU kernel casts p to v's
-// dtype) into the A fragments of P V, 16 keys per k-chunk. Skv is a
-// multiple of 64, so a tile holds either 128 keys or (`half`) 64 and the
-// zero rows TMA filled in, which score -inf.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], bool half,
-                                             float scale_log2, float& m0,
-                                             float& m1, float& l0, float& l1,
-                                             float& alpha0, float& alpha1,
+// dtype) into the A fragments of P V, 16 keys per k-chunk. The tile holds
+// `valid` real keys (all of them where valid >= kBN) and after them the zero
+// rows TMA filled in, which score -inf. Where Skv is a multiple of 64, a
+// ragged tile is half a tile (keys 64..127); the tail instance (kTail)
+// masks any count: score sc[i] is key (i / 4) * 8 + 2 * t4 + (i & 1).
+template <bool kTail>
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], int valid,
+                                             int t4, float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& alpha0,
+                                             float& alpha1,
                                              uint32_t (&pa)[kBN / 16][4]) {
   static_assert(kBN == 128, "a ragged tile is half a tile");
-  if (half) {
+  if (kTail && valid < kBN) {        // uniform: only a ragged last tile
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if ((i / 4) * 8 + 2 * t4 + (i & 1) >= valid) sc[i] = -INFINITY;
+  } else if (!kTail && valid < kBN) {
 #pragma unroll
     for (int i = 32; i < 64; ++i) sc[i] = -INFINITY;   // keys 64..127
   }
@@ -130,6 +141,7 @@ __device__ __forceinline__ void scale_rows(float (&acc)[32], float alpha0,
   }
 }
 
+template <bool kTail>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
@@ -220,8 +232,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       issue_scores(sc, 0);
       wgmma_wait<0>();
       fence_regs(sc);
-      softmax_tile(sc, Skv < kBN, scale_log2, m0, m1, l0, l1, alpha0, alpha1,
-                   pa);
+      softmax_tile<kTail>(sc, Skv, t4, scale_log2, m0, m1, l0, l1, alpha0,
+                          alpha1, pa);
     }
     // Tile i's scores are computed while tile i-1's P V runs, and tile i's
     // softmax overlaps that product too: the tensor cores stay busy while
@@ -233,8 +245,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<1>();                      // the scores, not yet P V
       fence_regs(sc);
       uint32_t pn[kBN / 16][4];
-      softmax_tile(sc, Skv - i * kBN < kBN, scale_log2, m0, m1, l0, l1,
-                   alpha0, alpha1, pn);
+      softmax_tile<kTail>(sc, Skv - i * kBN, t4, scale_log2, m0, m1, l0, l1,
+                          alpha0, alpha1, pn);
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(&sm.empty[(i - 1) % kStages]);  // done with tile i-1
@@ -272,7 +284,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 // q, k, v: (B, S, H, 64) bf16 views with unit last stride; the wrapper
 // (diffusion_torch/ops/flash_attention.py) checks shapes, strides and
 // alignment. o: contiguous (B, Sq, H, 64) bf16; lse: contiguous (B, H, Sq)
-// fp32. Sq and Skv are multiples of 64. Returns the launch's cudaError_t
+// fp32. Sq and Skv may be any lengths: the tail instance runs where one is
+// not a multiple of 64. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue where the CUDA driver refuses a tensor map).
 extern "C" int dt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -284,13 +297,13 @@ extern "C" int dt_flash_attention_fwd(
       !hopper::make_map(&tk, k, B, Skv, H, k_sb, k_ss, k_sh, kBN) ||
       !hopper::make_map(&tv, v, B, Skv, H, v_sb, v_ss, v_sh, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = (Sq % 64 || Skv % 64) ? flash_fwd_kernel<true>
+                                             : flash_fwd_kernel<false>;
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   dim3 grid((Sq + kBM - 1) / kBM, B * H);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H,
       Sq, Skv, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());

@@ -47,11 +47,12 @@
 //    tiles lives in two register sets, and a stage is released once the
 //    product that reads it has completed. This plan is the fastest of
 //    those measured (PERF.md): at 128-key tiles the two dS sets do not
-//    fit in the registers and ptxas serializes the overlap. Skv is a
-//    multiple of 64, so no key tile is ragged (a ragged 128-key tile would
-//    need p forced to 0 on its padded keys: p = exp(-lse) overflows where
-//    lse < -88, and inf times their zero K rows is NaN). q rows past Sq
-//    read as zeros and are neither read from lse nor written.
+//    fit in the registers and ptxas serializes the overlap. Where Skv is
+//    a multiple of 64 no key tile is ragged; otherwise the kernel's tail
+//    instance (kTail) forces dS to 0 on the last tile's padded keys
+//    (p = exp(-lse) overflows where lse < -88, and inf times their zero K
+//    rows is NaN). q rows past Sq read as zeros and are neither read from
+//    lse nor written.
 //  * dK/dV: TMA loads the block's K and V once; the producer streams
 //    64-query tiles of Q and dO, with their 64 lse and delta values (bulk
 //    copies), through a ring of kStages stages. Per tile each consumer runs
@@ -60,7 +61,14 @@
 //    P^T and dS^T in registers, and runs dV += P^T dO and dK += dS^T Q with
 //    P^T and dS^T as register A operands and dO and Q read MN-major from
 //    the same swizzled tiles. dK and dV are 64 x 64 fp32 per warpgroup, 32
-//    registers each per thread.
+//    registers each per thread. Where Sq is not a multiple of 64, the tail
+//    instance (kTail) streams ceil(Sq / 64) tiles and reads lse and delta
+//    from global memory (a bulk copy needs 16-byte aligned rows), issued
+//    before the tile's products so that the loads overlap them: a query
+//    past Sq reads lse = +inf and delta = 0, so its p and dS are 0 and its
+//    zero Q and dO rows add nothing to dK and dV.
+//  * The tail instances are launched only where a length is not a multiple
+//    of 64 (the entry points below): the whole-tile path is what it was.
 //  * The exponentials are bare MUFU.EX2 (exp2_ftz) in both kernels, so the
 //    two give P the same bits.
 //  * q/k/v/dO/O are read through their (B, S, H, D) strides (4-D tensor
@@ -156,11 +164,15 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* a,
 // (rows g, g+8 x 64 keys), rounded to bf16 (as the TPU kernel casts ds to
 // k's dtype) into the A fragments of dS K, 16 keys per k-chunk: chunk j of
 // the accumulator is keys 8j..8j+7, two chunks one A fragment. nl0/nl1 are
-// -lse * log2e and dl0/dl1 delta of the two rows.
+// -lse * log2e and dl0/dl1 delta of the two rows. With kTail, keys at or
+// past `valid` (the tile's real keys) take dS = 0: value j of chunk kc is
+// key (2 kc + j / 4) * 8 + 2 t4 + (j & 1).
+template <bool kTail>
 __device__ __forceinline__ void ds_tile(const float (&s)[32],
                                         const float (&dp)[32],
                                         float scale_log2, float nl0,
                                         float nl1, float dl0, float dl1,
+                                        int valid, int t4,
                                         uint32_t (&da)[kDqKeys / 16][4]) {
 #pragma unroll
   for (int kc = 0; kc < kDqKeys / 16; ++kc) {
@@ -171,6 +183,11 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
           fmaf(s[8 * kc + j], scale_log2, (j & 2) ? nl1 : nl0));
       d[j] = p * (dp[8 * kc + j] - ((j & 2) ? dl1 : dl0));
     }
+    if (kTail && valid < kDqKeys) {         // uniform: the last tile only
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if ((2 * kc + j / 4) * 8 + 2 * t4 + (j & 1) >= valid) d[j] = 0.f;
+    }
     da[kc][0] = pack_bf16(d[0], d[1]);
     da[kc][1] = pack_bf16(d[2], d[3]);
     da[kc][2] = pack_bf16(d[4], d[5]);
@@ -178,6 +195,7 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
   }
 }
 
+template <bool kTail>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -195,7 +213,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kDqRows;
-  const int n_tiles = Skv / kDqKeys;
+  const int n_tiles = kTail ? (Skv + kDqKeys - 1) / kDqKeys : Skv / kDqKeys;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -285,7 +303,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<1>();                      // S and dP, not yet dQ
       fence_regs(s);
       fence_regs(dp);
-      ds_tile(s, dp, scale_log2, nl0, nl1, dl0, dl1, next);
+      ds_tile<kTail>(s, dp, scale_log2, nl0, nl1, dl0, dl1,
+                     Skv - i * kDqKeys, t4, next);
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(&sm.empty[(i - 1) % kDqStages]);  // done with tile i-1
@@ -297,7 +316,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      ds_tile(s, dp, scale_log2, nl0, nl1, dl0, dl1, da0);
+      ds_tile<kTail>(s, dp, scale_log2, nl0, nl1, dl0, dl1, Skv, t4, da0);
     }
     int i = 1;
     for (; i + 1 < n_tiles; i += 2) {
@@ -337,6 +356,7 @@ struct alignas(1024) DkvSmem {
 };
 constexpr int kDkvSmemBytes = sizeof(DkvSmem) + 1024;  // + alignment slack
 
+template <bool kTail>
 __global__ void __launch_bounds__(kDkvThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -355,7 +375,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int k0 = blockIdx.x * kBKeys;
-  const int n_tiles = Sq / kBQ;
+  const int n_tiles = kTail ? (Sq + kBQ - 1) / kBQ : Sq / kBQ;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -381,11 +401,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = i % kStages;
         // the first pass over the ring finds every stage empty
         mbar_wait(&sm.empty[s], ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[s], 2 * kQTileBytes + 2 * kBQ * 4);
+        mbar_expect_tx(&sm.full[s],
+                       2 * kQTileBytes + (kTail ? 0 : 2 * kBQ * 4));
         tma_load(sm.q[s], &tq, &sm.full[s], 0, i * kBQ, h, b);
         tma_load(sm.dout[s], &tdo, &sm.full[s], 0, i * kBQ, h, b);
-        bulk_load(sm.lse[s], lseb + i * kBQ, kBQ * 4, &sm.full[s]);
-        bulk_load(sm.delta[s], deltab + i * kBQ, kBQ * 4, &sm.full[s]);
+        if (!kTail) {
+          bulk_load(sm.lse[s], lseb + i * kBQ, kBQ * 4, &sm.full[s]);
+          bulk_load(sm.delta[s], deltab + i * kBQ, kBQ * 4, &sm.full[s]);
+        }
       }
     }
   } else {
@@ -395,6 +418,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     const int g = lane >> 2, t4 = lane & 3;
     const uint64_t k_desc = desc_sw128(sm.k + wg * 64 * kD);
     const uint64_t v_desc = desc_sw128(sm.v + wg * 64 * kD);
+    const float* lseb = lse + (long long)bh * Sq;
+    const float* deltab = delta + (long long)bh * Sq;
 
     float dk_acc[32], dv_acc[32];           // key rows (g, g+8) x 64 dims
 #pragma unroll
@@ -406,6 +431,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(&sm.full[s], (i / kStages) & 1);
       const uint64_t q_desc = desc_sw128(sm.q[s]);
       const uint64_t do_desc = desc_sw128(sm.dout[s]);
+      // the tail instance reads the tile's lse and delta from global
+      // memory, issued here so that the loads overlap the products below
+      float tl[kBQ / 8][2], td[kBQ / 8][2];
+      if (kTail) {    // queries past Sq: p = exp2(-inf) = 0, dS = 0
+#pragma unroll
+        for (int nt = 0; nt < kBQ / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qc = i * kBQ + nt * 8 + t4 * 2 + e;
+            tl[nt][e] = INFINITY;
+            td[nt][e] = 0.f;
+            if (qc < Sq) {
+              tl[nt][e] = lseb[qc];
+              td[nt][e] = deltab[qc];
+            }
+          }
+      }
 
       float st[32], dpt[32];                // key rows (g, g+8) x 64 queries
       wgmma_fence();
@@ -429,8 +471,18 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int nt = 0; nt < kBQ / 8; ++nt) {
         const int c = nt * 8 + t4 * 2;
-        const float l0 = sm.lse[s][c] * kLog2e, l1 = sm.lse[s][c + 1] * kLog2e;
-        const float d0 = sm.delta[s][c], d1 = sm.delta[s][c + 1];
+        float l0, l1, d0, d1;
+        if (kTail) {
+          l0 = tl[nt][0] * kLog2e;
+          l1 = tl[nt][1] * kLog2e;
+          d0 = td[nt][0];
+          d1 = td[nt][1];
+        } else {
+          l0 = sm.lse[s][c] * kLog2e;
+          l1 = sm.lse[s][c + 1] * kLog2e;
+          d0 = sm.delta[s][c];
+          d1 = sm.delta[s][c + 1];
+        }
         const float p0 = exp2_ftz(st[4 * nt] * scale_log2 - l0);
         const float p1 = exp2_ftz(st[4 * nt + 1] * scale_log2 - l1);
         const float p2 = exp2_ftz(st[4 * nt + 2] * scale_log2 - l0);
@@ -472,9 +524,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 // wrapper (diffusion_torch/ops/flash_attention.py) checks shapes, strides and
 // alignment. lse: contiguous (B, H, Sq) fp32 from the forward. delta:
 // (B, H, Sq) fp32, written here for the dK/dV launch. dq: contiguous
-// (B, Sq, H, 64) bf16. Sq and Skv are multiples of 64. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue where the CUDA driver refuses a tensor
-// map).
+// (B, Sq, H, 64) bf16. Sq and Skv may be any lengths: the tail instance
+// runs where one is not a multiple of 64. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue where the CUDA driver refuses a tensor map).
 extern "C" int dt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, int B, int H,
@@ -490,13 +542,14 @@ extern "C" int dt_flash_attention_bwd_dq(
       !hopper::make_map(&to, o, B, Sq, H, o_sb, o_ss, o_sh, kDqRows) ||
       !hopper::make_map(&tdo, dout, B, Sq, H, do_sb, do_ss, do_sh, kDqRows))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = (Sq % 64 || Skv % 64) ? flash_bwd_dq_kernel<true>
+                                             : flash_bwd_dq_kernel<false>;
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDqSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   dim3 grid((Sq + kDqRows - 1) / kDqRows, B * H);
-  flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kDqThreads, kDqSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, to, tdo, static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), H, Sq,
       Skv, scale, scale * kLog2e);
@@ -519,13 +572,14 @@ extern "C" int dt_flash_attention_bwd_dkv(
       !hopper::make_map(&tv, v, B, Skv, H, v_sb, v_ss, v_sh, kBKeys) ||
       !hopper::make_map(&tdo, dout, B, Sq, H, do_sb, do_ss, do_sh, kBQ))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = (Sq % 64 || Skv % 64) ? flash_bwd_dkv_kernel<true>
+                                             : flash_bwd_dkv_kernel<false>;
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDkvSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   dim3 grid((Skv + kBKeys - 1) / kBKeys, B * H);
-  flash_bwd_dkv_kernel<<<grid, kDkvThreads, kDkvSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kDkvThreads, kDkvSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, Sq, Skv, scale, scale * kLog2e);

@@ -1,5 +1,6 @@
-"""Model builders: full-width SD-2-base, the tiny test geometry, and the
-two pixel-space diffusion models.
+"""Model builders: full-width SD-2-base, the tiny test geometry, the
+two pixel-space diffusion models, and SD3-medium's MMDiT
+(`stable_diffusion_3`, which has no JAX counterpart).
 
 Counterparts of `stable_diffusion_2`, `stable_diffusion_tiny`,
 `discrete_pixel_diffusion` and `continuous_pixel_diffusion` in
@@ -46,9 +47,11 @@ from diffusion_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
                                          VIT_L14_TEXT_CONFIG)
 from diffusion_torch.models.layers import init_like_flax_
 from diffusion_torch.models.lora import freeze_base
+from diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
 from diffusion_torch.models.pixel_diffusion import PixelDiffusion
 from diffusion_torch.models.pretrained import load_pretrained_params
 from diffusion_torch.models.stable_diffusion import StableDiffusion
+from diffusion_torch.models.stable_diffusion_3 import StableDiffusion3
 from diffusion_torch.models.unet import (PIXEL_UNET, SD2_BASE_UNET,
                                          UNet2DCondition, UNetConfig)
 from diffusion_torch.models.vae import SD2_VAE, AutoencoderKL, VAEConfig
@@ -61,7 +64,7 @@ from diffusion_torch.utils.device import Device, resolve_device
 
 __all__ = ["stable_diffusion_2", "stable_diffusion_tiny",
            "discrete_pixel_diffusion", "continuous_pixel_diffusion",
-           "canonical_scheduler_name"]
+           "stable_diffusion_3", "canonical_scheduler_name"]
 
 # the samplers a yaml's `model.inference_scheduler` (and a request's
 # `scheduler`) may name; all share the noise schedule they are built like
@@ -390,3 +393,31 @@ def continuous_pixel_diffusion(clip_model_name: Optional[str] = None,
                       t_max=inference_t_max, prediction_type=prediction_type,
                       use_ode=use_ode),
                   prediction_type=prediction_type, continuous_time=True)
+
+
+def stable_diffusion_3(transformer: Optional[dict] = None,
+                       encode_latents_in_fp16: bool = True,
+                       device: Device = None) -> StableDiffusion3:
+    """SD3-medium's MMDiT (2,028,328,000 parameters; `models/mmdit.py`)
+    trained by rectified flow (`schedulers/flow_match.py`: logit-normal t
+    shifted by the published scheduler's 3.0), computing in bf16
+    (`encode_latents_in_fp16`) or fp32 over fp32 parameters, its weights
+    drawn as flax's defaults would from seed 0. `transformer` is a
+    diffusers `SD3Transformer2DModel` config (its `_`-prefixed keys are
+    ignored; the published SD3-medium's by default). It trains on
+    precomputed latents and text states: the towers (CLIP-L, OpenCLIP
+    bigG, T5-XXL, the 16-channel VAE) are not ported."""
+    known = {f.name for f in dataclasses.fields(MMDiTConfig)}
+    given = {k: v for k, v in (transformer or {}).items()
+             if not k.startswith("_")}
+    unknown = sorted(set(given) - known)
+    if unknown:
+        raise ValueError(f"MMDiT config keys not supported: {unknown}")
+    device = resolve_device(device)
+    with torch.device(device):
+        net = MMDiT(MMDiTConfig(**given), dtype=torch.bfloat16
+                    if encode_latents_in_fp16 else torch.float32)
+    if device.type != "meta":    # shapes only (a FLOP count): nothing to draw
+        init_like_flax_(net, torch.Generator(device=device).manual_seed(0))
+    net.train()
+    return StableDiffusion3(unet=net)

@@ -32,6 +32,7 @@ from diffusion_torch.models.clip import CLIPTextModel
 from diffusion_torch.models.unet import UNet2DCondition
 from diffusion_torch.models.vae import AutoencoderKL
 from diffusion_torch.schedulers import DDPMScheduler
+from diffusion_torch.utils.profiler import span
 
 __all__ = ["StableDiffusion"]
 
@@ -91,6 +92,18 @@ class StableDiffusion:
     @property
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
+
+    def example_batch(self, batch: int, size: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """A batch of N(0, 1) precomputed latents and 77-token caption
+        states for `size` px images, on the model's device."""
+        cfg, device, side = self.unet.config, self.device, size // 8
+
+        def draw(*shape):
+            return torch.randn(shape, generator=generator, device=device)
+        return {_LATENTS: draw(batch, side, side, cfg.in_channels),
+                _CAPTIONS: draw(batch, 77, cfg.cross_attention_dim)}
 
     def _empty_prompt_ids(self, batch: int, length: int) -> torch.Tensor:
         """Ids of the empty prompt: BOS, EOS, then padding (the CFG
@@ -152,7 +165,8 @@ class StableDiffusion:
         rank of a process mesh). Where the UNet drops (training mode,
         dropout > 0), the masks are keyed by `dropout_key` or by an integer
         drawn after the noise. Under sequence parallelism the
-        prediction and target are this rank's rows."""
+        prediction and target are this rank's rows. The towers' encode
+        runs in an `encode` span (`utils/profiler.py`)."""
         device = self.device
         if self.precomputed_latents and _LATENTS in batch:
             latents = batch[_LATENTS].to(device, torch.float32)
@@ -164,10 +178,11 @@ class StableDiffusion:
                     (b, h // 8, w // 8, self.unet.config.in_channels),
                     lambda shp: torch.randn(shp, generator=generator,
                                             device=device), examples)
-            latents = self.encode_images(batch[_IMAGE], latent_noise,
-                                         generator)
-            with torch.no_grad():
-                conditioning = self.encode_text(batch[_IDS])
+            with span("encode"):
+                latents = self.encode_images(batch[_IMAGE], latent_noise,
+                                             generator)
+                with torch.no_grad():
+                    conditioning = self.encode_text(batch[_IDS])
         timesteps, noise = self.training_draws(latents.shape, generator,
                                                timesteps, noise, examples)
         timesteps = timesteps.to(device)

@@ -4,12 +4,16 @@ parallelism the ring; and the tensor-parallel context.
 Counterpart of `diffusion_tpu/ops/attention.py`. Every entry point takes
 (B, S, H, D) q/k/v. The eligibility rule is the JAX one, with "the
 backend is a TPU" read as "the tensor lies on a CUDA device", plus what
-the CUDA kernels take: bf16 q/k/v with head dim 64. At 512px the bf16
-UNet's S=4096 and S=1024 self-attention run the kernel; cross-attention
-(77 keys), the S=256 and S=64 stages, CLIP's masked attention, and every
-fp32, fp16 or head-dim-128 call stay on plain torch math (a matmul, a
-softmax and a matmul), which computes the same function (the JAX kernel
-runs in any dtype).
+the CUDA kernels take: bf16 q/k/v with head dim 64. The JAX rule's
+128-multiple lengths are dropped: the CUDA kernels mask a ragged last
+tile, so MMDiT's joint attention over 4,096 + 154 tokens runs the kernel.
+At 512px the bf16 UNet's S=4096 and S=1024 self-attention run the kernel;
+cross-attention (77 keys), the S=256 and S=64 stages, CLIP's masked
+attention, and every fp32, fp16 or head-dim-128 call stay on plain torch
+math (a matmul, a softmax and a matmul), which computes the same function
+(the JAX kernel runs in any dtype). `flash_calls` and `plain_calls` count
+the calls that took each path (a CUDA graph's replay adds those it
+captured, as it adds the kernels' launches).
 
 `sequence_parallel(mesh, min_seq=)` (the Trainer enters it when the mesh's
 sp axis is > 1) makes `active_shard()` the rank's `RowShard`; the UNet then
@@ -38,11 +42,17 @@ from typing import Optional, Sequence
 
 import torch
 
+from diffusion_torch.ops._build import LaunchCounter
 from diffusion_torch.ops.flash_attention import flash_attention
 from diffusion_torch.utils.device import kernel_device_type
 
 __all__ = ["multi_head_attention", "flash_eligible", "sequence_parallel",
-           "active_shard", "tensor_parallel", "active_tp"]
+           "active_shard", "tensor_parallel", "active_tp", "flash_calls",
+           "plain_calls"]
+
+# multi_head_attention's calls by path (the ring's are in neither)
+flash_calls = LaunchCounter()
+plain_calls = LaunchCounter()
 
 # (RowShard, min_seq) while a sequence_parallel context is active
 _SEQ_PARALLEL: list = [None]
@@ -108,10 +118,10 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _shape_eligible(q_shape: Sequence[int], k_shape: Sequence[int]) -> bool:
     # the JAX rule (attention.py `_flash_eligible`): long queries, at least
-    # 256 keys, 64-multiple heads, 128-multiple lengths
+    # 256 keys, 64-multiple heads; any lengths, where JAX asks for
+    # 128-multiples (the kernels mask a ragged tail)
     return (q_shape[1] >= 1024 and k_shape[1] >= 256
-            and q_shape[-1] % 64 == 0
-            and q_shape[1] % 128 == 0 and k_shape[1] % 128 == 0)
+            and q_shape[-1] % 64 == 0)
 
 
 def flash_eligible(device_type: str, dtype: torch.dtype,
@@ -140,5 +150,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = gather_rows(k, shard, dim=1), gather_rows(v, shard, dim=1)
     if mask is None and flash_eligible(kernel_device_type(q.device), q.dtype,
                                        q.shape, k.shape, False):
+        flash_calls.add()
         return flash_attention(q, k, v)[0]
+    plain_calls.add()
     return _xla_attention(q, k, v, mask)

@@ -15,10 +15,16 @@ does; a selective-checkpoint policy can keep its outputs by naming the op.
 Its backward is a dispatcher op too (`flash_attention_bwd_op`), so that a
 dispatch mode counts both (`utils/flops.py`). On CUDA tensors they
 launch the kernels (`csrc/flash_attention.cu` forward,
-`csrc/flash_attention_bwd.cu` dQ and dK/dV: bf16, head dim 64, sequence
-lengths a multiple of 64) or raise; on CPU tensors they run
+`csrc/flash_attention_bwd.cu` dQ and dK/dV: bf16, head dim 64, any sequence
+lengths) or raise; on CPU tensors they run
 `flash_attention_reference` and `flash_attention_bwd_reference`, which
 mirror JAX's `_xla_attention_with_lse` and `_xla_attention_bwd_with_lse`.
+
+A length that is not a multiple of 64 (MMDiT's joint attention: 4,096
+image and 154 text tokens) leaves a ragged last tile, which the kernels
+mask: keys past Skv score -inf in the forward and take dS = 0 in dQ, and
+queries past Sq add nothing to dK and dV. Each launch that masks such a
+tail is also counted in its `*_tail` counter.
 """
 
 from __future__ import annotations
@@ -36,11 +42,17 @@ __all__ = ["flash_attention", "flash_attention_op", "flash_attention_bwd_op",
            "flash_attention_cuda", "flash_attention_bwd_reference",
            "flash_attention_bwd_cuda", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dkv_cuda", "launches", "launches_bwd_dq",
-           "launches_bwd_dkv"]
+           "launches_bwd_dkv", "launches_tail", "launches_bwd_dq_tail",
+           "launches_bwd_dkv_tail"]
 
 launches = LaunchCounter()
 launches_bwd_dq = LaunchCounter()
 launches_bwd_dkv = LaunchCounter()
+# the launches above that masked a ragged tail (a length not a multiple of
+# 64); no host time of their own
+launches_tail = LaunchCounter()
+launches_bwd_dq_tail = LaunchCounter()
+launches_bwd_dkv_tail = LaunchCounter()
 
 _HEAD_DIM = 64
 _TILE = 64
@@ -108,9 +120,14 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h:
         raise ValueError(f"k/v {tuple(k.shape)}, {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if sq % _TILE or k.shape[1] % _TILE:
-        raise ValueError(f"flash kernel needs sequence lengths that are "
-                         f"multiples of {_TILE}, got {sq} and {k.shape[1]}")
+    if not sq or not k.shape[1]:
+        raise ValueError(f"flash kernel needs sequences, got lengths {sq} "
+                         f"and {k.shape[1]}")
+
+
+def _ragged(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether a launch masks a ragged last tile."""
+    return bool(q.shape[1] % _TILE or k.shape[1] % _TILE)
 
 
 def _strides(*tensors: torch.Tensor):
@@ -136,6 +153,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches.launched(t0)
+    if _ragged(q, k):
+        launches_tail.add()
     return out, lse
 
 
@@ -160,6 +179,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
         raise RuntimeError(f"flash attention dQ kernel launch failed: "
                            f"CUDA error {rc}")
     launches_bwd_dq.launched(t0)
+    if _ragged(q, k):
+        launches_bwd_dq_tail.add()
     return dq, delta
 
 
@@ -181,6 +202,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta
         raise RuntimeError(f"flash attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
     launches_bwd_dkv.launched(t0)
+    if _ragged(q, k):
+        launches_bwd_dkv_tail.add()
     return dk, dv
 
 

@@ -27,8 +27,6 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
 from diffusion_torch.config.loader import _import_target
 from diffusion_torch.utils.device import route_meta_as
 from diffusion_torch.utils.flops import flops_by_class
@@ -38,14 +36,7 @@ def microbatch_flops(model, batch: int, size: int) -> dict:
     """FLOPs by class of one loss-and-grad microbatch of `batch` random
     latents at `size` px on the model's device (a meta model under
     `route_meta_as`)."""
-    device = model.device
-    side = size // 8
-    data = {"image_latents": torch.randn((batch, side, side,
-                                          model.unet.config.in_channels),
-                                         device=device),
-            "caption_latents": torch.randn(
-                (batch, 77, model.unet.config.cross_attention_dim),
-                device=device)}
+    data = model.example_batch(batch, size)
 
     def step():
         model.loss_fn(data).backward()

@@ -1,9 +1,11 @@
 """The flash dispatch rule (`flash_eligible`) case by case: on a CUDA
 device, bf16 q/k/v with head dim 64 at a shape the JAX rule sends to its
-kernel take the flash kernel; fp32, fp16, head dim 128, short or ragged
-lengths, a mask, or a tensor off the card take plain math. The JAX kernel
-runs in any dtype; the CUDA kernels take bf16 with head dim 64 only, and
-plain math computes the same function (ROADMAP.md queue 3, fault 7)."""
+kernel take the flash kernel, at any lengths (the kernels mask a ragged
+tail, where the JAX rule asks for 128-multiples); fp32, fp16, head dim
+128, short lengths, a mask, or a tensor off the card take plain math. The
+JAX kernel runs in any dtype; the CUDA kernels take bf16 with head dim 64
+only, and plain math computes the same function (ROADMAP.md queue 3,
+fault 7)."""
 
 import pytest
 import torch
@@ -29,7 +31,11 @@ _CASES = [
     ("cuda", BF16, (2, 256, 20, 64), (2, 256, 20, 64), False, False),
     ("cuda", BF16, (2, 4096, 5, 64), (2, 77, 5, 64), False, False),
     ("cuda", BF16, (1, 1000, 2, 64), (1, 1000, 2, 64), False, False),
-    ("cuda", BF16, (1, 1152, 2, 64), (1, 1000, 2, 64), False, False),
+    ("cuda", BF16, (1, 1152, 2, 64), (1, 1000, 2, 64), False, True),
+    # MMDiT at 1,024px: joint attention over 4,096 + 154 tokens, and the
+    # last block's image queries over the joint keys
+    ("cuda", BF16, (4, 4250, 24, 64), (4, 4250, 24, 64), False, True),
+    ("cuda", BF16, (4, 4096, 24, 64), (4, 4250, 24, 64), False, True),
     ("cuda", BF16, (1, 1024, 2, 64), (1, 128, 2, 64), False, False),
     ("cuda", BF16, (2, 4096, 5, 64), (2, 4096, 5, 64), True, False),
     ("cpu", BF16, (2, 4096, 5, 64), (2, 4096, 5, 64), False, False),

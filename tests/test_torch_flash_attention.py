@@ -73,6 +73,8 @@ _SHAPES = [
     ((2, 256, 20, 64), (2, 256, 20, 64)),
     ((2, 64, 20, 64), (2, 64, 20, 64)),
     ((1, 1000, 2, 64), (1, 1000, 2, 64)),     # ragged length
+    ((1, 4250, 2, 64), (1, 4250, 2, 64)),     # MMDiT's joint length: the
+                                              # kernel here, not in JAX
     ((1, 1024, 2, 40), (1, 1024, 2, 40)),     # head dim not a 64 multiple
     ((1, 1024, 2, 64), (1, 128, 2, 64)),      # too few keys
 ]
@@ -81,11 +83,16 @@ _SHAPES = [
 @pytest.mark.parametrize("q_shape,k_shape", _SHAPES)
 def test_dispatch_rule_matches_jax(monkeypatch, q_shape, k_shape):
     """The port's rule is JAX's `_flash_eligible` with "the backend is a
-    TPU" read as "the tensor is on CUDA"."""
+    TPU" read as "the tensor is on CUDA", less JAX's 128-multiple lengths
+    (the CUDA kernels mask a ragged tail)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     q = types.SimpleNamespace(shape=q_shape)
     k = types.SimpleNamespace(shape=k_shape)
     want = jattn._flash_eligible(q, k, None)
+    if q_shape[1] % 128 or k_shape[1] % 128:
+        assert not want
+        want = (q_shape[1] >= 1024 and k_shape[1] >= 256
+                and q_shape[-1] % 64 == 0)
     assert tattn._shape_eligible(q_shape, k_shape) == want
     assert not jattn._flash_eligible(q, k, object())
     # a tensor that is not on CUDA never takes the kernel, masked or not
@@ -254,3 +261,83 @@ def test_multi_head_attention_is_differentiable():
     tattn.multi_head_attention(q, k, v).square().sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+# ---------------------------------------------------------------- ragged tail
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (1, 90, 90, 2),                   # MMDiT's joint length, scaled down
+    (2, 70, 133, 1),                  # both lengths ragged, Sq < Skv
+    (1, 129, 65, 3),                  # one row and one key past a tile
+])
+def test_ragged_lengths_match_plain_attention(b, sq, skv, h):
+    """At lengths that are not multiples of 64 (a ragged last tile on the
+    card), `flash_attention` on the CPU gives plain attention's output and
+    gradients, and the logsumexp of its scores."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, sq, skv, h, 64,
+                                                  seed=sq + skv))
+    do = torch.from_numpy(np.random.default_rng(skv).standard_normal(
+        q.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = tfa.flash_attention(*leaves)
+    out.backward(do)
+    want = tattn._xla_attention(*plain, None)
+    want.backward(do)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * 64 ** -0.5
+    # fp32: the lse-based backward against autograd's softmax backward
+    torch.testing.assert_close(out, want.detach(), atol=2e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-5,
+                               rtol=1e-5)
+    for a, w in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, w.grad, atol=2e-5, rtol=1e-4)
+
+
+def _tiled_dkv(q, k, v, do, lse, delta, rows=64, keys=128):
+    """The dK/dV kernel's tiling in torch: `keys`-key blocks over `rows`-query
+    Q/dO tiles, with the zero rows past Sq its tensor maps read; as in the
+    kernel's tail instance, a query past Sq reads lse = +inf and delta = 0.
+    Returns (dk, dv)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    pad_q = -sq % rows
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((b, n) + t.shape[2:])], dim=1)
+    qp, dop = pad(q, pad_q), pad(do, pad_q)
+    lsep = torch.cat([lse, lse.new_full((b, h, pad_q), torch.inf)], dim=-1)
+    deltap = torch.cat([delta, delta.new_zeros((b, h, pad_q))], dim=-1)
+    dk = torch.zeros((b, skv, h, d))
+    dv = torch.zeros((b, skv, h, d))
+    for k0 in range(0, skv, keys):
+        ks = slice(k0, k0 + keys)
+        for r0 in range(0, sq + pad_q, rows):
+            rs = slice(r0, r0 + rows)
+            s = torch.einsum("bqhd,bkhd->bhqk", qp[:, rs], k[:, ks])
+            p = torch.exp(s * d ** -0.5 - lsep[..., rs, None])
+            dp = torch.einsum("bqhd,bkhd->bhqk", dop[:, rs], v[:, ks])
+            ds = p * (dp - deltap[..., rs, None])
+            dv[:, ks] += torch.einsum("bhqk,bqhd->bkhd", p, dop[:, rs])
+            dk[:, ks] += torch.einsum("bhqk,bqhd->bkhd", ds, qp[:, rs])
+    return dk * d ** -0.5, dv
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("b,sq,skv,h", [(1, 90, 90, 2), (2, 70, 133, 1)])
+def test_dkv_tail_tiling_matches_plain(b, sq, skv, h, negative):
+    """The dK/dV kernel's tail (emulated in fp32): queries past Sq, read as
+    zero rows with lse = +inf and delta = 0, have p = 0 and dS = 0 and add
+    nothing to dK and dV, also where every real lse is below -100 (an lse
+    read past its row could make their p = exp(-lse) inf, and inf times
+    their zero rows NaN)."""
+    q, k, v, out, lse, do = _bwd_inputs(b, sq, skv, h, sq * skv, negative)
+    delta = (do * out).sum(-1).transpose(1, 2)
+    dk, dv = _tiled_dkv(q, k, v, do, lse, delta)
+    _, want_dk, want_dv = tfa.flash_attention_bwd_reference(q, k, v, out,
+                                                            lse, do)
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    np.testing.assert_allclose(dk.numpy(), want_dk.numpy(), atol=2e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(dv.numpy(), want_dv.numpy(), atol=2e-5,
+                               rtol=1e-4)

@@ -185,8 +185,8 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bf16"):
         fa.flash_attention(q.float(), q.float(), q.float())
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fa.flash_attention(q[:, :100], q[:, :100], q[:, :100])
+    with pytest.raises(ValueError, match="sequences"):
+        fa.flash_attention(q[:, :0], q[:, :0], q[:, :0])
     small = torch.zeros((1, 128, 2, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="B, S, H, 64"):
         fa.flash_attention(small, small, small)
@@ -401,6 +401,58 @@ def test_flash_bwd_dq_kernel_with_strongly_negative_lse(cuda, b, sq, skv, h):
     assert (err <= 1e-5 * prod.abs().sum(-1).transpose(1, 2)).all()
     again, again_delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
     assert torch.equal(dq, again) and torch.equal(delta, again_delta)
+
+
+_TAIL_SHAPES = [
+    (1, 4250, 4250, 24),              # MMDiT's joint attention at 1,024px
+    (1, 4096, 4250, 4),               # its last block: image queries only
+    (2, 300, 277, 2),                 # both lengths ragged, a short tail
+    (1, 1025, 1089, 3),               # one row and one key past a tile
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h", _TAIL_SHAPES)
+def test_flash_tail_kernels_match_plain(cuda, b, sq, skv, h):
+    """Lengths that are not multiples of 64: the forward, dQ and dK/dV
+    kernels mask the ragged last tile, match the plain versions within the
+    whole-tile bounds, and count each launch in its tail counter."""
+    q, k, v, _, _, do = _flash_bwd_case(b, sq, skv, h, cuda)
+    tails = (fa.launches_tail, fa.launches_bwd_dq_tail,
+             fa.launches_bwd_dkv_tail)
+    before = [c.value for c in tails]
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert [c.value for c in tails] == [n + 1 for n in before]
+    want_out, want_lse = fa.flash_attention_reference(q, k, v)
+    _assert_flash_out_close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, **_FA_LSE_TOL)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for a, w in zip(got, again):                      # no atomics
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [(1, 300, 277, 3), (2, 1025, 1089, 2)])
+def test_flash_tail_bwd_with_strongly_negative_lse(cuda, b, sq, skv, h):
+    """Every lse below -100: a padded key's p = exp(0 - lse) would be inf
+    against its zero K row, and a padded query's against its zero Q and dO
+    rows; the tail kernels give those dS = 0, so dQ, dK and dV stay finite
+    and match the plain backward."""
+    q = _randn((b, sq, h, 64), 10, torch.bfloat16, cuda, shift=-5.0)
+    k = _randn((b, skv, h, 64), 11, torch.bfloat16, cuda, shift=5.0)
+    v = _randn((b, skv, h, 64), 12, torch.bfloat16, cuda)
+    do = _randn((b, sq, h, 64), 13, torch.bfloat16, cuda)
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    assert lse.max().item() < -100
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
 
 
 def test_flash_bwd_op_launches_one_dq_and_one_dkv(cuda):
