@@ -32,6 +32,12 @@ Phases, each raising on failure (exit code 1):
      and backward (256px batch 16), and all 22 of one VAE encode (256px
      batch 16, 512px batch 1), each set replayed from one CUDA graph,
      beside its summed byte bound;
+ 3b. the fused AdamW (+ EMA) kernel against the plain version's foreach
+     passes over the SD2 UNet's 865.9M trainable values (with and without
+     the EMA) and the MMDiT's 2.03B: p, mu, nu and e bit-equal after one
+     update from the same state, the kernel's time beside its byte bound
+     and the foreach passes' time,
+     and its bandwidth;
   4. serve: the full-width SD-2-base endpoint (random weights from a seed).
      Its UNet, VAE decoder and VAE encoder (posterior mean and logvar of a
      64x64 image) first run against an fp32 CPU copy of themselves on a
@@ -601,6 +607,100 @@ def _unet_group_norm_phase(card: str) -> dict:
               f"[{card}]")
         out[what] = (ms, bound)
         del calls
+    return out
+
+
+def _adamw_case(shapes, seed: int, ema: bool):
+    """Fresh optimizer state over parameters of `shapes` on the card, each
+    its own allocation as a model's are: p, g, mu, nu (and e) fp32, nu and
+    e as an Adam state and an EMA tracking the weights hold them."""
+    import torch
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(scale=1.0):
+        return [torch.randn(s, generator=gen, device=dev).mul_(scale)
+                for s in shapes]
+
+    p, g, mu, nu = draw(), draw(1e-2), draw(1e-3), draw(1e-3)
+    for v in nu:
+        v.square_()
+    e = None
+    if ema:
+        e = draw(1e-2)
+        for a, b in zip(e, p):
+            a.add_(b)
+    return p, g, mu, nu, e
+
+
+def _adamw_phase(card: str) -> dict:
+    """The fused AdamW (+ EMA) kernel (`ops/adamw.py::adamw_cuda`) against
+    the plain version's foreach passes (`adamw_reference`) over the SD2
+    UNet's 865.9M trainable values, with and without the EMA, and the
+    MMDiT's 2.03B (shapes from the models built on the meta device): one
+    update from the same state on each side (p, mu, nu and e must be
+    bit-equal), then each
+    timed with CUDA events (5 updates after one), beside the bound (28
+    bytes a parameter, 36 with the EMA, over 3.35 TB/s), the achieved
+    bandwidth and the wrapper's host time a call (checks, pointers,
+    launches). Returns {what: (ms, bound_ms, foreach_ms)}."""
+    import torch
+
+    from diffusion_torch.models.models import (stable_diffusion_2,
+                                               stable_diffusion_3)
+    from diffusion_torch.ops import adamw as ka
+    from diffusion_torch.train.optim import _bias_correction
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    lists = {}
+    for name, build in (("sd2 unet", lambda: stable_diffusion_2(
+            precomputed_latents=True, device="meta")),
+            ("sd3 mmdit", lambda: stable_diffusion_3(device="meta"))):
+        lists[name] = [tuple(q.shape) for q in build().unet.parameters()
+                       if q.requires_grad]
+    kw = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              bc1=_bias_correction(0.9, 1000),
+              bc2=_bias_correction(0.999, 1000), smoothing=0.9999)
+    out = {}
+    for what, shapes, ema in (("sd2 unet", lists["sd2 unet"], False),
+                              ("sd2 unet + ema", lists["sd2 unet"], True),
+                              ("sd3 mmdit", lists["sd3 mmdit"], False)):
+        n = sum(math.prod(s) for s in shapes)
+        p, g, mu, nu, e = _adamw_case(shapes, 7, ema)
+        # the plain side's copy shares g, which neither side writes
+        ref = [[t.clone() for t in ts] for ts in (p, mu, nu)] + [
+            [t.clone() for t in e] if ema else None]
+        before = ka.launches.value
+        ka.adamw_cuda(p, g, mu, nu, e, **kw)
+        launched = ka.launches.value - before
+        ka.adamw_reference(ref[0], g, ref[1], ref[2], ref[3], **kw)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for got, want in zip(
+            (p, mu, nu, e or ()), (*ref[:3], ref[3] or ()))
+            for a, b in zip(got, want))
+        _check(equal, f"adamw kernel ({what}): p, mu, nu or e differ from "
+                      f"the foreach passes")
+        ms = _time_ms(lambda: ka.adamw_cuda(p, g, mu, nu, e, **kw),
+                      iters=5, warmup=1)
+        foreach_ms = _time_ms(lambda: ka.adamw_reference(
+            ref[0], g, ref[1], ref[2], ref[3], **kw), iters=5, warmup=1)
+        host_us = _host_us(lambda: ka.adamw_cuda(p, g, mu, nu, e, **kw),
+                           iters=5)
+        nbytes = (36 if ema else 28) * n
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"kernel adamw_ema_foreach {what}: {n / 1e6:.1f}M values in "
+              f"{len(shapes)} tensors, {launched} launches; p/mu/nu"
+              f"{'/e' if ema else ''} bit-equal to the foreach passes "
+              f"{equal}; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / 1e9:.2f} GB), {nbytes / ms / 1e9:.3f} TB/s "
+              f"({100 * nbytes / ms * 1e3 / PEAK_BYTES_PER_S:.1f}% of 3.35); "
+              f"foreach passes {foreach_ms:.4f} ms; the wrapper's host "
+              f"time {host_us:.0f} us a call [{card}]")
+        out[what] = (ms, bound, foreach_ms)
+        del p, g, mu, nu, e, ref
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4445,11 +4545,11 @@ class TpRecord:
             opt = state.train_state.optimizer
             names, step = list(state.train_state.params), opt.step
 
-            def recording(grad_norm=None, grads=None):
+            def recording(grad_norm=None, grads=None, **ema):
                 if self.grads is None:
                     self.grads = {n: g.detach().float().cpu()
                                   for n, g in zip(names, grads)}
-                return step(grad_norm=grad_norm, grads=grads)
+                return step(grad_norm=grad_norm, grads=grads, **ema)
             opt.step = recording
             loss_fn = state.model.loss_fn
 
@@ -5728,6 +5828,8 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     kernels = _kernel_phase(card, parent)
     _unet_group_norm_phase(card)
+    # 3b. the fused AdamW (+ EMA) pass
+    _adamw_phase(card)
 
     # 4. serve
     t0 = time.perf_counter()

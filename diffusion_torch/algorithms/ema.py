@@ -5,9 +5,10 @@ Counterpart of `diffusion_tpu/algorithms/ema.py`: half-life -> smoothing
 the EMA copies the weights until averaging begins), the update after every
 optimizer step (smoothing 1 on steps off the update interval, and on a
 skipped non-finite step), and `swap_in`/`swap_out` of the EMA weights with
-the training weights. The trainer applies `apply_ema` right after the
-update, as the JAX train step does; this object owns the configuration,
-the swaps and the state flags.
+the training weights. The trainer hands the EMA and the step's smoothing
+to the optimizer's step, which updates it right after the weights, as the
+JAX train step does (on the card in the same kernel pass); this object
+owns the configuration, the swaps and the state flags.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from diffusion_torch.ops.adamw import ema_reference
 from diffusion_torch.train.events import Algorithm, Event
 from diffusion_torch.utils.time import Time, TimeUnit, time_to_batches
 
@@ -35,14 +37,12 @@ def ema_smoothing_for_step(step: int, smoothing: float, ema_start: int,
 def apply_ema(ema_params: Dict[str, torch.Tensor],
               params: Dict[str, torch.Tensor], eff_smoothing: float) -> None:
     """In place: e = s * e + (1 - s) * p, all fp32 (the port's parameters
-    and EMA copies are fp32)."""
-    if eff_smoothing == 1.0:
-        return
+    and EMA copies are fp32), by two foreach passes. The Trainer hands the
+    EMA to the optimizer's step instead (`AdamW.step(ema=, smoothing=)`),
+    which computes the same after the update."""
     names = list(ema_params)
-    ema = [ema_params[n] for n in names]
-    torch._foreach_mul_(ema, eff_smoothing)
-    torch._foreach_add_(ema, [params[n] for n in names],
-                        alpha=1.0 - eff_smoothing)
+    ema_reference([ema_params[n] for n in names],
+                  [params[n] for n in names], eff_smoothing)
 
 
 class EMA(Algorithm):

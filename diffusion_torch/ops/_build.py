@@ -35,7 +35,8 @@ __all__ = ["LaunchCounter", "library", "library_path", "build_log",
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "diffusion_torch")
-_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu")
+_SOURCES = ("adamw.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+            "group_norm.cu")
 _HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "dt_group_norm_bwd": [*[_P] * 11, *[_I] * 12, _P],
     "dt_group_norm_fwd_stage": [*[_P] * 7, *[_I] * 10, _F, _I, _I, _I, _P],
     "dt_group_norm_bwd_stage": [*[_P] * 13, *[_I] * 13, _P],
+    "dt_adamw_ema_foreach": [_P, _P, _P, _I, _I, _I, _P, *[_F] * 12, _P],
 }
 
 

@@ -20,7 +20,10 @@ step for step:
   update count, which starts at 0 and advances only when an update is
   applied (a skipped non-finite step leaves it where it was);
 - ``mu_dtype="bfloat16"`` keeps the first moment in bf16, computing in
-  fp32 and casting after the update, as optax does.
+  fp32 and casting after the update, as optax does;
+- on CUDA tensors one kernel pass over every parameter computes the same
+  update, and the EMA of the weights where the step is handed one
+  (`ops/adamw.py`); on CPU tensors the plain version's foreach passes do.
 
 The schedules are the JAX module's numpy versions, copied (they import no
 jax); 'Time' strings resolve against `max_duration`/`batches_per_epoch`.
@@ -34,6 +37,10 @@ from typing import Callable, Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from diffusion_torch.ops.adamw import (adamw_cuda, adamw_reference,
+                                       ema_reference)
+from diffusion_torch.utils.device import kernel_device_type
+from diffusion_torch.utils.profiler import span
 from diffusion_torch.utils.time import time_to_batches
 
 __all__ = ["AdamW", "adamw", "build_optimizer", "global_norm",
@@ -137,63 +144,45 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None,
-             grads: Optional[List[torch.Tensor]] = None) -> None:
+             grads: Optional[List[torch.Tensor]] = None,
+             ema: Optional[List[torch.Tensor]] = None,
+             smoothing: float = 1.0) -> None:
         """One update from the parameters' `.grad`, or `grads` in their
-        order (clipped in place); `grad_norm` is their global norm when the
-        caller has it already. Moments and parameters update in place, so
-        the step holds two parameter-sized temporaries at most."""
+        order (left as they are); `grad_norm` is their global norm when the
+        caller has it already. With `ema` (a tensor for each parameter, in
+        their order), the EMA e = s e + (1 - s) p of the updated parameters
+        follows at `smoothing` s (none at s = 1). Moments, parameters and
+        EMA update in place: on CUDA tensors by one kernel pass
+        (`ops/adamw.py::adamw_cuda`, in a `fused_update` span), on CPU
+        tensors by the plain version (the EMA in an `ema` span)."""
         if grads is None:
             grads = [p.grad for p in self.params]
-        if self.grad_clip_norm:
-            if grad_norm is None:
-                grad_norm = global_norm(grads)
-            # g / ||g|| * c where ||g|| >= c, else g / 1 * 1: no host sync
-            clip = grad_norm >= self.grad_clip_norm
-            one = torch.ones_like(grad_norm)
-            torch._foreach_div_(grads, torch.where(clip, grad_norm, one))
-            torch._foreach_mul_(grads, torch.where(
-                clip, torch.full_like(grad_norm, self.grad_clip_norm), one))
+        if ema is not None and len(ema) != len(self.params):
+            raise ValueError(f"{len(ema)} EMA tensors for "
+                             f"{len(self.params)} parameters")
+        clip = self.grad_clip_norm or None
+        if clip and grad_norm is None:
+            grad_norm = global_norm(grads)
         lr = self.lr_at(self.count)
         self.count += 1
-        b1, b2 = self.b1, self.b2
-        # nu = (1 - b2) (g g) + b2 nu
-        tmp = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(tmp, 1.0 - b2)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, tmp)
-        # mu = (1 - b1) g + b1 mu. JAX's promotion: b1 * mu runs in mu's
-        # dtype with b1 rounded to it (a weakly typed scalar), the sum in
-        # fp32 even when mu is kept in bf16
-        tmp = torch._foreach_mul(grads, 1.0 - b1)
-        if self.mu[0].dtype == torch.float32:
-            mu = self.mu
-            torch._foreach_mul_(mu, b1)
+        kw = dict(lr=lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                  weight_decay=self.weight_decay,
+                  bc1=_bias_correction(self.b1, self.count),
+                  bc2=_bias_correction(self.b2, self.count),
+                  grad_norm=grad_norm, clip=clip)
+        kind = kernel_device_type(self.params[0].device)
+        if kind == "cuda":
+            with span("fused_update"):
+                adamw_cuda(self.params, grads, self.mu, self.nu, ema,
+                           smoothing=smoothing, **kw)
+        elif kind == "cpu":
+            adamw_reference(self.params, grads, self.mu, self.nu, **kw)
+            if ema is not None:
+                with span("ema"):
+                    ema_reference(ema, self.params, smoothing)
         else:
-            mu = [m.float() for m in torch._foreach_mul(
-                self.mu, torch.tensor(b1, dtype=self.mu[0].dtype).item())]
-        torch._foreach_add_(mu, tmp)
-        del tmp
-        # update = mu_hat / (sqrt(nu_hat) + eps), the corrections in fp32
-        update = torch._foreach_div(mu, _bias_correction(b1, self.count))
-        denom = torch._foreach_div(self.nu, _bias_correction(b2, self.count))
-        if denom[0].device.type == "cpu":
-            # torch's vectorized fp32 sqrt on the CPU is not correctly
-            # rounded (XLA's and CUDA's are): round it from fp64
-            for d in denom:
-                d.copy_(d.double().sqrt_())
-        else:
-            torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_div_(update, denom)
-        del denom
-        # + weight_decay * p, then * -lr, then p + update
-        torch._foreach_add_(update, torch._foreach_mul(self.params,
-                                                       self.weight_decay))
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(self.params, update)
-        if mu is not self.mu:
-            for old, new in zip(self.mu, mu):
-                old.copy_(new)
+            raise ValueError(f"AdamW runs on CUDA or CPU tensors, not "
+                             f"{self.params[0].device}")
 
 
 def _bias_correction(decay: float, count: int) -> float:

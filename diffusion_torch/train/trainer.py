@@ -31,7 +31,9 @@ index, from BEFORE_DATALOADER to the end of its loop body (events, logging,
 eval and checkpoints included). Inside it: `data` (the loader's next batch
 on the device); per microbatch `forward` (its draws and `loss_fn`) and
 `backward`; `update` (the gradients' average, the global norm, the
-non-finite test, the optimizer, and `ema` inside it).
+non-finite test, and the optimizer's step with the EMA: on the card one
+kernel pass in a `fused_update` span inside it, on the CPU the plain
+version with the EMA's own `ema` span).
 
 On one CUDA device, with precomputed latents and a UNet that does not
 drop, the microbatches' forward and backward are replayed
@@ -154,8 +156,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
 import numpy as np
 import torch
 
-from diffusion_torch.algorithms.ema import (EMA, apply_ema,
-                                            ema_smoothing_for_step)
+from diffusion_torch.algorithms.ema import EMA, ema_smoothing_for_step
 from diffusion_torch.metrics.base import all_hosts_sum
 from diffusion_torch.metrics.generation_metrics import (
     GENERATION_METRICS, GenerationMetricsHook)
@@ -491,14 +492,17 @@ class Trainer:
                 metrics["trainer/nonfinite_skipped"] = torch.tensor(
                     0.0 if ok else 1.0)
             if ok:
-                ts.optimizer.step(grad_norm=gnorm, grads=grads)
-            if ts.ema_params is not None:
-                with span("ema"):
+                # the EMA follows the update in the optimizer's step (a
+                # skipped step leaves both the weights and the EMA)
+                ema, eff = None, 1.0
+                if ts.ema_params is not None:
+                    ema = [ts.ema_params[n] for n in ts.params]
                     eff = ema_smoothing_for_step(
                         ts.step, self.ema_algorithm.smoothing(),
                         self.state.ema_start_batch,
                         int(self.ema_algorithm.update_interval.value))
-                    apply_ema(ts.ema_params, ts.params, eff if ok else 1.0)
+                ts.optimizer.step(grad_norm=gnorm, grads=grads, ema=ema,
+                                  smoothing=eff)
             for p in params:
                 p.grad = None
         ts.step += 1

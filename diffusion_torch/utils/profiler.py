@@ -16,7 +16,9 @@ none is open starts a record (`StepRecord`), which holds it and every span
 opened inside it, and which the recorder keeps once the span closes: the
 last `MAX_STEPS`, in memory only. The Trainer opens one `step` span a
 batch, keyed by its step index, with `data`, `forward` and `backward` (one
-a microbatch), `update` and its `ema` inside; on a raw batch, `forward`
+a microbatch), `update` and inside it `fused_update` (the optimizer's
+kernel pass, EMA included, on the card) or `ema` (the plain EMA pass on
+the CPU); on a raw batch, `forward`
 holds `StableDiffusion.forward`'s `encode` (the VAE and CLIP towers' encode).
 A record also holds how far
 the kernel wrappers' host time (`LaunchCounter.total_host_ns`) grew while

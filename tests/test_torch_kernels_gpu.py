@@ -516,6 +516,124 @@ def test_flash_bwd_kernel_raises_on_what_it_does_not_take(cuda):
         fa.flash_attention_bwd_cuda(q, k, v, out[:, :64], lse, do[:, :64])
 
 
+# the fused AdamW (+ EMA) kernel's list: 1-element, odd-length and
+# non-multiple-of-4 tensors, one of several million values, and (last) a
+# view 4 bytes past a 16-byte boundary, which takes the scalar path
+_ADAMW_SHAPES = [(1,), (7,), (1023,), (3, 333), (2_000_003, 2), (129, 65),
+                 (4099,)]
+
+
+def _adamw_list(seed, device, dtype=torch.float32, scale=1.0):
+    out = []
+    for i, shape in enumerate(_ADAMW_SHAPES):
+        x = _randn(shape, seed * 100 + i, torch.float32, device) * scale
+        if i < len(_ADAMW_SHAPES) - 1:
+            out.append(x.to(dtype))
+            continue
+        buf = torch.empty(x.numel() + 1, device=device, dtype=dtype)
+        view = buf[1:].view(shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == buf.element_size()
+        out.append(view)
+    return out
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("smoothing", [None, 0.0, 0.9999],
+                         ids=["noema", "ema0", "ema0.9999"])
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16],
+                         ids=["mu32", "mubf16"])
+def test_adamw_kernel_matches_plain(cuda, mu_dtype, smoothing, clip):
+    """Three updates by the kernel against the plain version's foreach
+    passes from the same state: p, mu, nu and the EMA bit for bit. Two
+    foreach operators round otherwise than one operation at a time, and
+    the kernel rounds as they do: `_foreach_div(mu, bc1)` (and nu's) is a
+    product with bc's fp32 reciprocal, and `_foreach_add_(ema, params,
+    alpha=1 - s)` one fused multiply-add."""
+    from diffusion_torch.ops import adamw as ka
+    from diffusion_torch.train.optim import _bias_correction, global_norm
+
+    sides = []
+    for fn in (ka.adamw_cuda, ka.adamw_reference):
+        p = _adamw_list(0, cuda)
+        mu = _adamw_list(1, cuda, mu_dtype, scale=0.01)
+        nu = _adamw_list(2, cuda)
+        for v in nu:
+            v.abs_().mul_(1e-4)
+        ema = None
+        if smoothing is not None:
+            # an EMA that tracks the weights
+            ema = _adamw_list(3, cuda)
+            for e, w in zip(ema, p):
+                e.mul_(0.01).add_(w)
+        for step in range(1, 4):
+            g = _adamw_list(10 + step, cuda, scale=0.1 * step)
+            norm = global_norm(g)
+            c = float(norm) * (0.5 if clip else 2.0)
+            before = ka.launches.value
+            fn(p, g, mu, nu, ema, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+               weight_decay=0.01, bc1=_bias_correction(0.9, step),
+               bc2=_bias_correction(0.999, step), grad_norm=norm, clip=c,
+               smoothing=1.0 if smoothing is None else smoothing)
+            torch.cuda.synchronize()
+            if fn is ka.adamw_cuda:
+                assert ka.launches.value == before + 1
+        sides.append((p, mu, nu, ema))
+    (p, mu, nu, ema), (p0, mu0, nu0, ema0) = sides
+    for got, want in ((p, p0), (mu, mu0), (nu, nu0)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    if ema is not None:
+        for a, b in zip(ema, ema0):
+            assert torch.equal(a, b)
+
+
+def test_adamw_kernel_splits_long_lists(cuda):
+    """600 tensors take two launches (512 a launch at most), equal to the
+    plain version bit for bit."""
+    from diffusion_torch.ops import adamw as ka
+
+    def make(seed):
+        x = _randn((600, 37), seed, torch.float32, cuda)
+        return [r.clone() for r in x]
+
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              bc1=0.1, bc2=0.001)
+    sides = []
+    for fn in (ka.adamw_cuda, ka.adamw_reference):
+        p, g, mu, nu = make(0), make(1), make(2), [v.abs() for v in make(3)]
+        before = ka.launches.value
+        fn(p, g, mu, nu, **kw)
+        torch.cuda.synchronize()
+        sides.append((p, mu, nu, ka.launches.value - before))
+    assert sides[0][3] == 2 and sides[1][3] == 0
+    for got, want in zip(sides[0][:3], sides[1][:3]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_adamw_kernel_raises_on_what_it_does_not_take(cuda):
+    from diffusion_torch.ops import adamw as ka
+
+    def lists():
+        return [[torch.ones(5, device=cuda)] for _ in range(4)]
+
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              bc1=0.1, bc2=0.001)
+    p, g, mu, nu = lists()
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ka.adamw_cuda(p, g, [mu[0].half()], nu, **kw)
+    with pytest.raises(ValueError, match="grads"):
+        ka.adamw_cuda(p, [g[0].cpu()], mu, nu, **kw)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ka.adamw_cuda(p, g, mu, [torch.ones(10, device=cuda)[::2]], **kw)
+    with pytest.raises(ValueError, match="params"):
+        ka.adamw_cuda([p[0].double()], g, mu, nu, **kw)
+    with pytest.raises(ValueError, match="size of its parameter"):
+        ka.adamw_cuda(p, [torch.ones(6, device=cuda)], mu, nu, **kw)
+    with pytest.raises(ValueError, match="norm"):
+        ka.adamw_cuda(p, g, mu, nu, clip=1.0, **kw)
+
+
 def test_tiny_trainer_on_card_matches_cpu(cuda):
     """Two steps of the port's Trainer on the tiny model (fp32: every
     GroupNorm forward and backward runs the kernels inside autograd) on the

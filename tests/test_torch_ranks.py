@@ -262,9 +262,9 @@ def _record_updates(trainer, rec):
     names = list(trainer.train_state.params)
     rec.grads, rec.nu = [], []
 
-    def recording_step(grad_norm=None, grads=None):
+    def recording_step(grad_norm=None, grads=None, **ema):
         rec.grads.append(dict(zip(names, _whole(trainer, grads))))
-        step(grad_norm=grad_norm, grads=grads)
+        step(grad_norm=grad_norm, grads=grads, **ema)
         rec.nu.append(dict(zip(names, _whole(trainer, opt.nu))))
     opt.step = recording_step
 
