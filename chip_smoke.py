@@ -9,16 +9,14 @@ Phases, each raising on failure (exit code 1):
   2. build: the CUDA kernels from diffusion_torch/csrc with one nvcc call;
      each kernel's ptxas registers, shared memory and spills, with no
      spills allowed in the wgmma kernels (flash forward, dQ and dK/dV);
-     with --parent DIR, also the parent tree's flash backward source,
-     alongside;
   3. kernels: each of the five kernels (GroupNorm forward and backward,
      flash-attention forward, dQ and dK/dV) against its plain PyTorch
      version in bf16 at the main paths' shapes, with the max-abs error
      beside its bound, and each one's time beside the plain version's, the
      library call's for the same function (timed only, never used by the
-     port) and the card's bound for the work (CUDA events), the device
-     time alone (launches replayed from a CUDA graph; with --parent, the
-     parent's dQ kernel in turns) and the wrapper's host time per call;
+     port) and the card's bound for the work (`portbench.flops.bound_s`;
+     CUDA events), the device time alone (launches replayed from a CUDA
+     graph) and the wrapper's host time per call;
      for the flash kernels also TFLOP/s, and dQ + dK/dV beside SDPA's
      flash backward in a CUDA graph (the backward at 256px batch 16 and
      at 512px batch 4 and 8, the 512 recipe's microbatch). The three flash
@@ -47,9 +45,10 @@ Phases, each raising on failure (exit code 1):
      latents before the decode, and both forward kernels' launch counters
      above zero for that run;
   5. times: one UNet CFG step and each request's latency (one more CFG
-     step at batch 4 runs under torch.profiler for the device's busy time,
-     idle share and time by kernel category at the very end, after every
-     timed phase);
+     step at batch 4 runs under torch.profiler at the very end, after every
+     timed phase: the device's busy time, idle share and time by kernel
+     category, read by `portbench.trace.read_trace`, so the idle share is
+     over the profiled window's wall time, as the benchmark's);
  5b. img2img and inpainting on the same endpoint: one VAE encode's
      GroupNorm calls (all 22 through the kernel's wrapper) and the
      encode's time at 512px batch 2 and 256px batch 16 (CUDA events);
@@ -81,9 +80,7 @@ Phases, each raising on failure (exit code 1):
      for the fit; step 0 eager (the warm-up), step 1 capturing the step's
      CUDA graph, steps 2-5 replaying it (`utils.profiler.step_graph`);
      the replayed steps' time, samples/s, peak memory, launches per step
-     (every step's, a replay's being its captured nodes); then a new
-     3-step fit whose replayed third step runs under torch.profiler for
-     the device's busy time, idle share and time by kernel category;
+     (every step's, a replay's being its captured nodes);
   8. composed run: the unedited yamls/SD-2-base-256.yaml composed through
      diffusion_torch's config loader with dotted overrides only (global
      batch 32, the LAION reader over precomputed-latent MDS shards that the
@@ -290,18 +287,13 @@ Phases, each raising on failure (exit code 1):
 The last three lines are the kernels' JSON summary, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
 Exits with code 2, printing no result, when no CUDA device is present.
-
-    python3 chip_smoke.py --parent build/parent
-
-times the parent commit's flash dQ kernel in turns with this tree's (unpack
-the parent there first: `git archive <commit> | tar -x -C build/parent`).
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
-import ctypes
+import contextlib
 import gc
 import io
 import json
@@ -334,9 +326,6 @@ SAMPLER_REQUESTS = (("dpm++2m", {"scheduler": "dpm++2m"}),
                                          "strength": IMG2IMG_STRENGTH}))
 DEVICE = "cuda:0"
 _ROOT = os.path.dirname(os.path.abspath(__file__))
-# NVIDIA H100 SXM peaks (data sheet; dense bf16 tensor cores, HBM3)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 
 
 def _card_line() -> str:
@@ -365,13 +354,12 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(flops: float, nbytes: float):
-    """(ms, what bounds it): the larger of the work over the card's bf16
-    peak and the bytes (each input read once, each output written once)
-    over its memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
+def _least_ms(flops: float, nbytes: float):
+    """(ms, what bounds it): the benchmark's `bound_s`, and which of the
+    two terms it compares, the operations' or the bytes', is the larger."""
+    from portbench.flops import bound_s
+    by = "operations" if bound_s(flops, 0) > bound_s(0, nbytes) else "bytes"
+    return bound_s(flops, nbytes) * 1e3, by
 
 
 def _nbytes(*tensors) -> int:
@@ -471,52 +459,6 @@ def _gn_library(x, scale, bias, act):
     return F.silu(y) if act else y
 
 
-class _ParentDq:
-    """The parent tree's dQ kernel, for timing in turns with this tree's:
-    the `csrc/flash_attention_bwd.cu` of a parent tree unpacked under `root`
-    (for example `git archive` of the parent commit into build/parent),
-    built alone with nvcc (its headers from its own csrc) into
-    build/parent_flash_dq/ and called through the C signature of this
-    tree's wrapper. The build starts in the constructor; `load()` waits for
-    it."""
-
-    def __init__(self, root: str):
-        from diffusion_torch.ops import _build
-        src = os.path.join(root, "diffusion_torch", "csrc",
-                           "flash_attention_bwd.cu")
-        self.out = os.path.join(os.path.dirname(_build.BUILD_DIR),
-                                "parent_flash_dq", "libflash_dq.so")
-        os.makedirs(os.path.dirname(self.out), exist_ok=True)
-        self.proc = subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-I", os.path.dirname(src),
-             "-o", self.out, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        self.fn = None
-
-    def load(self) -> None:
-        from diffusion_torch.ops import _build
-        log = self.proc.communicate()[0]
-        _check(self.proc.returncode == 0,
-               f"the parent's flash_attention_bwd.cu: {log}")
-        self.fn = ctypes.CDLL(self.out).dt_flash_attention_bwd_dq
-        self.fn.argtypes = _build._SIGNATURES["dt_flash_attention_bwd_dq"]
-        self.fn.restype = ctypes.c_int
-
-    def dq(self, q, k, v, out, lse, do):
-        """(dq, delta), as `flash_attention_bwd_dq_cuda` returns them."""
-        import torch
-        b, sq, h, d = q.shape
-        delta = torch.empty_like(lse)
-        dq = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
-        rc = self.fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), b, h, sq, k.shape[1],
-                     *[s for t in (q, k, v, out, do) for s in t.stride()[:3]],
-                     d ** -0.5, torch.cuda.current_stream().cuda_stream)
-        _check(rc == 0, f"the parent's dQ kernel: CUDA error {rc}")
-        return dq, delta
-
-
 def _sdpa_flash_bwd(qt, kt, vt, do_t):
     """SDPA's flash backward alone on (B, H, S, D) views (aten's op, which
     autograd calls after the flash forward), as a callable for a CUDA graph;
@@ -553,6 +495,7 @@ def _unet_group_norm_phase(card: str) -> dict:
     from diffusion_torch.models.unet import SD2_BASE_UNET, group_norm_shapes
     from diffusion_torch.models.vae import SD2_VAE, encoder_group_norm_shapes
     from diffusion_torch.ops import groupnorm as gn
+    from portbench.flops import bound_s
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -580,7 +523,7 @@ def _unet_group_norm_phase(card: str) -> dict:
                                                act)
             calls.append((x, g, scale, bias, mean, rstd, act))
         nbytes = sum((3 if backward else 2) * _nbytes(x) for x, *_ in calls)
-        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = bound_s(0, nbytes) * 1e3
 
         def ours():
             for x, g, scale, bias, mean, rstd, act in calls:
@@ -650,6 +593,7 @@ def _adamw_phase(card: str) -> dict:
                                                stable_diffusion_3)
     from diffusion_torch.ops import adamw as ka
     from diffusion_torch.train.optim import _bias_correction
+    from portbench.flops import PEAK_BYTES_PER_S, bound_s
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -688,7 +632,7 @@ def _adamw_phase(card: str) -> dict:
         host_us = _host_us(lambda: ka.adamw_cuda(p, g, mu, nu, e, **kw),
                            iters=5)
         nbytes = (36 if ema else 28) * n
-        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = bound_s(0, nbytes) * 1e3
         print(f"kernel adamw_ema_foreach {what}: {n / 1e6:.1f}M values in "
               f"{len(shapes)} tensors, {launched} launches; p/mu/nu"
               f"{'/e' if ema else ''} bit-equal to the foreach passes "
@@ -714,22 +658,10 @@ def _lengths(sq: int, skv: int, tails: int) -> str:
     return text
 
 
-def _graph_turns(case, fn, parent_fn) -> None:
-    """case["graph_ms"] from `fn` and, where the parent's kernels were
-    built, case["parent_graph_ms"] from `parent_fn`, timed in turns (parent,
-    this tree, this tree, parent); each the mean of its two."""
-    if parent_fn is None:
-        case["graph_ms"] = _graph_ms(fn)
-        return
-    a, b, c, d = (_graph_ms(f) for f in (parent_fn, fn, fn, parent_fn))
-    case["graph_ms"], case["parent_graph_ms"] = (b + c) / 2, (a + d) / 2
-
-
-def _kernel_phase(card: str, parent=None):
+def _kernel_phase(card: str):
     """Each kernel against its plain version at the main paths' shapes;
     returns {kernel: [case, ...]}, a case being a dict of err, ms,
-    plain_ms, library_ms, bound_ms, bound_by. `parent`: the parent's dQ
-    kernel (`_ParentDq`), timed in turns with this tree's."""
+    plain_ms, library_ms, bound_ms, bound_by."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
@@ -749,9 +681,6 @@ def _kernel_phase(card: str, parent=None):
             f"; in a CUDA graph {case['graph_ms']:.4f} ms" + (
                 f" (library {case['library_graph_ms']:.4f} ms)"
                 if "library_graph_ms" in case else "")
-            + (f" (the parent's kernels {case['parent_graph_ms']:.4f} ms, "
-               f"{case['parent_graph_ms'] / case['graph_ms']:.2f}x)"
-               if "parent_graph_ms" in case else "")
             + f"; wrapper host time {case['host_us']:.1f} us per call"
             if "graph_ms" in case else "")
         print(f"kernel {name} {shape} bf16{extra}: {err_text}; "
@@ -783,7 +712,7 @@ def _kernel_phase(card: str, parent=None):
         bound = 2.0 ** -6 * ref.float().abs().max().item()
         stat_err = max((mean - ref_mean).abs().max().item(),
                        ((rstd - ref_rstd).abs() / ref_rstd).max().item())
-        bms, by = _bound(10 * x.numel(), 2 * _nbytes(x) + 3 * c * 4)
+        bms, by = _least_ms(10 * x.numel(), 2 * _nbytes(x) + 3 * c * 4)
         fn = lambda: gn.group_norm_cuda(x, scale, bias, 32, 1e-5, act)
         case = {"err": err, "bound_ms": bms, "bound_by": by,
                 "ms": _time_ms(fn),
@@ -822,7 +751,7 @@ def _kernel_phase(card: str, parent=None):
         lib_out = _gn_library(xl, sl, bl, act)
         g_nchw = g.view(lib_out.shape[0], lib_out.shape[2], lib_out.shape[3],
                         c).permute(0, 3, 1, 2)
-        bms, by = _bound(20 * x.numel(), 3 * _nbytes(x) + 7 * c * 4)
+        bms, by = _least_ms(20 * x.numel(), 3 * _nbytes(x) + 7 * c * 4)
         fn = lambda: gn.group_norm_bwd_cuda(x, scale, bias, mean, rstd, g,
                                             32, act)
         case = {"err": err, "bound_ms": bms, "bound_by": by,
@@ -863,7 +792,7 @@ def _kernel_phase(card: str, parent=None):
                   / ref_out.float().norm()).item()
         lse_err = (lse - ref_lse).abs().max().item()
         flops = 4 * b * h * s * skv * d
-        bms, by = _bound(flops, 2 * _nbytes(q) + 2 * _nbytes(k)
+        bms, by = _least_ms(flops, 2 * _nbytes(q) + 2 * _nbytes(k)
                          + _nbytes(lse))
         # the kernel's times first, before any CUDA graph is captured
         case = {"err": err, "bound_ms": bms, "bound_by": by,
@@ -942,24 +871,21 @@ def _kernel_phase(card: str, parent=None):
         delta_err = ((delta - prod.sum(-1).transpose(1, 2)).abs()
                      / prod.abs().sum(-1).transpose(1, 2)).max().item()
         graph = {}
-        for name, n_mm, nbytes, fn, (err, bound), theirs in (
+        for name, n_mm, nbytes, fn, (err, bound) in (
                 ("flash_attention_bwd_dq", 3,
                  4 * _nbytes(q) + 2 * _nbytes(k) + small,
                  lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do),
-                 errs[0],
-                 # the parent's kernels take whole tiles only
-                 parent and not ragged
-                 and (lambda: parent.dq(q, k, v, out, lse, do))),
+                 errs[0]),
                 ("flash_attention_bwd_dkv", 4,
                  2 * _nbytes(q) + 4 * _nbytes(k) + small,
                  lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse,
                                                          delta),
-                 max(errs[1:]), None)):
-            bms, by = _bound(n_mm * flops, nbytes)
+                 max(errs[1:]))):
+            bms, by = _least_ms(n_mm * flops, nbytes)
             case = {"err": err, "bound_ms": bms, "bound_by": by,
                     "ms": _time_ms(fn), "plain_ms": plain,
-                    "library_ms": lib_bwd, "host_us": _host_us(fn)}
-            _graph_turns(case, fn, theirs)
+                    "library_ms": lib_bwd, "host_us": _host_us(fn),
+                    "graph_ms": _graph_ms(fn)}
             case["tflops"] = n_mm * flops / case["ms"] / 1e9
             graph[name] = case["graph_ms"]
             delta_text = (f", delta relative err {delta_err:.3e} (bound "
@@ -1435,20 +1361,9 @@ def _train_phase(model, card: str):
 
     from diffusion_torch.algorithms.ema import EMA
     from diffusion_torch.ops import groupnorm as gn
-    from diffusion_torch.train.events import Callback
     from diffusion_torch.train.optim import adamw, multi_step_with_warmup
     from diffusion_torch.train.trainer import Trainer
     from diffusion_torch.utils.profiler import step_graph
-
-    class Record(Callback):
-        """Syncs on each step's metrics; keeps them and the host time."""
-
-        def __init__(self):
-            self.steps = []
-
-        def batch_end(self, state, logger):
-            m = {k: float(v) for k, v in state.metrics.items()}
-            self.steps.append((m, time.perf_counter(), state.lr))
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1461,7 +1376,7 @@ def _train_phase(model, card: str):
                for _ in range(TRAIN_STEPS)]
     initial = {n: p.detach().to("cpu", copy=True)
                for n, p in model.unet.named_parameters()}
-    record = Record()
+    record = ComposedRecord()
     trainer = Trainer(
         model=model, train_dataloader=batches,
         optimizers=adamw(lr=1e-4, weight_decay=0.01),
@@ -1489,12 +1404,7 @@ def _train_phase(model, card: str):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     ts = trainer.train_state
-    for i, (m, _, lr) in enumerate(record.steps):
-        print(f"train: step {i}: loss {m['loss/train/total']:.6f}, grad norm "
-              f"{m['grad/global_norm']:.6f}, lr {lr:.3e}")
-    _check(len(record.steps) == TRAIN_STEPS, "the fit ran too few steps")
-    _check(all(math.isfinite(v) for m, _, _ in record.steps
-               for v in m.values()), "a loss or grad norm is not finite")
+    _check_steps("train", record, TRAIN_STEPS, card)
     changed = {n: (p.detach().cpu() != initial[n]) for n, p in ts.params.items()}
     n_changed = sum(int(c.sum()) for c in changed.values())
     n_total = sum(c.numel() for c in changed.values())
@@ -1509,10 +1419,8 @@ def _train_phase(model, card: str):
           f"{ema_vs_init} and from the params in {ema_vs_params} elements")
     _check(n_changed > 0 and ema_vs_init > 0 and ema_vs_params > 0,
            "params or EMA did not change")
-    times = [b - a for (_, a, _), (_, b, _) in zip(record.steps,
-                                                   record.steps[1:])]
-    # times[0] is step 1's, the capture's
-    step_s = sum(times[1:]) / len(times[1:])
+    # step 1 captures the step's CUDA graph
+    times, step_s, _ = record.step_times(skip=(1,))
     print(f"train: SD-2-base {TRAIN_SIZE}px, global batch {TRAIN_BATCH} "
           f"({TRAIN_BATCH // TRAIN_MICRO} microbatches of {TRAIN_MICRO}), "
           f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s (step 0 "
@@ -1530,8 +1438,6 @@ def _train_phase(model, card: str):
     for name, n in launches.items():
         _check(n > 0, f"{name} kernel was not launched during the fit")
     trainer.close()     # frees the step's CUDA graph's memory pool
-    del trainer
-    _profile_phase(model, batches, card)
     return launches, step_s
 
 
@@ -1546,14 +1452,31 @@ def _counters() -> dict:
 
 
 class ComposedRecord:
-    """A callback for the composed run, named by a `_target_` in its
-    config: per step the metrics (synchronised), the step's end and the
-    wait on the dataloader; per eval its wall time (synchronised) and the
-    kernels' launches inside it."""
+    """The step record of every training run here (a yaml's names it by a
+    `_target_` override): per step the metrics (synchronised), the step's
+    end, the lr, the step's own time and the wait on the dataloader; per
+    eval its wall time (synchronised) and the kernels' launches inside it.
+    `_yaml_run` hands it the run's train loader (`loader`) when it builds
+    the trainer."""
+
+    loader = None
 
     def __init__(self):
         self.steps, self.waits, self.evals = [], [], []
         self._t = self._got = self._launches = None
+
+    def note(self, i: int) -> str:
+        """What step i's line adds: nothing here; a subclass's own record."""
+        return ""
+
+    def step_times(self, skip=()) -> tuple:
+        """(the step times, one step's end to the next's, from step 1 on;
+        their mean over the steps not in `skip`; the mean wait on the
+        loader after the first step's)."""
+        times = [b[1] - a[1] for a, b in zip(self.steps, self.steps[1:])]
+        kept = [t for i, t in enumerate(times, 1) if i not in skip]
+        return (times, sum(kept) / len(kept),
+                sum(self.waits[1:]) / len(self.waits[1:]))
 
     def run_event(self, event, state, logger) -> None:
         import torch
@@ -1584,6 +1507,107 @@ class ComposedRecord:
 
     def load_state_dict(self, d: dict) -> None:
         pass
+
+
+def _check_steps(label: str, record, steps: int, card: str) -> None:
+    """Print each step's line (loss, grad norm, lr, the wait on the loader,
+    the step's own time and the record's `note`) and check that `steps`
+    steps ran, every metric finite."""
+    for i, (m, _, lr, own) in enumerate(record.steps):
+        print(f"{label}: step {i}: loss {m['loss/train/total']:.6f}, grad "
+              f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
+              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
+              f"{own * 1e3:.1f} ms to the step's metrics{record.note(i)} "
+              f"[{card}]")
+    _check(len(record.steps) == steps, f"{label}: {len(record.steps)} "
+           f"steps, {steps} expected")
+    _check(all(math.isfinite(v) for m, *_ in record.steps
+               for v in m.values()),
+           f"{label}: a loss or grad norm is not finite")
+
+
+@contextlib.contextmanager
+def _patch(owner, name: str, wrap):
+    """`owner.name` replaced by `wrap(owner.name)` inside the block."""
+    real = getattr(owner, name)
+    setattr(owner, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _shape_spy(shapes: list):
+    """A `_patch` wrap for a flash entry point `f(q, k, v)` that appends
+    each call's (q shape, k shape) to `shapes`."""
+    def wrap(real):
+        def spy(q, k, v):
+            shapes.append((tuple(q.shape), tuple(k.shape)))
+            return real(q, k, v)
+        return spy
+    return wrap
+
+
+def _yaml_run(label: str, yaml_name: str, overrides: list, steps: int,
+              card: str, patches=(), cli: bool = False) -> tuple:
+    """Compose yamls/`yaml_name` with the dotted `overrides` (printed) and
+    run it by `train(config)`, or with `cli` by `diffusion_torch.run.main`
+    (the launch code of a torchrun rank), inside the context managers
+    `patches`; the launch counters and the peak memory reset right before.
+    The overrides name the run's ComposedRecord, which gets the train
+    loader when the trainer is built. Prints every step's line and checks
+    that `steps` steps ran, finite. Returns (trainer, record, the five
+    kernels' launches, wall s, peak GiB, the FileLogger's records where
+    the yaml logs to a file)."""
+    import torch
+
+    from diffusion_torch import run
+    from diffusion_torch.config import load_config, select
+    from diffusion_torch.train import train as train_mod
+
+    config = load_config(os.path.join(_ROOT, "yamls", yaml_name), overrides)
+    print(f"{label}: yamls/{yaml_name} with {len(overrides)} dotted "
+          f"overrides: {' '.join(overrides)}")
+    # WandBLogger is a no-op without wandb; with it, it stays offline
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    built = []
+
+    def hand_over(real):
+        def build(cfg):
+            built.append(real(cfg))
+            for c in built[-1].engine.callbacks:
+                if isinstance(c, ComposedRecord):
+                    c.loader = built[-1].train_dataloader
+            return built[-1]
+        return build
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for p in (_patch(train_mod, "build_trainer", hand_over), *patches):
+            stack.enter_context(p)
+        t0 = time.perf_counter()
+        if cli:
+            run.main(["--config-path", os.path.join(_ROOT, "yamls"),
+                      "--config-name", yaml_name, *overrides])
+        else:
+            train_mod.train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: c.value for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer = built[-1]
+    record = next(c for c in trainer.engine.callbacks
+                  if isinstance(c, ComposedRecord))
+    logged = []
+    metrics_file = select(config, "logger.file.filename")
+    if metrics_file:
+        with open(metrics_file) as f:
+            logged = [json.loads(line) for line in f]
+    _check_steps(label, record, steps, card)
+    return trainer, record, launches, wall, peak, logged
 
 
 def _write_laion_shards(path: str, n: int, rng, size: int = TRAIN_SIZE,
@@ -1663,41 +1687,18 @@ def _composed_phase(card: str, train_step_s: float):
     kernels' launch counts during the run and each step's metrics."""
     import tempfile
 
-    import torch
-
-    from diffusion_torch.config import load_config
     from diffusion_torch.data import native
-    from diffusion_torch.train.train import train
     from diffusion_torch.utils.profiler import step_graph
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_laion_") as tmp:
-        metrics_file = os.path.join(tmp, "metrics.jsonl")
-        overrides = _composed_overrides(tmp, "composed", metrics_file,
-                                        coco_eval=True)
-        config = load_config(os.path.join(_ROOT, "yamls",
-                                          "SD-2-base-256.yaml"), overrides)
-        print(f"composed: yamls/SD-2-base-256.yaml with {len(overrides)} "
-              f"dotted overrides: {' '.join(overrides)}")
-        # WandBLogger is a no-op without wandb; with it, it stays offline
-        os.environ.setdefault("WANDB_MODE", "disabled")
-        counters = _counters()
-        for c in counters.values():
-            c.reset()
-        torch.cuda.reset_peak_memory_stats()
+        overrides = _composed_overrides(tmp, "composed", os.path.join(
+            tmp, "metrics.jsonl"), coco_eval=True)
         graph0 = (step_graph.captures, step_graph.replays)
-        t0 = time.perf_counter()
-        trainer = train(config)
-        torch.cuda.synchronize()
+        trainer, record, launches, wall, peak, records = _yaml_run(
+            "composed", "SD-2-base-256.yaml", overrides, TRAIN_STEPS, card)
         graph = (step_graph.captures - graph0[0],
                  step_graph.replays - graph0[1])
-        wall = time.perf_counter() - t0
-        launches = {name: c.value for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        with open(metrics_file) as f:
-            records = [json.loads(line) for line in f]
 
-    record = next(c for c in trainer.engine.callbacks
-                  if type(c).__name__ == "ComposedRecord")
     model = trainer.model
     eval_set = type(trainer.evaluators[0].dataloader.dataset).__name__
     _check(eval_set == "StreamingCOCOCaption" and model.vae is not None,
@@ -1710,25 +1711,10 @@ def _composed_phase(card: str, train_step_s: float):
           f" batches an epoch, {trainer.train_dataloader.worker_type} workers);"
           f" algorithms {[type(a).__name__ for a in trainer.engine.algorithms]};"
           f" libdataio: {native.build_info()}")
-    for i, (m, _, lr, own) in enumerate(record.steps):
-        print(f"composed: step {i}: loss {m['loss/train/total']:.6f}, grad "
-              f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
-              f"{record.waits[i] * 1e3:.1f} ms on the dataloader, then "
-              f"{own * 1e3:.1f} ms to the step's metrics")
-    _check(trainer.state.timestamp.batch == TRAIN_STEPS
-           and len(record.steps) == TRAIN_STEPS,
-           "the composed run did not take its 6 batches")
-    _check(all(math.isfinite(v) for m, *_ in record.steps
-               for v in m.values()),
-           "a loss or grad norm of the composed run is not finite")
-    times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
     # the batch after the eval carries the eval, step 1 the CUDA graph's
     # capture (where it engaged): leave them out
-    train_times = [t for i, t in enumerate(times) if i + 1 != COMPOSED_EVAL_AT
-                   and not (i == 0 and graph[0])]
-    step_s = sum(train_times) / len(train_times)
-    waits = record.waits[1:]
-    wait_s = sum(waits) / len(waits)
+    times, step_s, wait_s = record.step_times(
+        skip=(COMPOSED_EVAL_AT, 1) if graph[0] else (COMPOSED_EVAL_AT,))
     owns = [st[3] for i, st in enumerate(record.steps)
             if i and i != COMPOSED_EVAL_AT]
     own_s = sum(owns) / len(owns)
@@ -1792,6 +1778,10 @@ class OnlineRecord(ComposedRecord):
         self.towers = {}
         self.towers_unchanged = self.towers_no_grad = None
         self._events, self._in_step = [], False
+
+    def note(self, i: int) -> str:
+        return (f"; the towers' encode spans {self.encode_ms[i]:.1f} ms of "
+                f"the stream")
 
     def _timed(self, fn):
         import torch
@@ -1887,43 +1877,22 @@ def _online_phase(card: str, composed: dict):
     import tempfile
 
     import numpy as np
-    import torch
 
-    from diffusion_torch.config import load_config
     from diffusion_torch.data.datapipes import (filter_samples, list_shards,
                                                 tar_samples)
     from diffusion_torch.data.filters import load_filter_strategy
     from diffusion_torch.text.tokenizer import tiny_tokenizer
-    from diffusion_torch.train.train import train
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wds_") as tmp:
-        metrics_file = os.path.join(tmp, "metrics.jsonl")
         overrides, manifest, strategy, flagged = _online_overrides(
-            tmp, metrics_file, card)
-        config = load_config(os.path.join(_ROOT, "yamls",
-                                          "SD-2-base-256-wds.yaml"), overrides)
-        print(f"online: yamls/SD-2-base-256-wds.yaml with {len(overrides)} "
-              f"dotted overrides: {' '.join(overrides)}")
+            tmp, os.path.join(tmp, "metrics.jsonl"), card)
         # what the filter keeps, read straight from the shards
         kept = {s["__key__"] for s in filter_samples(
             tar_samples(list_shards([], manifest=manifest)),
             load_filter_strategy(strategy))}
-        counters = _counters()
-        for c in counters.values():
-            c.reset()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer = train(config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: c.value for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        with open(metrics_file) as f:
-            records = [json.loads(line) for line in f]
-
-    record = next(c for c in trainer.engine.callbacks
-                  if type(c).__name__ == "OnlineRecord")
+        trainer, record, launches, wall, peak, records = _yaml_run(
+            "online", "SD-2-base-256-wds.yaml", overrides, TRAIN_STEPS, card)
     model = trainer.model
     print(f"online: model {type(model).__module__}.{type(model).__name__}, "
           f"precomputed_latents {model.precomputed_latents}, VAE "
@@ -1932,18 +1901,6 @@ def _online_phase(card: str, composed: dict):
           f" frozen, UNet compute {model.unet.dtype}; train loader "
           f"{type(trainer.train_dataloader).__module__}."
           f"{type(trainer.train_dataloader).__name__}")
-    for i, (m, _, lr, own) in enumerate(record.steps):
-        print(f"online: step {i}: loss {m['loss/train/total']:.6f}, grad norm"
-              f" {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
-              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
-              f"{own * 1e3:.1f} ms to the step's metrics; the towers' encode "
-              f"spans {record.encode_ms[i]:.1f} ms of the stream [{card}]")
-    _check(trainer.state.timestamp.batch == TRAIN_STEPS
-           and len(record.steps) == TRAIN_STEPS,
-           "the online-encode run did not take its 6 batches")
-    _check(all(math.isfinite(v) for m, *_ in record.steps
-               for v in m.values()),
-           "a loss or grad norm of the online-encode run is not finite")
     evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
     _check(len(evals) == 1 and evals[0]["step"] == COMPOSED_EVAL_AT
            and math.isfinite(evals[0]["metrics/eval/MeanSquaredError"]),
@@ -1966,10 +1923,7 @@ def _online_phase(card: str, composed: dict):
            and len(seen) == TRAIN_STEPS * TRAIN_BATCH,
            "the filter did not drop exactly the flagged samples")
 
-    times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
-    train_times = [t for i, t in enumerate(times) if i + 1 != COMPOSED_EVAL_AT]
-    step_s = sum(train_times) / len(train_times)
-    wait_s = sum(record.waits[1:]) / (len(record.waits) - 1)
+    times, step_s, wait_s = record.step_times(skip=(COMPOSED_EVAL_AT,))
     enc_ms = float(np.mean([e for i, e in enumerate(record.encode_ms) if i]))
     own_s = float(np.mean([st[3] for i, st in enumerate(record.steps)
                            if i and i != COMPOSED_EVAL_AT]))
@@ -2215,9 +2169,7 @@ def _checkpoint_runs(tmp: str, card: str, composed_steps: list,
 
     import torch
 
-    from diffusion_torch.config import load_config
     from diffusion_torch.train import checkpoint as ckpt
-    from diffusion_torch.train.train import train
     from diffusion_torch.utils import safetensors
 
     folder = os.path.join(tmp, "ckpt")
@@ -2226,24 +2178,14 @@ def _checkpoint_runs(tmp: str, card: str, composed_steps: list,
         f"trainer.save_folder={folder}",
         f"trainer.save_interval={COMPOSED_EVAL_AT}ba",
         "+trainer.save_num_checkpoints_to_keep=1"]
-    yaml_path = os.path.join(_ROOT, "yamls", "SD-2-base-256.yaml")
     first = base + [f"+callbacks.preempt._target_={__name__}.Preempt",
                     f"+callbacks.preempt.at={COMPOSED_EVAL_AT}"]
-    print(f"checkpoint: run 1: yamls/SD-2-base-256.yaml with the composed "
-          f"run's overrides and {' '.join(first[len(base) - 3:])}")
-    counters = _counters()
-    for c in counters.values():
-        c.reset()
-    t0 = time.perf_counter()
-    run1 = train(load_config(yaml_path, first))
-    torch.cuda.synchronize()
-    wall1 = time.perf_counter() - t0
+    run1, _, launches, wall1, _, _ = _yaml_run(
+        "checkpoint run 1", "SD-2-base-256.yaml", first, COMPOSED_EVAL_AT,
+        card)
     save = ckpt.last_save_stats()
-    rec1 = next(c for c in run1.engine.callbacks
-                if type(c).__name__ == "ComposedRecord")
     ba3 = os.path.join(folder, f"ba{COMPOSED_EVAL_AT}")
     _check(run1.state.timestamp.batch == COMPOSED_EVAL_AT
-           and len(rec1.steps) == COMPOSED_EVAL_AT
            and sorted(os.listdir(folder)) == [os.path.basename(ba3)]
            and os.path.exists(os.path.join(ba3, "meta.json")),
            f"the SIGTERM after batch {COMPOSED_EVAL_AT} did not leave fit() "
@@ -2273,11 +2215,10 @@ def _checkpoint_runs(tmp: str, card: str, composed_steps: list,
     ResumeCheck.live = run1
     second = base + ["trainer.autoresume=true",
                      f"+callbacks.resume._target_={__name__}.ResumeCheck"]
-    t0 = time.perf_counter()
-    run2 = train(load_config(yaml_path, second))
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    launches = {name: c.value for name, c in counters.items()}
+    run2, rec2, launches2, wall2, _, _ = _yaml_run(
+        "checkpoint run 2", "SD-2-base-256.yaml", second,
+        TRAIN_STEPS - COMPOSED_EVAL_AT, card)
+    launches = {k: launches[k] + launches2[k] for k in launches}
     check = ResumeCheck.result
     ResumeCheck.live = ResumeCheck.result = None
     del run1
@@ -2301,8 +2242,6 @@ def _checkpoint_runs(tmp: str, card: str, composed_steps: list,
            == live_loader["batch_in_epoch"] + TRAIN_STEPS - COMPOSED_EVAL_AT,
            f"the resumed loader did not continue from {live_loader}: "
            f"{end_loader}")
-    rec2 = next(c for c in run2.engine.callbacks
-                if type(c).__name__ == "ComposedRecord")
     got = [m for m, *_ in rec2.steps]
     want = composed_steps[COMPOSED_EVAL_AT:]
     _check(len(got) == len(want) == TRAIN_STEPS - COMPOSED_EVAL_AT,
@@ -2665,7 +2604,6 @@ def _lora_phase(card: str, online: dict) -> dict:
     import numpy as np
     import torch
 
-    from diffusion_torch.config import load_config
     from diffusion_torch.inference.inference_model import \
         StableDiffusionInference
     from diffusion_torch.models.lora import (fold_lora, is_lora_key,
@@ -2673,7 +2611,6 @@ def _lora_phase(card: str, online: dict) -> dict:
     from diffusion_torch.models.models import stable_diffusion_2
     from diffusion_torch.models.unet import SD2_BASE_UNET, UNet2DCondition
     from diffusion_torch.train import checkpoint as ckpt
-    from diffusion_torch.train.train import train
     from diffusion_torch.utils import safetensors
 
     t_phase = time.perf_counter()
@@ -2691,28 +2628,11 @@ def _lora_phase(card: str, online: dict) -> dict:
               f"{nb_eval / 1e6:.1f} MB of MDS shards) in "
               f"{time.perf_counter() - t0:.1f} s on the host [{card}]")
         save = os.path.join(tmp, "ckpt")
-        metrics_file = os.path.join(tmp, "metrics.jsonl")
-        overrides = _lora_overrides(pre, raw, coco, save, metrics_file)
-        config = load_config(os.path.join(_ROOT, "yamls",
-                                          "SD-2-base-256-lora.yaml"),
-                             overrides)
-        print(f"lora: yamls/SD-2-base-256-lora.yaml with {len(overrides)} "
-              f"dotted overrides: {' '.join(overrides)}")
-        counters = _counters()
-        for c in counters.values():
-            c.reset()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer = train(config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: c.value for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer, record, launches, wall, peak, records = _yaml_run(
+            "lora", "SD-2-base-256-lora.yaml", _lora_overrides(
+                pre, raw, coco, save, os.path.join(tmp, "metrics.jsonl")),
+            TRAIN_STEPS, card)
         save_stats = ckpt.last_save_stats()
-        with open(metrics_file) as f:
-            records = [json.loads(line) for line in f]
-        record = next(c for c in trainer.engine.callbacks
-                      if type(c).__name__ == "LoraRecord")
         model = trainer.model
         ba6 = os.path.join(save, f"ba{TRAIN_STEPS}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
@@ -2730,14 +2650,6 @@ def _lora_phase(card: str, online: dict) -> dict:
         _check(record.trainable == n_adapter and all(
             is_lora_key(n) for n in trainer.train_state.params),
             "the trainer trains more than the adapters")
-        for i, (m, _, lr, own) in enumerate(record.steps):
-            print(f"lora: step {i}: loss {m['loss/train/total']:.6f}, grad "
-                  f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
-                  f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
-                  f"{own * 1e3:.1f} ms to the step's metrics [{card}]")
-        _check(len(record.steps) == TRAIN_STEPS and all(
-            math.isfinite(v) for m, *_ in record.steps for v in m.values()),
-            "the LoRA run's steps are missing or not finite")
         print(f"lora: base parameters bit-unchanged after the run "
               f"{record.base_unchanged}; adapter tensors changed "
               f"{record.adapters_changed} of {len(record.adapters)}")
@@ -2773,11 +2685,7 @@ def _lora_phase(card: str, online: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
-        train_times = [t for i, t in enumerate(times)
-                       if i + 1 not in (COMPOSED_EVAL_AT,)]
-        step_s = sum(train_times) / len(train_times)
-        wait_s = sum(record.waits[1:]) / (len(record.waits) - 1)
+        times, step_s, wait_s = record.step_times(skip=(COMPOSED_EVAL_AT,))
         _, eval_s, eval_launches = record.evals[0]
         fit_launches = {k: launches[k] - eval_launches[k] for k in launches}
         print(f"lora: SD-2-base {TRAIN_SIZE}px from raw images, adapters "
@@ -2928,8 +2836,6 @@ class ReaderRecord(ComposedRecord):
         super().__init__()
         self.drawn = {}
 
-    loader = None    # the run's train loader, set when the trainer is built
-
     def run_event(self, event, state, logger) -> None:
         if event.value == "fit_start":
             for child in getattr(self.loader, "pipes_to_weights", {}):
@@ -2950,66 +2856,11 @@ class _Counted:
             yield item
 
 
-def _reader_run(card: str, label: str, yaml_name: str, overrides: list):
-    """One reader yaml composed and run by `train(config)`; returns (the
-    trainer, its ReaderRecord, the five kernels' launches, wall s, peak
-    GiB)."""
-    import torch
-
-    from diffusion_torch.config import load_config
-    from diffusion_torch.train.train import train
-    from diffusion_torch.train import train as train_mod
-
-    config = load_config(os.path.join(_ROOT, "yamls", yaml_name), overrides)
-    print(f"{label}: yamls/{yaml_name} with {len(overrides)} dotted "
-          f"overrides: {' '.join(overrides)}")
-    built = []
-    real = train_mod.build_trainer
-
-    def build(cfg):
-        # hand the loader to the record before fit() starts pulling
-        tr = real(cfg)
-        for c in tr.engine.callbacks:
-            if isinstance(c, ReaderRecord):
-                c.loader = tr.train_dataloader
-        built.append(tr)
-        return tr
-
-    counters = _counters()
-    for c in counters.values():
-        c.reset()
-    torch.cuda.reset_peak_memory_stats()
-    train_mod.build_trainer = build
-    t0 = time.perf_counter()
-    try:
-        trainer = train(config)
-    finally:
-        train_mod.build_trainer = real
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: c.value for name, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    record = next(c for c in trainer.engine.callbacks
-                  if isinstance(c, ReaderRecord))
-    for i, (m, _, lr, own) in enumerate(record.steps):
-        print(f"{label}: step {i}: loss {m['loss/train/total']:.6f}, grad "
-              f"norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
-              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
-              f"{own * 1e3:.1f} ms to the step's metrics [{card}]")
-    _check(len(record.steps) == READER_STEPS and all(
-        math.isfinite(v) for m, *_ in record.steps for v in m.values()),
-        f"the {label} run's steps are missing or not finite")
-    for name in launches:
-        _check(launches[name] > 0,
-               f"{name} kernel was not launched during the {label} run")
-    return trainer, record, launches, wall, peak
-
-
-def _step_line(label: str, record, wall: float, peak: float,
-               launches: dict, card: str, skip=()) -> None:
-    times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
-    kept = [t for i, t in enumerate(times) if i + 1 not in skip]
-    step_s = sum(kept) / len(kept)
+def _reader_summary(label: str, run: tuple, card: str, skip=()) -> None:
+    """A reader run's line (`_yaml_run`'s `run`): step times, loader waits,
+    peak memory and launches, all five kernels launched."""
+    _, record, launches, wall, peak, _ = run
+    times, step_s, _ = record.step_times(skip)
     waits = record.waits[1:]
     print(f"{label}: SD-2-base {TRAIN_SIZE}px, global batch {TRAIN_BATCH} in "
           f"microbatches of {TRAIN_MICRO}: run {wall:.2f} s (build "
@@ -3019,6 +2870,9 @@ def _step_line(label: str, record, wall: float, peak: float,
           f"the first {', '.join(f'{w * 1e3:.1f}' for w in waits)} ms "
           f"(first {record.waits[0] * 1e3:.1f} ms); peak device memory "
           f"{peak:.2f} GiB; kernel launches {json.dumps(launches)} [{card}]")
+    for name in launches:
+        _check(launches[name] > 0,
+               f"{name} kernel was not launched during the {label} run")
 
 
 def _readers_phase(card: str) -> dict:
@@ -3057,10 +2911,11 @@ def _readers_phase(card: str) -> dict:
 
         # the Pexels run, with log_traces and a trace of batches 1-2
         traces = os.path.join(tmp, "traces")
-        trainer, record, launches, wall, peak = _reader_run(
-            card, "pexels", "SD-2-base-256-pexels.yaml",
-            _pexels_overrides(manifest, traces))
-        _step_line("pexels", record, wall, peak, launches, card)
+        run = _yaml_run("pexels", "SD-2-base-256-pexels.yaml",
+                        _pexels_overrides(manifest, traces), READER_STEPS,
+                        card)
+        _reader_summary("pexels", run, card)
+        trainer, launches = run[0], run[2]
         profs = [c for c in trainer.engine.callbacks
                  if isinstance(c, TorchProfiler)]
         default = [p for p in profs if p.start_batch == 10]
@@ -3086,16 +2941,18 @@ def _readers_phase(card: str) -> dict:
               f"trace's export [{card}]")
         _check(ours_k > 0, "the trace holds none of the port's kernels")
         total = dict(launches)
-        del trainer, record
+        del trainer, run
         gc.collect()
         torch.cuda.empty_cache()
 
         # the mixture run: the manifest and the three tar sources
-        trainer, record, launches, wall, peak = _reader_run(
-            card, "mixdata", "SD-2-base-256-mixdata.yaml",
-            _mix_overrides(manifest, {k: os.path.dirname(m)
-                                      for k, m in sources.items()}, coco))
-        _step_line("mixdata", record, wall, peak, launches, card, skip=(2,))
+        run = _yaml_run("mixdata", "SD-2-base-256-mixdata.yaml",
+                        _mix_overrides(manifest, {
+                            k: os.path.dirname(m)
+                            for k, m in sources.items()}, coco),
+                        READER_STEPS, card)
+        _reader_summary("mixdata", run, card, skip=(2,))
+        trainer, record, launches = run[:3]
         weights = {child.name: w for child, w in
                    trainer.train_dataloader.pipes_to_weights.items()}
         drawn = record.drawn
@@ -3110,7 +2967,7 @@ def _readers_phase(card: str) -> dict:
                f"the mixture drew too few samples: {drawn}")
         _check(len(record.evals) == 1, "expected one eval on COCO")
         total = {k: total[k] + launches[k] for k in total}
-        del trainer, record
+        del trainer, record, run
         gc.collect()
         torch.cuda.empty_cache()
     print(f"readers: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -3131,29 +2988,13 @@ def _pixel_phase(card: str) -> dict:
                                                discrete_pixel_diffusion)
     from diffusion_torch.ops import attention as attn_mod
     from diffusion_torch.schedulers import ContinuousTimeScheduler
-    from diffusion_torch.train.events import Callback
     from diffusion_torch.train.optim import adamw
     from diffusion_torch.train.trainer import Trainer
-
-    class Record(Callback):
-        def __init__(self):
-            self.steps = []
-
-        def batch_end(self, state, logger):
-            m = {k: float(v) for k, v in state.metrics.items()}
-            self.steps.append((m, time.perf_counter()))
 
     t_phase = time.perf_counter()
     total = {}
     flash_shapes = []
-    real_flash = attn_mod.flash_attention
-
-    def flash_spy(q, k, v):
-        flash_shapes.append((tuple(q.shape), tuple(k.shape)))
-        return real_flash(q, k, v)
-
-    attn_mod.flash_attention = flash_spy
-    try:
+    with _patch(attn_mod, "flash_attention", _shape_spy(flash_shapes)):
         for label, build in (("discrete", discrete_pixel_diffusion),
                              ("continuous", continuous_pixel_diffusion)):
             t0 = time.perf_counter()
@@ -3176,7 +3017,7 @@ def _pixel_phase(card: str) -> dict:
                 (PIXEL_BATCH, PIXEL_SIZE, PIXEL_SIZE, 3), generator=gen,
                 device=DEVICE) * 2 - 1, "captions": ids}
                 for _ in range(PIXEL_STEPS)]
-            record = Record()
+            record = ComposedRecord()
             trainer = Trainer(model=model, train_dataloader=batches,
                               optimizers=adamw(lr=1e-4, weight_decay=0.01),
                               callbacks=[record],
@@ -3195,16 +3036,8 @@ def _pixel_phase(card: str) -> dict:
             launches = {name: c.value for name, c in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             top = sorted({q[1] for q, _ in flash_shapes})
-            for i, (m, _) in enumerate(record.steps):
-                print(f"pixel {label}: step {i}: loss "
-                      f"{m['loss/train/total']:.6f}, grad norm "
-                      f"{m['grad/global_norm']:.6f}")
-            _check(len(record.steps) == PIXEL_STEPS and all(
-                math.isfinite(v) for m, _ in record.steps
-                for v in m.values()), f"pixel {label}: steps not finite")
-            times = [b[1] - a[1] for a, b in zip(record.steps,
-                                                  record.steps[1:])]
-            step_s = sum(times) / len(times)
+            _check_steps(f"pixel {label}", record, PIXEL_STEPS, card)
+            _, step_s, _ = record.step_times()
             print(f"pixel {label}: {PIXEL_SIZE}x{PIXEL_SIZE} pixels, batch "
                   f"{PIXEL_BATCH} in microbatches of {PIXEL_MICRO}: "
                   f"{PIXEL_STEPS} steps in {fit_s:.2f} s, step time after "
@@ -3262,8 +3095,6 @@ def _pixel_phase(card: str) -> dict:
             del model, samplers, m
             gc.collect()
             torch.cuda.empty_cache()
-    finally:
-        attn_mod.flash_attention = real_flash
     print(f"pixel: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return total
 
@@ -3535,61 +3366,6 @@ def _recipe_encode_check(src: dict, job: dict, pre: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _recipe_run(card: str, label: str, yaml_name: str, overrides: list,
-                flash_shapes: list):
-    """One composed run of phase 15 with the launch counters set to 0
-    right before it; returns (trainer, record, launches, peak GiB, wall s,
-    metrics records, the weights-only load's seconds)."""
-    import torch
-
-    from diffusion_torch.config import load_config
-    from diffusion_torch.train import checkpoint as ckpt
-    from diffusion_torch.train.train import train
-
-    config = load_config(os.path.join(_ROOT, "yamls", yaml_name), overrides)
-    print(f"recipe {label}: yamls/{yaml_name} with {len(overrides)} dotted "
-          f"overrides: {' '.join(overrides)}")
-    loads = []
-    real_load = ckpt.load_checkpoint
-
-    def timed_load(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = real_load(*args, **kwargs)
-        torch.cuda.synchronize()
-        loads.append(time.perf_counter() - t0)
-        return out
-
-    counters = _counters()
-    for c in counters.values():
-        c.reset()
-    del flash_shapes[:]
-    torch.cuda.reset_peak_memory_stats()
-    ckpt.load_checkpoint = timed_load
-    try:
-        t0 = time.perf_counter()
-        trainer = train(config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        ckpt.load_checkpoint = real_load
-    launches = {name: c.value for name, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    metrics_file = config["logger"]["file"]["filename"]
-    with open(metrics_file) as f:
-        records = [json.loads(line) for line in f]
-    record = next(c for c in trainer.engine.callbacks
-                  if isinstance(c, ComposedRecord))
-    for i, (m, _, lr, own) in enumerate(record.steps):
-        print(f"recipe {label}: step {i}: loss {m['loss/train/total']:.6f}, "
-              f"grad norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
-              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
-              f"{own * 1e3:.1f} ms to the step's metrics [{card}]")
-    _check(all(math.isfinite(v) for m, *_ in record.steps
-               for v in m.values()),
-           f"recipe {label}: a loss or grad norm is not finite")
-    return trainer, record, launches, peak, wall, records, loads
-
-
 def _recipe_phase(card: str) -> dict:
     """Phase 15: the main recipe end to end (see the module docstring);
     returns the five kernels' launches in the phase, the precompute job's
@@ -3600,6 +3376,7 @@ def _recipe_phase(card: str) -> dict:
     import torch
 
     from diffusion_torch.ops import attention as attn_mod
+    from diffusion_torch.train import checkpoint as ckpt
     from diffusion_torch.utils.profiler import step_graph
 
     t_phase = time.perf_counter()
@@ -3613,12 +3390,16 @@ def _recipe_phase(card: str) -> dict:
           f"needs {need / 1e9:.2f} GB (one checkpoint of "
           f"{disk['checkpoint'] / 1e9:.2f} GB, the fp16 pretrained "
           f"directory, shards) [{card}]")
-    flash_shapes = []
-    real_flash = attn_mod.flash_attention
+    flash_shapes, loads = [], []
 
-    def flash_spy(q, k, v):
-        flash_shapes.append((tuple(q.shape), tuple(k.shape)))
-        return real_flash(q, k, v)
+    def timed(real):
+        def load(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t0)
+            return out
+        return load
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_",
                                      dir=build) as tmp:
@@ -3650,15 +3431,13 @@ def _recipe_phase(card: str) -> dict:
 
         # phase 1 at 256px on the job's shards, saved after its last batch
         ckpt_dir = os.path.join(tmp, "ckpt")
-        trainer, record, launches1, peak1, wall1, _, _ = _recipe_run(
-            card, "phase 1", "SD-2-base-256.yaml", _recipe_overrides(
-                1, job["out"], ckpt_dir, coco,
-                os.path.join(tmp, "p1.jsonl")), flash_shapes)
+        trainer, record, launches1, wall1, peak1, _ = _yaml_run(
+            "recipe phase 1", "SD-2-base-256.yaml", _recipe_overrides(
+                1, job["out"], ckpt_dir, coco, os.path.join(tmp, "p1.jsonl")),
+            RECIPE_P1_STEPS, card)
         ba = os.path.join(ckpt_dir, f"ba{RECIPE_P1_STEPS}")
-        _check(len(record.steps) == RECIPE_P1_STEPS
-               and os.path.exists(os.path.join(ba, "meta.json")),
-               f"phase 1 did not take {RECIPE_P1_STEPS} batches and save "
-               f"{ba}")
+        _check(os.path.exists(os.path.join(ba, "meta.json")),
+               f"phase 1 did not save {ba}")
         steps1 = [m for m, *_ in record.steps]
         print(f"recipe phase 1: {RECIPE_P1_STEPS} batches of {TRAIN_BATCH} "
               f"at 256px on the job's latents in {wall1:.2f} s (build and "
@@ -3670,15 +3449,12 @@ def _recipe_phase(card: str) -> dict:
 
         # phase 2 at 512px, warm-started from phase 1's checkpoint
         captures = step_graph.captures
-        attn_mod.flash_attention = flash_spy
-        try:
-            trainer, record, launches2, peak2, wall2, records, loads = \
-                _recipe_run(card, "phase 2", "SD-2-base-512.yaml",
-                            _recipe_overrides(2, job["out"], ckpt_dir, coco,
-                                              os.path.join(tmp, "p2.jsonl")),
-                            flash_shapes)
-        finally:
-            attn_mod.flash_attention = real_flash
+        trainer, record, launches2, wall2, peak2, records = _yaml_run(
+            "recipe phase 2", "SD-2-base-512.yaml", _recipe_overrides(
+                2, job["out"], ckpt_dir, coco, os.path.join(tmp, "p2.jsonl")),
+            RECIPE_P2_STEPS, card, patches=(
+                _patch(ckpt, "load_checkpoint", timed),
+                _patch(attn_mod, "flash_attention", _shape_spy(flash_shapes))))
         model = trainer.model
         _check(model.vae is not None and trainer.max_batches ==
                RECIPE_P2_STEPS and trainer.micro_size == 8
@@ -3700,19 +3476,14 @@ def _recipe_phase(card: str) -> dict:
                and warm.get("batch") == 0 and warm.get("step") == 0
                and warm.get("ema_equal_params"),
                f"the warm start is off: {warm}, loads {loads}")
-        _check(len(record.steps) == RECIPE_P2_STEPS
-               and all(record.ema_tracks),
-               f"phase 2 steps {len(record.steps)}, the EMA tracking the "
-               f"weights before ema_start: {record.ema_tracks}")
-        times = [b[1] - a[1] for a, b in zip(record.steps, record.steps[1:])]
+        _check(all(record.ema_tracks),
+               f"phase 2: the EMA tracking the weights before ema_start: "
+               f"{record.ema_tracks}")
         # the batch after the eval carries the eval, step 1 the CUDA
         # graph's capture (where it engaged): leave them out
         captured = step_graph.captures > captures
-        train_times = [t for i, t in enumerate(times)
-                       if i + 1 != RECIPE_P2_EVAL_AT
-                       and not (i == 0 and captured)]
-        step_s = sum(train_times) / len(train_times)
-        wait_s = sum(record.waits[1:]) / len(record.waits[1:])
+        times, step_s, wait_s = record.step_times(
+            skip=(RECIPE_P2_EVAL_AT, 1) if captured else (RECIPE_P2_EVAL_AT,))
         evals = [r for r in records if "metrics/eval/MeanSquaredError" in r]
         _check(len(evals) == 1 and len(record.evals) == 1
                and evals[0]["step"] == RECIPE_P2_EVAL_AT,
@@ -3758,25 +3529,9 @@ def _recipe_phase(card: str) -> dict:
     return total
 
 
-_CATEGORIES = (   # kernel-name patterns, first match wins
-    # this tree's gn_fwd_kernel / gn_bwd_kernel, and the parent's kernels
-    ("GroupNorm kernels", ("gn_fwd", "gn_bwd", "gn_partial", "gn_merge",
-                           "gn_apply")),
-    ("flash kernels", ("flash_",)),
-    ("optimizer/EMA foreach", ("multi_tensor_apply", "foreach")),
-    ("cuDNN convs", ("conv", "cudnn", "implicit", "dgrad", "wgrad",
-                     "winograd", "xmma_fprop", "nhwc")),
-    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "cublas",
-                      "nvjet")),
-    ("copies and casts", ("copy", "cat", "Copy")),
-    ("reductions", ("reduce", "Reduce", "norm")),
-)
-
-
 EVAL_SAMPLES = 64      # COCO samples of the eval job (phase 8's count)
 EVAL_BATCH, EVAL_BATCHES = 16, 2
 TOWER_BOUND = 1e-3     # relative L2, fp32 card vs fp32 CPU, TF32 off
-
 
 
 # ---------------- phase 16: remat and the process mesh ----------------
@@ -3789,21 +3544,20 @@ SP_SHARDS = 4
 
 
 class SpRecord(ComposedRecord):
-    """ComposedRecord for phase 16's runs, which `diffusion_torch.run`
-    builds (each instance is kept in `runs`), with each step's kernel
+    """ComposedRecord for phase 16's runs, with each step's kernel
     launches and peak memory, the device memory each training UNet
     forward leaves held for its backward (what remat trades), and, at the
     fit's start, the frozen VAE's encode of one microbatch (CUDA events),
     which every rank of an sp group runs whole."""
-
-    runs: list = []
 
     def __init__(self):
         super().__init__()
         self.step_launches, self.step_peaks, self.held = [], [], []
         self._at = self._before = None
         self.encode_ms, self.encode_launches = None, {}
-        SpRecord.runs.append(self)
+
+    def note(self, i: int) -> str:
+        return f"; launches {self.step_launches[i]}"
 
     def _time_encode(self, model) -> None:
         import torch
@@ -3869,57 +3623,26 @@ def _sp_overrides(raw: str, coco: str, metrics_file: str,
 def _sp_run(card: str, label: str, overrides: list) -> dict:
     """One run of the 1024-sp yaml through `diffusion_torch.run.main`, the
     counters at 0 right before it."""
-    import torch
-
-    from diffusion_torch import run
     from diffusion_torch.ops import flash_attention as fa
 
-    print(f"sp {label}: yamls/{SP_YAML} with {len(overrides)} dotted "
-          f"overrides: {' '.join(overrides)}")
     shapes = []
-    real = fa.flash_attention_cuda
-
-    def spy(q, k, v):
-        shapes.append(tuple(q.shape))
-        return real(q, k, v)
-
-    counters = _counters()
-    for c in counters.values():
-        c.reset()
-    SpRecord.runs.clear()
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_cuda = spy
-    try:
-        t0 = time.perf_counter()
-        run.main(["--config-path", os.path.join(_ROOT, "yamls"),
-                  "--config-name", SP_YAML, *overrides])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        fa.flash_attention_cuda = real
-    record = SpRecord.runs[-1]
-    launches = {name: c.value - record.encode_launches.get(name, 0)
-                for name, c in counters.items()}
+    _, record, launches, wall, _, _ = _yaml_run(
+        f"sp {label}", SP_YAML, overrides, SP_STEPS, card,
+        patches=(_patch(fa, "flash_attention_cuda", _shape_spy(shapes)),),
+        cli=True)
+    # the encode's launches are a measurement, not the run's
+    launches = {name: n - record.encode_launches.get(name, 0)
+                for name, n in launches.items()}
     # the training steps' peak (the eval's batch-8 encode is not a step's)
     peak = max(record.step_peaks) / 2 ** 30
     held = max(record.held) / 2 ** 30
-    _check(len(record.steps) == SP_STEPS,
-           f"sp {label}: {len(record.steps)} steps, {SP_STEPS} expected")
-    for i, (m, _, lr, own) in enumerate(record.steps):
-        print(f"sp {label}: step {i}: loss {m['loss/train/total']:.6f}, "
-              f"grad norm {m['grad/global_norm']:.6f}, lr {lr:.3e}, waited "
-              f"{record.waits[i] * 1e3:.1f} ms on the loader, then "
-              f"{own * 1e3:.1f} ms to the step's metrics; launches "
-              f"{record.step_launches[i]} [{card}]")
-    _check(all(math.isfinite(v) for m, *_ in record.steps
-               for v in m.values()), f"sp {label}: a loss is not finite")
     _check(len(record.evals) == 1, f"sp {label}: no eval after batch "
                                    f"{SP_EVAL_AT}")
     # steps after the first (warm-up: cuDNN's algorithm search)
     step_s = sorted(own for *_, own in record.steps[1:])[
         (SP_STEPS - 1) // 2]
     per_step = record.step_launches[-1]
-    flash_big = shapes.count(SP_FLASH_SHAPE)
+    flash_big = sum(q == SP_FLASH_SHAPE for q, _ in shapes)
     print(f"sp {label}: SD-2-base {SP_SIZE}px, global batch {SP_BATCH} in "
           f"microbatches of 4: step {step_s * 1e3:.1f} ms (median after the "
           f"first), {SP_BATCH / step_s:.2f} samples/s, a step's peak "
@@ -4054,8 +3777,8 @@ def _sp_kernel_work(card: str) -> None:
         qs, ks, vs, outs, lses, dos), 10, 2)
     whole_bwd_ms = _time_ms(lambda: fa.flash_attention_bwd_cuda(
         q, k, v, out, lse, do), 10, 2)
-    bms, by = _bound(4 * b * h * s * s * d, 4 * _nbytes(q) + _nbytes(lse))
-    bbms, bby = _bound(10 * b * h * s * s * d, 8 * _nbytes(q))
+    bms, by = _least_ms(4 * b * h * s * s * d, 4 * _nbytes(q) + _nbytes(lse))
+    bbms, bby = _least_ms(10 * b * h * s * s * d, 8 * _nbytes(q))
     print(f"sp ring: {n} local shards of ({b}, {s // n}, {h}, {d}) bf16, "
           f"{n * n} blocks through the flash kernels: "
           + ", ".join(f"{nm} max_abs_err {e:.3e} (bound {bd:.3e})"
@@ -4149,8 +3872,8 @@ def _sp_kernel_work(card: str) -> None:
     b_ms = _time_ms(backward, 10, 2)
     one_b_ms = _time_ms(lambda: gn.group_norm_bwd_cuda(
         x, scale, bias, mean, rstd, g, 32, "silu"), 10, 2)
-    fb, fby = _bound(10 * x.numel(), 2 * _nbytes(x) + 3 * 320 * 4)
-    bb, bby = _bound(20 * x.numel(), 3 * _nbytes(x) + 7 * 320 * 4)
+    fb, fby = _least_ms(10 * x.numel(), 2 * _nbytes(x) + 3 * 320 * 4)
+    bb, bby = _least_ms(20 * x.numel(), 3 * _nbytes(x) + 7 * 320 * 4)
     print(f"sp group_norm: {n} row shards of (4, {rows // n}, {c}) bf16 "
           f"act=silu, two stages a direction around the partials' merge: y "
           f"max_abs_err {y_err:.3e} (bound {y_bound:.3e}), stats err "
@@ -4610,26 +4333,18 @@ def _tp_run(shards: str, tp: int, steps: int = TP_STEPS) -> dict:
     from diffusion_torch.utils.profiler import step_graph
 
     shapes = []
-    real = fa.flash_attention_cuda
-
-    def spy(q, k, v):
-        shapes.append(tuple(q.shape))
-        return real(q, k, v)
-
     for c in _counters().values():
         c.reset()
     TpRecord.runs.clear()
     graph0 = (step_graph.replays, step_graph.captures)
-    fa.flash_attention_cuda = spy
-    try:
+    with _patch(fa, "flash_attention_cuda", _shape_spy(shapes)):
         t0 = time.perf_counter()
         run.main(["--config-path", os.path.join(_ROOT, "yamls"),
                   "--config-name", TP_YAML,
                   *_tp_overrides(shards, tp, steps)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        fa.flash_attention_cuda = real
+    shapes = [q for q, _ in shapes]
     # a replay launches from the graph, not through the wrapper; the
     # capturing step calls it once, and replays too
     called = (steps - (step_graph.replays - graph0[0])
@@ -5029,7 +4744,6 @@ def _tp_kernel_work(card: str) -> None:
     from diffusion_torch.models.layers import Transformer2D, init_like_flax_
     from diffusion_torch.ops import flash_attention as fa
 
-    real = fa.flash_attention_cuda
     for channels, heads, side in ((640, 10, 32), (320, 5, 64)):
         gen = torch.Generator(device=DEVICE).manual_seed(21)
         block = Transformer2D(channels, heads, 1024).to(DEVICE)
@@ -5050,27 +4764,21 @@ def _tp_kernel_work(card: str) -> None:
         for label, m in (("whole", block), ("shards", twin)):
             shapes = []
 
-            def spy(q, k, v):
-                shapes.append(tuple(q.shape))
-                return real(q, k, v)
-
             def step():
                 xi = x.clone().requires_grad_(True)
                 y = m(xi, ctx)
                 y.backward(dy)
                 return y, xi
 
-            fa.flash_attention_cuda = spy
-            try:
+            with _patch(fa, "flash_attention_cuda", _shape_spy(shapes)):
                 m.zero_grad(set_to_none=True)
                 y, xi = step()
                 torch.cuda.synchronize()
-            finally:
-                fa.flash_attention_cuda = real
             grads = (tp_twin_grads(m) if m is twin else
                      {n: p.grad for n, p in m.named_parameters()})
             runs[label] = (y.detach(), xi.grad, {
-                n: g.clone() for n, g in grads.items()}, sorted(shapes))
+                n: g.clone() for n, g in grads.items()},
+                sorted(q for q, _ in shapes))
             runs[label] += (_time_ms(step, iters=5, warmup=2),)
         (y1, dx1, g1, s1, ms1), (y2, dx2, g2, s2, ms2) = (runs["whole"],
                                                           runs["shards"])
@@ -5518,30 +5226,11 @@ def _flops_yaml_phase(card: str, flops_per_batch: float) -> dict:
     logged and lie in (0, 1). Returns the kernels' launches."""
     import tempfile
 
-    import torch
-
-    from diffusion_torch.config import load_config
-    from diffusion_torch.train.train import train
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flops_") as tmp:
-        metrics_file = os.path.join(tmp, "metrics.jsonl")
-        overrides = _flops_yaml_overrides(tmp, metrics_file, flops_per_batch)
-        config = load_config(os.path.join(_ROOT, "yamls",
-                                          "SD-2-base-256.yaml"), overrides)
-        # WandBLogger is a no-op without wandb; with it, it stays offline
-        os.environ.setdefault("WANDB_MODE", "disabled")
-        counters = _counters()
-        for c in counters.values():
-            c.reset()
-        t0 = time.perf_counter()
-        trainer = train(config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: c.value for name, c in counters.items()}
-        with open(metrics_file) as f:
-            records = [json.loads(line) for line in f]
-    _check(trainer.state.timestamp.batch == FLOPS_YAML_STEPS,
-           f"the MFU run did not take {FLOPS_YAML_STEPS} batches")
+        _, _, launches, wall, _, records = _yaml_run(
+            "flops", "SD-2-base-256.yaml", _flops_yaml_overrides(
+                tmp, os.path.join(tmp, "metrics.jsonl"), flops_per_batch),
+            FLOPS_YAML_STEPS, card)
     mfu = [(r["step"], r["throughput/device/mfu"],
             r["throughput/flops_per_sec"]) for r in records
            if "throughput/device/mfu" in r]
@@ -5618,127 +5307,42 @@ def _compile_cache_phase(card: str, during):
     return result
 
 
-def _device_profile(events, window: str, what: str, card: str) -> None:
-    """Print the device's busy time (the union of kernel intervals), the
-    idle share of the first-to-last kernel span, and device time by kernel
-    category, for the kernels inside the profiler range named `window`
-    (bracketed by synchronizations, so its kernels run inside it). Prints
-    "not measured" where the profiler recorded no device events."""
-    import torch
-    steps = [e.time_range for e in events if e.name == window]
-    # device activity: kernels, copies, memsets; not the GPU-side copies of
-    # the profiler's own ranges (user annotations)
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("chip_smoke_")]
-    lo, hi = (steps[0].start, steps[0].end) if steps else (0, -1)
-    inside = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in kernels
-                    if lo <= e.time_range.start and e.time_range.end <= hi)
-    if not inside:
-        print(f"profile: {what}: not measured (the profiler recorded no "
-              f"device events) [{card}]")
-        return
-    busy, cur_s, cur_e = 0.0, None, None
-    for s0, s1, _ in inside:
-        if cur_e is None or s0 > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s0, s1
-        else:
-            cur_e = max(cur_e, s1)
-    busy += cur_e - cur_s
-    span = inside[-1][1] - inside[0][0]
-    cats = {}
-    for s0, s1, name in inside:
-        cat = next((c for c, pats in _CATEGORIES
-                    if any(p in name for p in pats)), "other elementwise")
-        t, k = cats.get(cat, (0.0, 0))
-        cats[cat] = (t + (s1 - s0), k + 1)
-    print(f"profile: {what}: {len(inside)} kernels, device busy "
-          f"{busy / 1e3:.2f} ms, first-to-last kernel span "
-          f"{span / 1e3:.2f} ms, idle share {1 - busy / span:.3f}; host wall "
-          f"time {(hi - lo) / 1e3:.2f} ms [{card}]")
-    print(f"profile: {what}: device time by category (ms, kernels): "
-          + "; ".join(f"{c} {t / 1e3:.2f} ({k})" for c, (t, k) in
-                      sorted(cats.items(), key=lambda x: -x[1][0])))
-
-
-def _profile_phase(model, batches, card: str) -> None:
-    """Three more steps of the recipe, the third under torch.profiler (CUDA
-    activity): step 0 runs eagerly, step 1 captures the step's CUDA graph
-    (the profiler off), step 2 replays it. The device profile of step 2."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from diffusion_torch.algorithms.ema import EMA
-    from diffusion_torch.train.events import Callback
-    from diffusion_torch.train.optim import adamw, multi_step_with_warmup
-    from diffusion_torch.train.trainer import Trainer
-
-    from diffusion_torch.utils.profiler import step_graph
-
-    class Mark(Callback):
-        """Runs step 2 under the profiler, synchronized on both sides, in
-        a named profiler range."""
-
-        def __init__(self):
-            self.step, self.range, self.replays = 0, None, None
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
-
-        def batch_start(self, state, logger):
-            if self.step == 2:
-                torch.cuda.synchronize()
-                self.replays = step_graph.replays
-                self.prof.start()
-                self.range = torch.profiler.record_function(
-                    "chip_smoke_step_2")
-                self.range.__enter__()
-
-        def batch_end(self, state, logger):
-            if self.step == 2:
-                torch.cuda.synchronize()
-                self.range.__exit__(None, None, None)
-                self.prof.stop()
-                self.replays = step_graph.replays - self.replays
-            self.step += 1
-
-    mark = Mark()
-    trainer = Trainer(
-        model=model, train_dataloader=batches[:3],
-        optimizers=adamw(lr=1e-4, weight_decay=0.01),
-        schedulers=multi_step_with_warmup(t_warmup="10000ba",
-                                          milestones=["200ep"]),
-        algorithms=[EMA(smoothing=0.9999, ema_start="0ba")],
-        callbacks=[mark], max_duration="3ba",
-        device_train_microbatch_size=TRAIN_MICRO, seed=18, device=DEVICE)
-    trainer.fit()
-    torch.cuda.synchronize()
-    trainer.close()
-    _check(mark.replays == 1, "the profiled step did not replay the step's "
-           "CUDA graph")
-    _device_profile(mark.prof.events(), "chip_smoke_step_2",
-                    "training step (third of three, replayed from the "
-                    "step's CUDA graph, profiler on)", card)
-
-
 def _profile_serving_step(unet, lat, t, ctx, card: str) -> None:
-    """One more UNet CFG step under torch.profiler (CUDA activity),
-    synchronized on both sides: its device profile."""
+    """One more UNet CFG step under torch.profiler (CUDA activity), in the
+    benchmark's window range, synchronized on both sides, read as the
+    benchmark reads a trace (`portbench.trace.read_trace`): the device's
+    busy time, its idle share of the window's wall time, and device time
+    by kernel category; "not measured" where the profiler recorded no
+    device events."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import WINDOW, category, read_trace
+
+    what = f"serving UNet CFG step (batch {lat.shape[0]}, {SIZE}px, " \
+           f"profiler on)"
     with torch.inference_mode():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            with torch.profiler.record_function("chip_smoke_unet_step"):
+            with torch.profiler.record_function(WINDOW):
                 unet(lat, t, ctx)
                 torch.cuda.synchronize()
-    _device_profile(prof.events(), "chip_smoke_unet_step",
-                    f"serving UNet CFG step (batch {lat.shape[0]}, {SIZE}px, "
-                    f"profiler on)", card)
+    trace = read_trace(prof)
+    if trace is None:
+        print(f"profile: {what}: not measured (the profiler recorded no "
+              f"device events) [{card}]")
+        return
+    kernels = collections.Counter(category(n) for *_, n in trace.ops)
+    print(f"profile: {what}: {len(trace.ops)} kernels, device busy "
+          f"{trace.busy_s * 1e3:.2f} ms, window {trace.window_s * 1e3:.2f} "
+          f"ms, idle share {1 - trace.busy_s / trace.window_s:.3f} [{card}]")
+    print(f"profile: {what}: device time by category (ms, kernels): "
+          + "; ".join(f"{c} {t * 1e3:.2f} ({kernels[c]})" for c, t in
+                      sorted(trace.by_category().items(),
+                             key=lambda x: -x[1])))
 
 
 def _post(port: int, payload: dict, out: dict, key: str) -> None:
@@ -5757,9 +5361,6 @@ def _post(port: int, payload: dict, out: dict, key: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", metavar="DIR",
-                    help="a tree of the parent commit (git archive), whose "
-                         "flash dQ kernel is timed in turns with this one")
     # phase 17's tp ranks: this script started again, one process a rank
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
@@ -5797,13 +5398,9 @@ def main(argv=None) -> int:
           f"{PIL.__version__} (JPEG decode), g++ {shutil.which('g++')} "
           f"(libdataio)")
 
-    # 2. build (the parent's dQ kernel alongside, where a parent tree is
-    # given)
+    # 2. build
     t0 = time.perf_counter()
-    parent = _ParentDq(args.parent) if args.parent else None
     _build.library()
-    if parent:
-        parent.load()
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     with open(_build.build_log()) as f:
         usage = _ptxas_usage(f.read())
@@ -5826,7 +5423,7 @@ def main(argv=None) -> int:
            "ptxas serialized the dQ kernel's wgmma pipeline")
 
     # 3. kernels against their plain versions
-    kernels = _kernel_phase(card, parent)
+    kernels = _kernel_phase(card)
     _unet_group_norm_phase(card)
     # 3b. the fused AdamW (+ EMA) pass
     _adamw_phase(card)

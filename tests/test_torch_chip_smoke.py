@@ -1,6 +1,7 @@
 """What `chip_smoke.py` reads from nvcc's ptxas log, its refusal to run
-without a CUDA device, and its checkpoint phase's disk arithmetic, checked
-without a card."""
+without a CUDA device, its checkpoint phase's disk arithmetic, and its
+phases' yamls, overrides and step record through its yaml-run helper,
+checked without a card."""
 
 import os
 import sys
@@ -252,13 +253,25 @@ def _tiny_train(yaml, overrides):
     return config, build_trainer(config)
 
 
-def test_lora_phase_composes_and_records(tmp_path):
+def _tiny_run(monkeypatch, label, yaml, overrides, steps):
+    """A phase's run through `chip_smoke._yaml_run` with the tiny model on
+    the CPU, the card's synchronize and peak-memory calls stubbed."""
+    for name, stub in (("synchronize", lambda *a, **k: None),
+                       ("reset_peak_memory_stats", lambda *a, **k: None),
+                       ("max_memory_allocated", lambda *a, **k: 0)):
+        monkeypatch.setattr(torch.cuda, name, stub)
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    return chip_smoke._yaml_run(label, yaml, overrides + _TINY, steps,
+                                "no card")
+
+
+def test_lora_phase_composes_and_records(tmp_path, monkeypatch):
     """Phase 12's data and overrides: the unedited
     yamls/SD-2-base-256-lora.yaml composes (rank 8, adapters only, the
     pretrained directory, raw JPEG + caption MDS shards, the COCO eval, a
-    save every 3 batches); at the tiny geometry on the CPU (random base) 2
-    batches of 4 train only the adapters and LoraRecord sees the base
-    bit-unchanged and the adapters changed."""
+    save every 3 batches); at the tiny geometry on the CPU (random base),
+    through the yaml-run helper, 2 batches of 4 train only the adapters
+    and LoraRecord sees the base bit-unchanged and the adapters changed."""
     import numpy as np
 
     from diffusion_torch.models.lora import is_lora_key
@@ -275,19 +288,16 @@ def test_lora_phase_composes_and_records(tmp_path):
     assert full["model"]["lora_rank"] == 8 and full["model"]["pretrained"]
     assert full["trainer"]["save_interval"] == "3ba"
     assert full["batch_size"] == 32
-    config, tr = _tiny_train("SD-2-base-256-lora.yaml", overrides + [
-        "model.pretrained=false", "batch_size=4",
-        "trainer.device_train_microbatch_size=2",
-        "trainer.max_duration=2ba", "dataset.train_dataset.num_workers=0",
-        "dataset.train_dataset.resize_size=32", "trainer.image_size=32"])
+    tr, record, *_ = _tiny_run(
+        monkeypatch, "lora", "SD-2-base-256-lora.yaml", overrides + [
+            "model.pretrained=false", "batch_size=4",
+            "trainer.device_train_microbatch_size=2",
+            "trainer.max_duration=2ba", "dataset.train_dataset.num_workers=0",
+            "dataset.train_dataset.resize_size=32", "trainer.image_size=32"],
+        2)
     assert tr.model.train_lora_only
     assert all(is_lora_key(n) for n in tr.train_state.params)
-    record = next(c for c in tr.engine.callbacks
-                  if isinstance(c, chip_smoke.LoraRecord))
-    try:
-        tr.fit()
-    finally:
-        tr.close()
+    assert isinstance(record, chip_smoke.LoraRecord)
     assert record.trainable == sum(p.numel() for p in
                                    tr.train_state.params.values())
     assert record.base_unchanged and record.adapters_changed > 0
@@ -296,12 +306,13 @@ def test_lora_phase_composes_and_records(tmp_path):
     assert os.path.isdir(tmp_path / "ckpt" / "ba2")
 
 
-def test_reader_phase_composes_and_counts_sources(tmp_path):
+def test_reader_phase_composes_and_counts_sources(tmp_path, monkeypatch):
     """Phase 13's data and overrides: the Pexels manifest (a record that
     names a missing file among them) and three tar-shard sources compose
     with the unedited pexels and mixdata yamls; log_traces adds the default
-    profiler beside the phase's own; ReaderRecord counts the samples each
-    mixture source yields (a tiny CPU run of 1 batch)."""
+    profiler beside the phase's own; ReaderRecord, handed the loader by the
+    yaml-run helper, counts the samples each mixture source yields (a tiny
+    CPU run of 1 batch)."""
     import numpy as np
 
     from diffusion_torch.utils.profiler import TorchProfiler
@@ -329,22 +340,19 @@ def test_reader_phase_composes_and_counts_sources(tmp_path):
             str(tmp_path / name), 8, rng, start=10000 * (k + 1))
         sources[name] = os.path.dirname(m)
     chip_smoke._write_coco_shards(str(tmp_path / "coco"), 4, rng)
-    _, tr = _tiny_train("SD-2-base-256-mixdata.yaml", chip_smoke._mix_overrides(
-        manifest, sources, str(tmp_path / "coco")) + [
-            "batch_size=4", "trainer.device_train_microbatch_size=2",
-            "trainer.max_duration=1ba", "~algorithms",
-            "dataset.train_dataset.resize_size=32", "trainer.image_size=32"])
+    tr, record, *_ = _tiny_run(
+        monkeypatch, "mixdata", "SD-2-base-256-mixdata.yaml",
+        chip_smoke._mix_overrides(manifest, sources, str(tmp_path / "coco"))
+        + ["batch_size=4", "trainer.device_train_microbatch_size=2",
+           "trainer.max_duration=1ba", "~algorithms",
+           "dataset.train_dataset.resize_size=32", "trainer.image_size=32"],
+        1)
     loader = tr.train_dataloader
     assert type(loader).__module__ == "diffusion_torch.data.mix"
     assert [c.name for c in loader.pipes_to_weights] == [
         "pexels", "laion", "coyo", "cc"]
-    record = next(c for c in tr.engine.callbacks
-                  if isinstance(c, chip_smoke.ReaderRecord))
-    record.loader = loader
-    try:
-        tr.fit()
-    finally:
-        tr.close()
+    assert isinstance(record, chip_smoke.ReaderRecord)
+    assert record.loader is loader
     assert sorted(record.drawn) == ["cc", "coyo", "laion", "pexels"]
     assert sum(record.drawn.values()) >= 4 and record.drawn["laion"] > 0
 
@@ -366,19 +374,17 @@ def test_recipe_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     """Phase 15 at the tiny geometry on the CPU: the sources it writes, the
     precompute job over them with phase 15's arguments (the tiny towers
     saved as a diffusers directory), convert_coco, then the unedited
-    256 and 512 yamls with phase 15's overrides (cut to batches of 4):
-    phase 1 saves ba3, phase 2 warm-starts from it, and RecipeRecord sees
-    the saved weights, a fresh optimizer and clock, and the EMA copying the
-    weights."""
+    256 and 512 yamls with phase 15's overrides (cut to batches of 4)
+    through the yaml-run helper: phase 1 saves ba3, phase 2 warm-starts
+    from it, and RecipeRecord sees the saved weights, a fresh optimizer
+    and clock, and the EMA copying the weights; the helper reads phase 2's
+    eval from the FileLogger."""
     import numpy as np
 
     from diffusion_torch.models import models as tmodels
     from diffusion_torch.scripts import convert_coco, precompute_latents
-    from diffusion_torch.train.train import train
     from diffusion_torch.utils import safetensors
 
-    # the records synchronise the card around an eval; here there is none
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "RECIPE_RAW", 12)
     monkeypatch.setattr(chip_smoke, "RECIPE_COCO", 8)
     monkeypatch.setattr(tmodels, "stable_diffusion_2",
@@ -403,9 +409,9 @@ def test_recipe_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     assert convert_coco.main(["--annotations", src["annotations"],
                               "--image-dir", src["images"], "--out", coco,
                               "--num-samples", "8"]) == 8
-    cut = _TINY + ["batch_size=4", "trainer.device_train_microbatch_size=2",
-                   "dataset.train_dataset.num_workers=0",
-                   "+dataset.train_dataset.caption_latent_dim=32"]
+    cut = ["batch_size=4", "trainer.device_train_microbatch_size=2",
+           "dataset.train_dataset.num_workers=0",
+           "+dataset.train_dataset.caption_latent_dim=32"]
     from diffusion_torch.config import load_config
     ckpt_dir = str(tmp_path / "ckpt")
     configs = {}
@@ -416,10 +422,9 @@ def test_recipe_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
                            overrides)
         configs[phase] = full
         extra = [] if phase == 1 else ["dataset.eval_dataset.num_workers=0"]
-        tr = train(load_config(os.path.join(chip_smoke._ROOT, "yamls", yaml),
-                               overrides + cut + extra))
-        record = next(c for c in tr.engine.callbacks
-                      if isinstance(c, chip_smoke.ComposedRecord))
+        tr, record, _, _, _, logged = _tiny_run(
+            monkeypatch, f"recipe phase {phase}", yaml,
+            overrides + cut + extra, 3 if phase == 1 else 4)
         assert all(np.isfinite(v) for m, *_ in record.steps
                    for v in m.values())
         if phase == 1:
@@ -438,6 +443,8 @@ def test_recipe_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
                            "ema_equal_params": True}
     assert len(record.steps) == 4 and record.ema_tracks == [True] * 4
     assert len(record.evals) == 1 and record.evals[0][0] == 2
+    assert [r["step"] for r in logged
+            if "metrics/eval/MeanSquaredError" in r] == [2]
     assert tr.train_dataloader.dataset.image_size == 512
 
 
