@@ -36,6 +36,10 @@ Phases, each raising on failure (exit code 1):
      update from the same state, the kernel's time beside its byte bound
      and the foreach passes' time,
      and its bandwidth;
+ 3c. the working copies' two kernels over the same two weight sets: the
+     bf16 copy's pass bit-equal to `.to(torch.bfloat16)`, the gradients'
+     pass storing and adding bit-equal to the cast and AccumulateGrad,
+     each timed beside its byte bound (6 bytes a value; 6 and 10);
   4. serve: the full-width SD-2-base endpoint (random weights from a seed).
      Its UNet, VAE decoder and VAE encoder (posterior mean and logvar of a
      64x64 image) first run against an fp32 CPU copy of themselves on a
@@ -643,6 +647,112 @@ def _adamw_phase(card: str) -> dict:
               f"time {host_us:.0f} us a call [{card}]")
         out[what] = (ms, bound, foreach_ms)
         del p, g, mu, nu, e, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _working_copy_phase(card: str) -> dict:
+    """The working copies' two kernels (`ops/working_copy.py`) over the
+    trained `Linear` / `Conv2d` weights of the SD2 UNet (865.9M values) and
+    the MMDiT (2.03B), shapes from the models built on the meta device:
+    the copy's pass (`refresh_cuda`, 6 bytes a value; kh x kw
+    convolutions' copies in channels_last order) against
+    `.to(torch.bfloat16)`, and the gradients' pass (`accumulate_cuda`, one
+    launch a tensor; 3x3 and larger kernels' gradients in channels_last
+    order, as cuDNN gives them) storing a first microbatch's gradient (6
+    bytes a value) and adding a second (10), each against autograd's cast
+    and add, bit for bit; then each timed (the gradients' pass in a CUDA
+    graph: its host time per launch exceeds a small tensor's kernel)
+    beside its bound. Returns {what: (ms, bound_ms)}."""
+    import torch
+
+    from diffusion_torch.models.models import (stable_diffusion_2,
+                                               stable_diffusion_3)
+    from diffusion_torch.ops import working_copy as wc
+    from portbench.flops import PEAK_BYTES_PER_S, bound_s
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    out = {}
+    for what, build in (("sd2 unet", lambda: stable_diffusion_2(
+            precomputed_latents=True, device="meta")),
+            ("sd3 mmdit", lambda: stable_diffusion_3(device="meta"))):
+        shapes = [tuple(p.shape) for m in build().unet.modules()
+                  if getattr(m, "casts_weights", False)
+                  for p in (m.weight, m.bias)
+                  if p is not None and p.requires_grad]
+        n = sum(math.prod(s) for s in shapes)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        # a kh x kw convolution's copy in channels_last order, as training
+        # makes it
+        copies = [wc._view(torch.empty(p.numel(), dtype=torch.bfloat16,
+                                       device=dev), p) for p in params]
+        tiled = sum(not c.is_contiguous() for c in copies)
+        before = wc.refreshes.value
+        wc.refresh_cuda(params, copies)
+        launched = wc.refreshes.value - before
+        torch.cuda.synchronize()
+        equal = all(torch.equal(c, p.to(torch.bfloat16))
+                    for c, p in zip(copies, params))
+        _check(equal, f"working copy kernel ({what}): a copy differs from "
+                      f".to(torch.bfloat16)")
+        ms = _time_ms(lambda: wc.refresh_cuda(params, copies), iters=5,
+                      warmup=1)
+        host_us = _host_us(lambda: wc.refresh_cuda(params, copies), iters=5)
+        bound = bound_s(0, 6 * n) * 1e3
+        print(f"kernel working_copy_refresh {what}: {n / 1e6:.1f}M values in "
+              f"{len(shapes)} tensors ({tiled} channels_last, a launch "
+              f"each), {launched} launches; bit-equal to "
+              f".to(torch.bfloat16) {equal}; kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({6 * n / 1e9:.2f} GB), "
+              f"{6 * n / ms / 1e9:.3f} TB/s "
+              f"({100 * 6 * n / ms * 1e3 / PEAK_BYTES_PER_S:.1f}% of 3.35); "
+              f"the wrapper's host time {host_us:.0f} us a call [{card}]")
+        out[f"refresh {what}"] = (ms, bound)
+        del params
+
+        def grad_like(c):
+            g = torch.randn(c.shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+            tiled = g.dim() == 4 and g.shape[2] * g.shape[3] > 1
+            return g.contiguous(memory_format=torch.channels_last) \
+                if tiled else g
+        first, second = ([grad_like(c) for c in copies] for _ in range(2))
+        del copies
+        tiled = sum(not g.is_contiguous() for g in first)
+        grads = [torch.empty(g.shape, device=dev) for g in first]
+        for add, gs in ((False, first), (True, second)):
+            for grad, g in zip(grads, gs):
+                wc.accumulate_cuda(grad, g, add)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(
+                grad, g0.float() + g.float() if add else g0.float())
+                for grad, g0, g in zip(grads, first, gs))
+            _check(equal, f"grad accumulate kernel ({what}, "
+                          f"{'add' if add else 'store'}): .grad differs from "
+                          f"the cast and AccumulateGrad")
+
+            def one_pass(gs=gs, add=add):
+                for grad, g in zip(grads, gs):
+                    wc.accumulate_cuda(grad, g, add)
+            ms = _graph_ms(one_pass, launches=1)
+            host_us = _host_us(one_pass, iters=3)
+            nbytes = (10 if add else 6) * n
+            bound = bound_s(0, nbytes) * 1e3
+            mode = "add" if add else "store"
+            print(f"kernel grad_accumulate {what} {mode}: {n / 1e6:.1f}M "
+                  f"values in {len(grads)} tensors ({tiled} channels_last, "
+                  f"tiled), a launch each; bit-equal to the cast and "
+                  f"AccumulateGrad {equal}; in a CUDA graph {ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB), "
+                  f"{nbytes / ms / 1e9:.3f} TB/s "
+                  f"({100 * nbytes / ms * 1e3 / PEAK_BYTES_PER_S:.1f}% of "
+                  f"3.35); host {host_us / 1e3:.2f} ms a pass [{card}]")
+            out[f"accumulate {mode} {what}"] = (ms, bound)
+        del first, second, grads
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -5427,6 +5537,8 @@ def main(argv=None) -> int:
     _unet_group_norm_phase(card)
     # 3b. the fused AdamW (+ EMA) pass
     _adamw_phase(card)
+    # 3c. the working copies' cast and gradient passes
+    _working_copy_phase(card)
 
     # 4. serve
     t0 = time.perf_counter()

@@ -9,10 +9,15 @@ NHWC, the JAX package's layout, so the GroupNorm kernel reads a contiguous
 (B, H*W, C) slab with no copy.
 
 Precision, as in the JAX package: parameters are fp32 and the compute dtype
-is the dtype of the activations (bf16 at full width). `Linear` and
-`Conv2d` cast their weights to the input's dtype on every call (a
-differentiable cast, so gradients land on the fp32 parameters); norms
-compute their statistics in fp32 and return the input's dtype.
+is the dtype of the activations (bf16 at full width); norms compute their
+statistics in fp32 and return the input's dtype. `Linear` and `Conv2d`
+(and the tp layers' row-parallel products) take their weight and bias in
+the input's dtype from `ops/working_copy.py::operands`: inside the
+Trainer's scope around an unsharded training step, the step's bf16 copy of
+each trained weight, made once a step, whose gradient is added into the
+fp32 `.grad` in one pass; elsewhere (eval, serving, frozen or hooked
+parameters, sharded steps) a differentiable cast on every call, so
+gradients land on the fp32 parameters. Both give the same numbers.
 
 Dropout (`ResnetBlock(dropout=p)`, after norm2 as in the JAX block) drops
 only when the forward is given a `dropout_key`: the mask is drawn from a
@@ -54,6 +59,7 @@ from torch import nn
 
 from diffusion_torch.ops.attention import multi_head_attention
 from diffusion_torch.ops.groupnorm import group_norm
+from diffusion_torch.ops.working_copy import operands
 
 __all__ = [
     "Linear", "Conv2d", "LayerNorm", "GroupNorm", "timestep_embedding",
@@ -74,9 +80,10 @@ class Container(nn.Module):
 class Linear(nn.Linear):
     """nn.Linear computing in the input's dtype over fp32 parameters."""
 
+    casts_weights = True        # its operands come from `operands`
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return F.linear(x, *operands(self.weight, self.bias, x.dtype))
 
 
 class Conv2d(nn.Conv2d):
@@ -84,9 +91,16 @@ class Conv2d(nn.Conv2d):
     `shard`, `x` holds this rank's rows: the rows the kernel reaches beyond
     them come from the neighbouring shards (zeros at the image's edges)."""
 
+    casts_weights = True
+
     def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        weight = self.weight.to(x.dtype)
+        weight, bias = operands(self.weight, self.bias, x.dtype)
+        if not weight.is_contiguous() and (
+                x.is_contiguous() or not x.is_contiguous(
+                    memory_format=CHANNELS_LAST)):
+            # the step's channels_last copy beside activations that are not
+            # channels_last: cuDNN gets the layout a per-call cast gives it
+            weight = weight.contiguous()
         k, pad, stride = self.kernel_size[0], self.padding[0], self.stride[0]
         if shard is None or k == 1:
             return self._conv_forward(x, weight, bias)
@@ -321,8 +335,9 @@ class Attention(nn.Module):
         from diffusion_torch.parallel.sharding import tp_copy, tp_reduce
         o = self._attend(x, context, shard, lambda t: tp_copy(t, tp))
         # the row-parallel product summed over the group, then the bias
-        out = tp_reduce(F.linear(o, self.to_out[0].weight.to(o.dtype)), tp)
-        out = out + self.to_out[0].bias.to(out.dtype)
+        weight, bias = operands(self.to_out[0].weight, self.to_out[0].bias,
+                                o.dtype)
+        out = tp_reduce(F.linear(o, weight), tp) + bias
         if self.lora_rank == 0:
             return out
         a = tp_reduce(self.to_out_lora_a(o), tp)
@@ -360,8 +375,9 @@ class FeedForwardGEGLU(nn.Module):
             return self.net[2](self.net[0](x))
         from diffusion_torch.parallel.sharding import tp_copy, tp_reduce
         h = self.net[0](tp_copy(x, tp))
-        out = tp_reduce(F.linear(h, self.net[2].weight.to(h.dtype)), tp)
-        return out + self.net[2].bias.to(out.dtype)
+        weight, bias = operands(self.net[2].weight, self.net[2].bias,
+                                h.dtype)
+        return tp_reduce(F.linear(h, weight), tp) + bias
 
 
 class BasicTransformerBlock(nn.Module):

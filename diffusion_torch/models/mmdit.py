@@ -24,7 +24,9 @@ gradient. Every joint attention is thus 4,250 queries over 4,250 keys at
 
 Precision, as the port's other networks: fp32 parameters, the compute
 dtype is the module's `dtype` (bf16 at full width). `Linear` and
-`Conv2d` (`models/layers.py`) cast their weights per call; LayerNorm
+`Conv2d` (`models/layers.py`) read the training step's bf16 copy of their
+weights inside the Trainer's scope and cast them per call elsewhere
+(`ops/working_copy.py`); LayerNorm
 computes its statistics in fp32 and returns the compute dtype, and the
 modulation and the gated residuals run in the compute dtype. The joint
 attention goes through `ops.attention.multi_head_attention`: on the card,

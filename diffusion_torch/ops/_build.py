@@ -36,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "diffusion_torch")
 _SOURCES = ("adamw.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-            "group_norm.cu")
+            "group_norm.cu", "working_copy.cu")
 _HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +55,9 @@ _SIGNATURES = {
     "dt_group_norm_fwd_stage": [*[_P] * 7, *[_I] * 10, _F, _I, _I, _I, _P],
     "dt_group_norm_bwd_stage": [*[_P] * 13, *[_I] * 13, _P],
     "dt_adamw_ema_foreach": [_P, _P, _P, _I, _I, _I, _P, *[_F] * 12, _P],
+    "dt_working_copy_refresh": [_P, _P, _P, _I, _P],
+    "dt_working_copy_refresh_tiled": [_P, _P, _LL, _LL, _I, _P],
+    "dt_grad_accumulate": [_P, _P, _LL, _LL, _I, _I, _P],
 }
 
 
@@ -72,6 +75,7 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self._n = 0
         self._host_ns = 0
+        self.index = len(LaunchCounter._all)   # its place in `values()`
         LaunchCounter._all.append(self)
 
     def add(self, n: int = 1) -> None:
@@ -98,6 +102,12 @@ class LaunchCounter:
     def counters(cls) -> "list[LaunchCounter]":
         """Every counter made in the process."""
         return list(cls._all)
+
+    @classmethod
+    def values(cls) -> "list[int]":
+        """Every counter's count, in the order the counters were made
+        (each read of an int is atomic: no lock)."""
+        return [c._n for c in cls._all]
 
     @classmethod
     def total_host_ns(cls) -> int:

@@ -7,7 +7,11 @@ training batch is one step:
 - the batch splits into `grad_accum_steps` microbatches (Composer's ceil
   rule: a microbatch never exceeds `device_train_microbatch_size`); each
   microbatch's loss is backpropagated into the parameters' fp32 `.grad`,
-  which sums them; grads and loss are then averaged over the microbatches;
+  which sums them; grads and loss are then averaged over the microbatches.
+  On one process the microbatches' forward and backward run inside a
+  scope of `ops/working_copy.py`: entering it casts the UNet's trained
+  weights to their bf16 copies once, and the layers add each bf16 weight
+  gradient into `.grad` in one pass (bit-equal to the per-call cast);
 - `grad/global_norm` is taken before clipping;
 - with `skip_nonfinite_updates`, a step whose loss or grad norm is not
   finite changes nothing: parameters, optimizer moments and the LR
@@ -143,6 +147,7 @@ grad.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import logging
@@ -162,6 +167,7 @@ from diffusion_torch.metrics.generation_metrics import (
     GENERATION_METRICS, GenerationMetricsHook)
 from diffusion_torch.ops.attention import (sequence_parallel,
                                            tensor_parallel)
+from diffusion_torch.ops.working_copy import working_copies
 from diffusion_torch.parallel import dist
 from diffusion_torch.parallel.mesh import (MESH_AXES, create_mesh,
                                            example_layout, mesh_sizes)
@@ -440,6 +446,14 @@ class Trainer:
     def _tensor_parallel(self):
         return tensor_parallel(self.mesh if self._sharded else None)
 
+    def _working_scope(self):
+        """The step's bf16 copies of the UNet's trained weights
+        (`ops/working_copy.py`); none on a process mesh, whose FSDP, tp and
+        sp layers keep the per-call cast."""
+        if self._sharded:
+            return contextlib.nullcontext()
+        return working_copies(self.model.unet)
+
     def _train_step(self, batch: Dict[str, torch.Tensor],
                     local_batch: int) -> Dict[str, torch.Tensor]:
         """One optimizer step over `batch` (this rank's part of the global
@@ -521,7 +535,8 @@ class Trainer:
         summed loss."""
         step = self.train_state.step
         loss = torch.zeros((), device=self.device)
-        with self._sequence_parallel(), self._tensor_parallel():
+        with self._sequence_parallel(), self._tensor_parallel(), \
+                self._working_scope():
             for i in range(n_accum):
                 with span("forward", micro=i):
                     mb = {k: v[i * micro:(i + 1) * micro]

@@ -22,7 +22,9 @@ the CPU); on a raw batch, `forward`
 holds `StableDiffusion.forward`'s `encode` (the VAE and CLIP towers' encode).
 A record also holds how far
 the kernel wrappers' host time (`LaunchCounter.total_host_ns`) grew while
-it was open. While a torch.profiler is running, and only then, a span also
+it was open, and how far each `LaunchCounter`'s count grew
+(`StepRecord.launches(counter)`; a replayed step's counts are those its
+graph captured). While a torch.profiler is running, and only then, a span also
 opens a `record_function` range named `diffusion_torch.<name>`, so the
 trace shows it on the profiler's clock around the operators it issued.
 
@@ -39,7 +41,7 @@ import collections
 import os
 import threading
 import time
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Sequence
 
 import torch
 
@@ -135,6 +137,7 @@ class Span:
         if spans is None:
             opened.spans = [self]
             opened.wrapper_ns = LaunchCounter.total_host_ns()
+            opened.counts = LaunchCounter.values()
         else:
             spans.append(self)
         # the Python-side flag torch keeps for such checks, set while any
@@ -158,22 +161,35 @@ class Span:
             opened.spans = None
             self._recorder._keep(StepRecord(
                 self.step, spans,
-                LaunchCounter.total_host_ns() - opened.wrapper_ns))
+                LaunchCounter.total_host_ns() - opened.wrapper_ns,
+                opened.counts, LaunchCounter.values()))
 
 
 class StepRecord:
     """The spans of one step (or of one span opened outside any step), in
     the order they opened, and `wrapper_host_ns`: how far the kernel
-    wrappers' summed host time grew while its first span was open."""
+    wrappers' summed host time grew while its first span was open; with
+    the launch counters' counts as it opened and closed, how far each
+    grew (`launches`)."""
 
-    __slots__ = ("step", "_spans", "wrapper_host_ns", "_linked")
+    __slots__ = ("step", "_spans", "wrapper_host_ns", "_linked", "_counts")
 
     def __init__(self, step: Optional[int], spans: List[Span],
-                 wrapper_host_ns: int):
+                 wrapper_host_ns: int, counts_open: Sequence[int],
+                 counts_close: Sequence[int]):
         self.step = step
         self._spans = spans
         self.wrapper_host_ns = wrapper_host_ns
         self._linked = False
+        self._counts = (counts_open, counts_close)
+
+    def launches(self, counter: LaunchCounter) -> int:
+        """How far `counter`'s count grew while the record was open (a
+        counter made meanwhile counts from 0)."""
+        i = counter.index
+        opened, closed = self._counts
+        return ((closed[i] if i < len(closed) else 0)
+                - (opened[i] if i < len(opened) else 0))
 
     @property
     def spans(self) -> List[Span]:
@@ -219,6 +235,7 @@ class _Open(threading.local):
     def __init__(self) -> None:
         self.spans: Optional[List[Span]] = None
         self.wrapper_ns = 0
+        self.counts: List[int] = []
 
 
 class SpanRecorder:

@@ -634,6 +634,109 @@ def test_adamw_kernel_raises_on_what_it_does_not_take(cuda):
         ka.adamw_cuda(p, g, mu, nu, clip=1.0, **kw)
 
 
+# odd sizes, a tensor over several 16,384-value chunks with a tail, a view
+# 4 bytes off 16-byte alignment (scalar path), and values the cast must
+# round as PyTorch does: ties, the largest finite values, infinities, NaN,
+# subnormals
+_COPY_SHAPES = [(1,), (7,), (16383,), (16385,), (3 * 16384 + 5,),
+                (320, 4, 3, 3), (1280, 1024), (1280, 2560, 3, 3),
+                (7, 5, 2, 2), (2, 257, 3, 3), (320, 640, 1, 1)]
+
+
+def _copy_params(device):
+    out = []
+    for i, shape in enumerate(_COPY_SHAPES):
+        out.append(_randn(shape, 40 + i, torch.float32, device))
+    specials = torch.tensor(
+        [1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -(1.0 + 2 ** -8), 3.3895314e38,
+         3.4e38, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-45,
+         0.0, -0.0], device=device)
+    out[1] = specials[:7].clone()
+    out[3][:len(specials)] = specials
+    buf = torch.empty(1001, device=device)
+    view = buf[1:]
+    view.copy_(_randn((1000,), 60, torch.float32, device))
+    return out + [view]
+
+
+def test_working_copy_refresh_is_the_cast(cuda):
+    """The copy's passes equal `.to(torch.bfloat16)` bit for bit (NaN's
+    bits too): 600 + 9 contiguous copies in two launches, and the kh x kw
+    convolutions' weights' channels_last copies in one launch each."""
+    from diffusion_torch.ops import working_copy as wc
+    params = _copy_params(cuda) + [
+        r.clone() for r in _randn((600, 37), 61, torch.float32, cuda)]
+    tiled = [p.dim() == 4 and p.shape[2] * p.shape[3] > 1 for p in params]
+    copies = [torch.empty_like(p, dtype=torch.bfloat16, memory_format=(
+        torch.channels_last if t else torch.contiguous_format))
+        for p, t in zip(params, tiled)]
+    before = wc.refreshes.value
+    wc.refresh_cuda(params, copies)
+    torch.cuda.synchronize()
+    assert wc.refreshes.value == before + 2 + sum(tiled) == before + 6
+    for p, c, t in zip(params, copies, tiled):
+        assert c.is_contiguous(memory_format=torch.channels_last
+                               if t else torch.contiguous_format)
+        assert torch.equal(c.contiguous().view(torch.int16),
+                           p.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("flat", (1,)), ("flat", (7,)), ("flat", (1023,)), ("flat", (16385,)),
+    ("flat", (1000003,)), ("flat", (640, 320)), ("flat", (320, 640, 1, 1)),
+    ("channels_last", (320, 4, 3, 3)), ("channels_last", (7, 5, 2, 2)),
+    ("channels_last", (1280, 2560, 3, 3)), ("channels_last", (3, 130, 3, 3)),
+    ("channels_last", (2, 257, 3, 3)), ("strided", (64, 48))])
+def test_grad_accumulate_is_the_cast_and_accumulate_grad(cuda, layout, shape):
+    """Four microbatches' bf16 gradients added into `.grad` by the op's
+    pass against autograd's `p.to(bf16)` backward (`ToCopyBackward`, then
+    `AccumulateGrad`): `.grad` bit for bit after each. A channels_last
+    gradient takes the tiled kernel; a strided one the fallback, counted."""
+    from diffusion_torch.ops import working_copy as wc
+    p = torch.nn.Parameter(_randn(shape, 70, torch.float32, cuda))
+    mine = torch.nn.Parameter(p.detach().clone())
+    before = (wc.accumulations.value, wc.fallbacks.value)
+    for k in range(4):
+        g = _randn(shape, 71 + k, torch.float32, cuda).to(torch.bfloat16)
+        if layout == "channels_last":
+            g = g.contiguous(memory_format=torch.channels_last)
+        elif layout == "strided":
+            g = g.t().contiguous().t()
+        p.to(torch.bfloat16).backward(g)
+        wc.accumulate(mine, g)
+        torch.cuda.synchronize()
+        assert mine.grad.is_contiguous() and mine.grad.dtype == torch.float32
+        assert torch.equal(mine.grad, p.grad)
+    fused = 4 if layout != "strided" else 0
+    assert (wc.accumulations.value - before[0],
+            wc.fallbacks.value - before[1]) == (fused, 4 - fused)
+
+
+def test_working_copy_kernels_raise_on_what_they_do_not_take(cuda):
+    from diffusion_torch.ops import working_copy as wc
+    p = [torch.ones(5, device=cuda)]
+    with pytest.raises(ValueError, match="bfloat16"):
+        wc.refresh_cuda(p, [torch.empty(5, device=cuda)])
+    with pytest.raises(ValueError, match="of its shape"):
+        wc.refresh_cuda(p, [torch.empty(6, device=cuda,
+                                        dtype=torch.bfloat16)])
+    conv = [torch.ones(8, 4, 3, 3, device=cuda)]
+    with pytest.raises(ValueError, match="channels_last"):
+        wc.refresh_cuda(conv, [torch.empty(8, 4, 3, 3, device=cuda,
+                                           dtype=torch.bfloat16).transpose(
+                                               2, 3)])
+    with pytest.raises(ValueError, match="on CUDA"):
+        wc.refresh_cuda([p[0].cpu()], [torch.empty(5, dtype=torch.bfloat16)])
+    grad = torch.zeros(8, 4, device=cuda)
+    g = torch.ones(8, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="grad accumulate"):
+        wc.accumulate_cuda(grad, g.half(), add=True)
+    with pytest.raises(ValueError, match="grad accumulate"):
+        wc.accumulate_cuda(grad.t(), g.t(), add=True)
+    with pytest.raises(ValueError, match="grad accumulate"):
+        wc.accumulate_cuda(grad, g[:4], add=True)
+
+
 def test_tiny_trainer_on_card_matches_cpu(cuda):
     """Two steps of the port's Trainer on the tiny model (fp32: every
     GroupNorm forward and backward runs the kernels inside autograd) on the

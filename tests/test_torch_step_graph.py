@@ -14,6 +14,7 @@ kernels' launch counters.
     python -m pytest tests/test_torch_step_graph.py -q -p no:randomly
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -228,9 +229,10 @@ class _Record(Callback):
 
 
 def _fit(device, state, monkeypatch=None, algorithms=(), at_end=None,
-         remat=False):
+         remat=False, working=True):
     """`_STEPS` steps of 8 latents in 2 microbatches; with `monkeypatch`,
-    every step eager."""
+    every step eager; without `working`, the layers cast their weights per
+    call (no working-copy scope)."""
     rng = np.random.default_rng(4)
     batches = [_latents(rng, 8, 16, 128, 64) for _ in range(_STEPS)]
     draws = {(s, i): (rng.standard_normal((4, 16, 16, 4)).astype(np.float32),
@@ -252,6 +254,8 @@ def _fit(device, state, monkeypatch=None, algorithms=(), at_end=None,
                       max_duration=f"{_STEPS}ba",
                       device_train_microbatch_size=4, device=device,
                       noise_hook=hook)
+    if not working:
+        trainer._working_scope = contextlib.nullcontext
     trainer.fit()
     torch.cuda.synchronize()
     if monkeypatch is not None:
@@ -369,3 +373,160 @@ def test_group_norm_calls_replay_from_one_graph(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- the working copies, on the card
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms (its weight-gradient ones may add
+    with atomics otherwise), so two runs can agree bit for bit."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _state_equal(a, b):
+    ts_a, ts_b = a.train_state, b.train_state
+    pairs = list(zip(ts_a.params.values(), ts_b.params.values()))
+    for moment in ("mu", "nu"):
+        pairs += zip(getattr(ts_a.optimizer, moment),
+                     getattr(ts_b.optimizer, moment))
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def _weight_casts(model):
+    return sum(p.requires_grad for m in model.unet.modules()
+               if getattr(m, "casts_weights", False)
+               for p in (m.weight, m.bias) if p is not None)
+
+
+@pytest.mark.gpu
+def test_replayed_steps_equal_per_call_cast_steps(cuda, monkeypatch):
+    """The small bf16 UNet: 4 steps replayed with the working copies (the
+    copy's pass and the gradients' pass captured in the graph) against 4
+    eager steps that cast per call: losses, parameters and moments bit for
+    bit; every replayed step adds each trained weight's gradient through
+    the op's pass, twice (2 microbatches), and takes no fallback."""
+    from diffusion_torch.ops import working_copy as wc
+    state = {k: v.clone() for k, v in
+             _small_model(cuda).unet.state_dict().items()}
+    with _deterministic():
+        cast, cast_rec = _fit(cuda, state, monkeypatch, working=False)
+        graphed, graphed_rec = _fit(cuda, state)
+    assert torch.equal(torch.stack(graphed_rec.losses),
+                       torch.stack(cast_rec.losses))
+    assert _state_equal(graphed, cast)
+    n = _weight_casts(graphed.model)
+    for step in graphed_rec.launches:
+        assert step[wc.accumulations.index] == 2 * n
+        assert step[wc.fallbacks.index] == 0
+    assert all(step[wc.refreshes.index] >= 1
+               for step in graphed_rec.launches)
+    assert all(step[wc.fallbacks.index] == 2 * n
+               for step in cast_rec.launches)
+
+
+@pytest.mark.gpu
+def test_replayed_mmdit_steps_equal_per_call_cast_steps(cuda, monkeypatch):
+    """A bf16 MMDiT (2 blocks, 32x32 latents and 20 text tokens: joint
+    length 276, flash with a ragged tail) 4 steps replayed with the working
+    copies against 4 eager steps that cast per call: bit for bit."""
+    from diffusion_torch.models.models import stable_diffusion_3
+    from diffusion_torch.models.stable_diffusion_3 import POOLED
+    cfg = {"sample_size": 32, "patch_size": 2, "in_channels": 16,
+           "out_channels": 16, "num_layers": 2, "attention_head_dim": 64,
+           "num_attention_heads": 2, "joint_attention_dim": 48,
+           "caption_projection_dim": 128, "pooled_projection_dim": 40,
+           "pos_embed_max_size": 32}
+    rng = np.random.default_rng(6)
+    batches = [{"image_latents": rng.standard_normal(
+                    (4, 32, 32, 16)).astype(np.float32),
+                "caption_latents": rng.standard_normal(
+                    (4, 20, 48)).astype(np.float32),
+                POOLED: rng.standard_normal((4, 40)).astype(np.float32)}
+               for _ in range(_STEPS)]
+    draws = {(s, i): (torch.from_numpy(rng.standard_normal(
+                          (2, 32, 32, 16)).astype(np.float32)),
+                      torch.from_numpy(rng.uniform(0.05, 0.95, 2).astype(
+                          np.float32)))
+             for s in range(_STEPS) for i in range(2)}
+    state = {k: v.clone() for k, v in
+             stable_diffusion_3(cfg, device=cuda).unet.state_dict().items()}
+
+    def fit(working):
+        if not working:
+            monkeypatch.setattr(step_graph.StepGraph, "reason",
+                                lambda self, trainer, batch: "warmup")
+        model = stable_diffusion_3(cfg, device=cuda)
+        model.unet.load_state_dict(state)
+        record = _Record()
+        trainer = Trainer(model=model, train_dataloader=batches,
+                          optimizers=adamw(lr=1e-4), callbacks=[record],
+                          max_duration=f"{_STEPS}ba",
+                          device_train_microbatch_size=2, device=cuda,
+                          noise_hook=lambda s, i, n, mb: draws[(s, i)])
+        if not working:
+            trainer._working_scope = contextlib.nullcontext
+        trainer.fit()
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        return trainer, record
+
+    counts = profiler.step_graph
+    with _deterministic():
+        cast, cast_rec = fit(False)
+        before = counts.replays
+        graphed, graphed_rec = fit(True)
+    assert counts.replays == before + _STEPS - 1
+    assert torch.equal(torch.stack(graphed_rec.losses),
+                       torch.stack(cast_rec.losses))
+    assert _state_equal(graphed, cast)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("event", ["ema_swap", "load"])
+def test_replay_after_new_weights_reads_them(cuda, monkeypatch, event):
+    """New weights between steps, then a replay: the replay's copy pass
+    reads them (nothing is cached across steps). `load`: a state_dict
+    loaded in place after step 1 (the storage stays; step 2 replays).
+    `ema_swap`: the EMA swapped in after step 1 (step 2 runs eagerly on
+    its storage) and out after step 2 (step 3 replays; steps count from
+    0). Against eager
+    per-call-cast steps with the same events: bit for bit."""
+    holder = []
+    state = {k: v.clone() for k, v in
+             _small_model(cuda).unet.state_dict().items()}
+    other = {k: v * 0.5 for k, v in state.items()}
+
+    def at_end(st):
+        b = st.timestamp.batch
+        if event == "load" and b == 2:
+            st.model.unet.load_state_dict(other)
+        elif event == "ema_swap" and b == 2:
+            holder[-1].swap_in(st)
+        elif event == "ema_swap" and b == 3:
+            holder[-1].swap_out(st)
+
+    def run(**kw):
+        holder.append(EMA(half_life=None, smoothing=0.9))
+        return _fit(cuda, state, algorithms=[holder[-1]], at_end=at_end,
+                    **kw)
+
+    counts = profiler.step_graph
+    with _deterministic():
+        cast, cast_rec = run(monkeypatch=monkeypatch, working=False)
+        profiler.recorder.clear()
+        graphed, graphed_rec = run()
+    replayed = [any(s.name == "replay" for s in r.spans)
+                for r in profiler.recorder.steps(0, _STEPS)]
+    assert replayed == ([False, True, False, True] if event == "ema_swap"
+                        else [False, True, True, True])
+    assert counts.captures >= 1
+    assert torch.equal(torch.stack(graphed_rec.losses),
+                       torch.stack(cast_rec.losses))
+    assert _state_equal(graphed, cast)
