@@ -881,11 +881,13 @@ def _kernel_phase(card: str):
 
     # flash forward: the serving shapes, the 256px training one, then the
     # MMDiT's joint attention at 1,024px (4,250 tokens, the tail instance)
-    # and a whole-tile query block against its ragged keys; the library call
-    # is SDPA's flash backend on the (B, H, S, D) views
+    # and a whole-tile query block against its ragged keys, then FLUX's at
+    # head dim 128 (4,608 tokens, whole tiles) and a ragged 4,173; the
+    # library call is SDPA's flash backend on the (B, H, S, D) views
     for shape, skv in (((2, 4096, 5, 64), 4096), ((2, 1024, 10, 64), 1024),
                        ((16, 1024, 5, 64), 1024), ((2, 4250, 24, 64), 4250),
-                       ((2, 4096, 24, 64), 4250)):
+                       ((2, 4096, 24, 64), 4250), ((2, 4608, 24, 128), 4608),
+                       ((2, 4173, 24, 128), 4173)):
         b, s, h, d = shape
         q = randn(*shape)
         k, v = randn(b, skv, h, d), randn(b, skv, h, d)
@@ -936,10 +938,12 @@ def _kernel_phase(card: str):
 
     # flash backward: 256px training (first stage, batch 16), then 512px:
     # batch 4, and the 512 recipe's microbatch of 8; then the MMDiT's joint
-    # attention (the tail instances) and whole-tile queries on ragged keys
+    # attention (the tail instances) and whole-tile queries on ragged keys;
+    # then FLUX's at head dim 128, whole and ragged
     for shape, skv in (((16, 1024, 5, 64), 1024), ((4, 4096, 5, 64), 4096),
                        ((8, 4096, 5, 64), 4096), ((2, 4250, 24, 64), 4250),
-                       ((2, 4096, 24, 64), 4250)):
+                       ((2, 4096, 24, 64), 4250), ((2, 4608, 24, 128), 4608),
+                       ((2, 4173, 24, 128), 4173)):
         b, s, h, d = shape
         q, do = randn(*shape), randn(*shape)
         k, v = randn(b, skv, h, d), randn(b, skv, h, d)
@@ -5522,11 +5526,12 @@ def main(argv=None) -> int:
                  if "wgmma_serialized" in u else ""))
     for name in _NO_SPILL:
         # each instance: the flash kernels' whole-tile and tail templates
+        # at head dims 64 and 128
         found = _instances(usage, name)
-        _check(len(found) == 2 and all(
+        _check(len(found) == 4 and all(
             u.get("spill_stores") == 0 and u.get("spill_loads") == 0
             for u in found.values()),
-            f"ptxas reports spills (or not its two instances) for {name}: "
+            f"ptxas reports spills (or not its four instances) for {name}: "
             f"{found}")
     _check(not any("wgmma_serialized" in u for u in
                    _instances(usage, "flash_bwd_dq_kernel").values()),

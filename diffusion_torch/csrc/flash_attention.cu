@@ -41,6 +41,17 @@
 //    4,250 joint tokens) the tail instance runs, which masks any number of
 //    keys in the last tile; the whole-tile instance is the path of the
 //    UNet's calls.
+//  * Head dims 64 and 128 (template kD; flash_common.cuh has the halves a
+//    128-dim tile is made of). At 128 the products double per score and
+//    the exponentials stay, so the tensor cores bound it alone. Q K^T
+//    reduces over 8 k16 chunks, two halves of Q and K; P V runs once per
+//    half of V into two m64n64 accumulators (O is 64 fp32 registers a
+//    thread, as the scores are). The tiles stay 128 x 128, as FA3 keeps
+//    them at this head dim: 64 score + 64 O + 2 x 32 P registers fit the
+//    consumers' 240, where a 64-key tile would halve the scores' wgmma
+//    to N = 64 and read Q from shared memory twice as often a FLOP. A
+//    stage of K and V is 64 KB; Q and the 3 stages take 224 KB of the
+//    227 KB a block may have.
 
 #include <math.h>
 
@@ -49,7 +60,7 @@
 
 namespace {
 
-using flash::kD;
+using flash::half_of;
 using flash::kLog2e;
 using flash::pack_bf16;
 using hopper::exp2_ftz;
@@ -59,15 +70,17 @@ constexpr int kBN = 128;            // keys per K/V tile
 constexpr int kStages = 3;          // K/V ring depth
 constexpr int kConsumerThreads = 256;
 constexpr int kThreads = kConsumerThreads + 128;
-constexpr int kTileBytes = kBN * kD * 2;
 
+template <int kD>
 struct alignas(1024) Smem {
   __nv_bfloat16 q[kBM * kD];
   __nv_bfloat16 k[kStages][kBN * kD];
   __nv_bfloat16 v[kStages][kBN * kD];
-  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+  uint64_t q_full, k_full[kStages], v_full[kStages],
+      empty[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;   // + alignment slack
+template <int kD>
+constexpr int kSmemBytes = sizeof(Smem<kD>) + 1024;   // + alignment slack
 
 // Online softmax of one tile's raw scores `sc` (rows g, g+8 x kBN keys):
 // updates the running max m (log2 units of the scaled scores) and this
@@ -141,7 +154,7 @@ __device__ __forceinline__ void scale_rows(float (&acc)[32], float alpha0,
   }
 }
 
-template <bool kTail>
+template <int kD, bool kTail>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
@@ -149,8 +162,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int H, int Sq, int Skv, float scale_log2) {
   using namespace hopper;
+  constexpr int kHalves = kD / 64;
+  constexpr int kTileBytes = kBN * kD * 2;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int bh = blockIdx.y;
@@ -175,15 +190,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     regs_release<24>();
     if (threadIdx.x == kConsumerThreads) {
       mbar_expect_tx(&sm.q_full, kBM * kD * 2);
-      tma_load(sm.q, &tq, &sm.q_full, 0, q0, h, b);
+      flash::tma_load_tile<kD, kBM>(sm.q, &tq, &sm.q_full, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         // the first pass over the ring finds every stage empty
         mbar_wait(&sm.empty[s], ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.k_full[s], kTileBytes);
-        tma_load(sm.k[s], &tk, &sm.k_full[s], 0, i * kBN, h, b);
+        flash::tma_load_tile<kD, kBN>(sm.k[s], &tk, &sm.k_full[s], i * kBN,
+                                      h, b);
         mbar_expect_tx(&sm.v_full[s], kTileBytes);
-        tma_load(sm.v[s], &tv, &sm.v_full[s], 0, i * kBN, h, b);
+        flash::tma_load_tile<kD, kBN>(sm.v[s], &tv, &sm.v_full[s], i * kBN,
+                                      h, b);
       }
     }
   } else {
@@ -191,11 +208,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     regs_claim<240>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;
-    const uint64_t q_desc = desc_sw128(sm.q + wg * 64 * kD);
-
-    float acc[32];                          // O rows (g, g+8) x 64 dims
+    uint64_t q_desc[kHalves];               // this warpgroup's 64 rows
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int j = 0; j < kHalves; ++j)
+      q_desc[j] = desc_sw128(half_of<kBM>(sm.q, j) + wg * 64 * 64);
+
+    float acc[kHalves][32];                 // O rows (g, g+8) x kD dims
+#pragma unroll
+    for (int j = 0; j < kHalves; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;   // running max, log2 units
     float l0 = 0.f, l1 = 0.f;               // this thread's share of the sum
     float alpha0, alpha1;
@@ -205,24 +227,29 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     auto issue_scores = [&](float (&sc)[64], int i) {
       const int s = i % kStages;
       mbar_wait(&sm.k_full[s], (i / kStages) & 1);
-      const uint64_t k_desc = desc_sw128(sm.k[s]);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kD / 16; ++kc)
-        wgmma_m64n128k16_ss(sc, q_desc + kc * kDescK16,
-                            k_desc + kc * kDescK16, kc > 0);
+        wgmma_m64n128k16_ss(
+            sc, q_desc[kc / 4] + (kc % 4) * kDescK16,
+            desc_sw128(half_of<kBN>(sm.k[s], kc / 4)) + (kc % 4) * kDescK16,
+            kc > 0);
       wgmma_commit();
     };
     // O += P V of tile i (issued, committed; not waited for)
     auto issue_pv = [&](int i) {
       const int s = i % kStages;
       mbar_wait(&sm.v_full[s], (i / kStages) & 1);
-      const uint64_t v_desc = desc_sw128(sm.v[s]);
-      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) fence_regs(acc[j]);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kBN / 16; ++kc)
-        wgmma_m64n64k16_rs_tn(acc, pa[kc], v_desc + kc * kDescRows16);
+      for (int j = 0; j < kHalves; ++j) {
+        const uint64_t v_desc = desc_sw128(half_of<kBN>(sm.v[s], j));
+#pragma unroll
+        for (int kc = 0; kc < kBN / 16; ++kc)
+          wgmma_m64n64k16_rs_tn(acc[j], pa[kc], v_desc + kc * kDescRows16);
+      }
       wgmma_commit();
     };
 
@@ -248,9 +275,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       softmax_tile<kTail>(sc, Skv - i * kBN, t4, scale_log2, m0, m1, l0, l1,
                           alpha0, alpha1, pn);
       wgmma_wait<0>();
-      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) fence_regs(acc[j]);
       mbar_arrive(&sm.empty[(i - 1) % kStages]);  // done with tile i-1
-      scale_rows(acc, alpha0, alpha1);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) scale_rows(acc[j], alpha0, alpha1);
 #pragma unroll
       for (int kc = 0; kc < kBN / 16; ++kc)
 #pragma unroll
@@ -258,7 +287,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
     issue_pv(n_tiles - 1);
     wgmma_wait<0>();
-    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < kHalves; ++j) fence_regs(acc[j]);
     mbar_arrive(&sm.empty[(n_tiles - 1) % kStages]);
 
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -268,8 +298,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
     // out is a fresh contiguous (B, Sq, H, D) tensor
     const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
-    flash::store_rows(o, reinterpret_cast<const float(*)[4]>(acc), b, Sq, H,
-                      h, r0, t4, 1.f / l0, 1.f / l1);
+    flash::store_rows<kD>(o, reinterpret_cast<const float(*)[4]>(acc), b,
+                          Sq, H, h, r0, t4, 1.f / l0, 1.f / l1);
     if (t4 == 0) {
       // natural-log lse of the scaled scores: (m + log2 l) * ln 2
       const float ln2 = 0.6931471805599453f;
@@ -279,32 +309,46 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-}  // namespace
-
-// q, k, v: (B, S, H, 64) bf16 views with unit last stride; the wrapper
-// (diffusion_torch/ops/flash_attention.py) checks shapes, strides and
-// alignment. o: contiguous (B, Sq, H, 64) bf16; lse: contiguous (B, H, Sq)
-// fp32. Sq and Skv may be any lengths: the tail instance runs where one is
-// not a multiple of 64. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue where the CUDA driver refuses a tensor map).
-extern "C" int dt_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int H, int Sq, int Skv, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, float scale, void* stream) {
-  CUtensorMap tq, tk, tv;
-  if (!hopper::make_map(&tq, q, B, Sq, H, q_sb, q_ss, q_sh, kBM) ||
-      !hopper::make_map(&tk, k, B, Skv, H, k_sb, k_ss, k_sh, kBN) ||
-      !hopper::make_map(&tv, v, B, Skv, H, v_sb, v_ss, v_sh, kBN))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = (Sq % 64 || Skv % 64) ? flash_fwd_kernel<true>
-                                             : flash_fwd_kernel<false>;
+template <int kD>
+int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, void* o, void* lse, int B, int H,
+               int Sq, int Skv, float scale, void* stream) {
+  const auto kernel = (Sq % 64 || Skv % 64) ? flash_fwd_kernel<kD, true>
+                                             : flash_fwd_kernel<kD, false>;
   cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<kD>);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   dim3 grid((Sq + kBM - 1) / kBM, B * H);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, kSmemBytes<kD>,
+           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H,
       Sq, Skv, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v: (B, S, H, D) bf16 views with unit last stride, D 64 or 128; the
+// wrapper (diffusion_torch/ops/flash_attention.py) checks shapes, strides
+// and alignment. o: contiguous (B, Sq, H, D) bf16; lse: contiguous
+// (B, H, Sq) fp32. Sq and Skv may be any lengths: the tail instance runs
+// where one is not a multiple of 64. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue where D is neither or the CUDA driver refuses a
+// tensor map).
+extern "C" int dt_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int Sq, int Skv, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, float scale,
+    void* stream) {
+  CUtensorMap tq, tk, tv;
+  if ((D != 64 && D != 128) ||
+      !hopper::make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, kBM) ||
+      !hopper::make_map(&tk, k, B, Skv, H, D, k_sb, k_ss, k_sh, kBN) ||
+      !hopper::make_map(&tv, v, B, Skv, H, D, v_sb, v_ss, v_sh, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return D == 64 ? launch_fwd<64>(tq, tk, tv, o, lse, B, H, Sq, Skv, scale,
+                                  stream)
+                 : launch_fwd<128>(tq, tk, tv, o, lse, B, H, Sq, Skv, scale,
+                                   stream);
 }

@@ -73,7 +73,21 @@
 //    two give P the same bits.
 //  * q/k/v/dO/O are read through their (B, S, H, D) strides (4-D tensor
 //    maps), so the head fold costs nothing; dQ/dK/dV are written contiguous
-//    (B, S, H, 64). Rows past the end read as zeros and are not stored.
+//    (B, S, H, D). Rows past the end read as zeros and are not stored.
+//  * Head dims 64 and 128 (template kD; flash_common.cuh has the halves a
+//    128-dim tile is made of). At 128 each product over the head dim runs
+//    over 8 k16 chunks in two halves, and each product whose N is the head
+//    dim once per half into its own m64n64 accumulator, so dQ is 64 fp32
+//    registers a thread and dK with dV 128. The tiles stay (dQ: 128 rows,
+//    64-key K/V tiles; dK/dV: 128 keys, 64-query tiles). To fit, dQ reads
+//    Q and dO for S and dP from shared memory (64 registers of A
+//    fragments it cannot hold beside dQ's 64): both products become
+//    m64n64 with operands in shared memory, as dK/dV's are. Its ring
+//    holds 4 stages of 32 KB beside Q, dO and O (224 KB in all); dK/dV's
+//    holds 3 of 32.5 KB beside K and V (162 KB). The dK/dV tail instance
+//    reads a tile's lse and delta after its first two products complete,
+//    not before: 32 more registers held across them would not fit beside
+//    the 128 of dK and dV.
 
 #include <math.h>
 
@@ -92,8 +106,8 @@ constexpr int kDqRows = 128;            // q rows per block: two warpgroups
 constexpr int kDqKeys = 64;             // keys per streamed K/V tile
 constexpr int kDqStages = 4;            // K/V ring depth
 constexpr int kDqThreads = kConsumerThreads + 128;
-constexpr int kDqTileBytes = kDqKeys * kD * 2;
 
+template <int kD>
 struct alignas(1024) DqSmem {
   __nv_bfloat16 q[kDqRows * kD];
   __nv_bfloat16 dout[kDqRows * kD];
@@ -102,47 +116,69 @@ struct alignas(1024) DqSmem {
   __nv_bfloat16 v[kDqStages][kDqKeys * kD];
   uint64_t qo_full, full[kDqStages], empty[kDqStages];
 };
-constexpr int kDqSmemBytes = sizeof(DqSmem) + 1024;  // + alignment slack
+template <int kD>
+constexpr int kDqSmemBytes = sizeof(DqSmem<kD>) + 1024;  // + alignment slack
 
 // d (64 rows x 64 keys, fp32) = A B^T over the 64 head dims, A from
 // registers (A fragments, one per 16 dims), B (the tile's keys) K-major in
 // shared memory; issued, not committed
 __device__ __forceinline__ void issue_rs(float (&d)[32],
-                                         const uint32_t (&a)[kD / 16][4],
+                                         const uint32_t (&a)[4][4],
                                          uint64_t b) {
   using namespace hopper;
 #pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc)
+  for (int kc = 0; kc < 4; ++kc)
     wgmma_m64n64k16_rs(d, a[kc], b + kc * kDescK16, kc > 0);
+}
+
+// d (64 rows x 64 keys, fp32) = A B^T over the kD head dims, A (this
+// warpgroup's 64 rows of a kRows-row tile, from row a0) and B (the tile's
+// keys) K-major in shared memory; issued, not committed
+template <int kD, int kRows>
+__device__ __forceinline__ void issue_ss(float (&d)[32],
+                                         const __nv_bfloat16* a, int a0,
+                                         const __nv_bfloat16* b) {
+  using namespace hopper;
+#pragma unroll
+  for (int kc = 0; kc < kD / 16; ++kc)
+    wgmma_m64n64k16_ss(
+        d, desc_sw128(half_of<kRows>(a, kc / 4) + a0 * 64)
+               + (kc % 4) * kDescK16,
+        desc_sw128(half_of<kDqKeys>(b, kc / 4)) + (kc % 4) * kDescK16,
+        kc > 0);
 }
 
 // the A fragments of tile rows `row` and row + 8 (row % 8 == g) of a
 // swizzled 64-dim tile: dims c of row r sit in chunk (c / 8) ^ (r % 8)
-__device__ __forceinline__ void load_a(uint32_t (&a)[kD / 16][4],
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4],
                                        const __nv_bfloat16* t, int row, int g,
                                        int t4) {
 #pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc)
+  for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {         // j & 1: row + 8; j & 2: dims + 8
       const int r = row + (j & 1) * 8;
       a[kc][j] = *reinterpret_cast<const uint32_t*>(
-          t + r * kD + ((2 * kc + (j >> 1)) ^ g) * 8 + 2 * t4);
+          t + r * 64 + ((2 * kc + (j >> 1)) ^ g) * 8 + 2 * t4);
     }
 }
 
-// rowsum(dO * O) of the tile row `row` (row % 8 == g) over the quad's four
-// lanes. dO and O hold row r's 16-byte chunk c at chunk c ^ (r % 8), so one
-// physical chunk of each holds the same 8 dims. Lane t4 takes physical
-// chunks (2 t4 + j) ^ g, j = 0, 1: the quad covers the row, and the 8 lanes
-// of a quarter warp read 8 distinct chunks (no bank conflict).
+// rowsum(dO * O) of the tile row `row` (row % 8 == g) of kDqRows-row
+// tiles, over the quad's four lanes. dO and O hold row r's 16-byte chunk c
+// of each half at chunk c ^ (r % 8), so one physical chunk of each holds
+// the same 8 dims. Lane t4 takes physical chunks (2 t4 + j) ^ g, j = 0, 1,
+// of each half: the quad covers the row, and the 8 lanes of a quarter
+// warp read 8 distinct chunks (no bank conflict).
+template <int kD>
 __device__ __forceinline__ float row_dot(const __nv_bfloat16* a,
                                          const __nv_bfloat16* b, int row,
                                          int g, int t4) {
   float acc = 0.f;
 #pragma unroll
+  for (int hf = 0; hf < kD / 64; ++hf)
+#pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int off = row * kD + ((2 * t4 + j) ^ g) * 8;
+    const int off = hf * kDqRows * 64 + row * 64 + ((2 * t4 + j) ^ g) * 8;
     const uint4 x = *reinterpret_cast<const uint4*>(a + off);
     const uint4 y = *reinterpret_cast<const uint4*>(b + off);
     const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -195,7 +231,7 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
   }
 }
 
-template <bool kTail>
+template <int kD, bool kTail>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -206,8 +242,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     __nv_bfloat16* __restrict__ dq, int H, int Sq, int Skv,
                     float scale, float scale_log2) {
   using namespace hopper;
+  constexpr int kHalves = kD / 64;
+  // Q and dO as register A fragments (64 dims); at 128 they stay in
+  // shared memory
+  constexpr bool kRegsA = kD == 64;
+  constexpr int kDqTileBytes = kDqKeys * kD * 2;
   extern __shared__ uint8_t smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(
+  DqSmem<kD>& sm = *reinterpret_cast<DqSmem<kD>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int bh = blockIdx.y;
@@ -231,16 +272,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     regs_release<24>();
     if (threadIdx.x == kConsumerThreads) {
       mbar_expect_tx(&sm.qo_full, 3 * kDqRows * kD * 2);
-      tma_load(sm.q, &tq, &sm.qo_full, 0, q0, h, b);
-      tma_load(sm.dout, &tdo, &sm.qo_full, 0, q0, h, b);
-      tma_load(sm.o, &to, &sm.qo_full, 0, q0, h, b);
+      tma_load_tile<kD, kDqRows>(sm.q, &tq, &sm.qo_full, q0, h, b);
+      tma_load_tile<kD, kDqRows>(sm.dout, &tdo, &sm.qo_full, q0, h, b);
+      tma_load_tile<kD, kDqRows>(sm.o, &to, &sm.qo_full, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kDqStages;
         // the first pass over the ring finds every stage empty
         mbar_wait(&sm.empty[s], ((i / kDqStages) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s], 2 * kDqTileBytes);
-        tma_load(sm.k[s], &tk, &sm.full[s], 0, i * kDqKeys, h, b);
-        tma_load(sm.v[s], &tv, &sm.full[s], 0, i * kDqKeys, h, b);
+        tma_load_tile<kD, kDqKeys>(sm.k[s], &tk, &sm.full[s], i * kDqKeys,
+                                   h, b);
+        tma_load_tile<kD, kDqKeys>(sm.v[s], &tv, &sm.full[s], i * kDqKeys,
+                                   h, b);
       }
     }
   } else {
@@ -256,38 +299,53 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     const float nl1 = r1 < Sq ? -lseb[r1] * kLog2e : 0.f;
 
     mbar_wait(&sm.qo_full, 0);
-    const float dl0 = row_dot(sm.dout, sm.o, row, g, t4);
-    const float dl1 = row_dot(sm.dout, sm.o, row + 8, g, t4);
+    const float dl0 = row_dot<kD>(sm.dout, sm.o, row, g, t4);
+    const float dl1 = row_dot<kD>(sm.dout, sm.o, row + 8, g, t4);
     if (t4 == 0) {
       if (r0 < Sq) delta[(long long)bh * Sq + r0] = dl0;
       if (r1 < Sq) delta[(long long)bh * Sq + r1] = dl1;
     }
 
-    uint32_t qa[kD / 16][4], doa[kD / 16][4];  // Q and dO as A fragments
-    load_a(qa, sm.q + wg * 64 * kD, warp * 16 + g, g, t4);
-    load_a(doa, sm.dout + wg * 64 * kD, warp * 16 + g, g, t4);
+    // Q and dO as A fragments (64 dims only)
+    uint32_t qa[kRegsA ? 4 : 1][4], doa[kRegsA ? 4 : 1][4];
+    if constexpr (kRegsA) {
+      load_a(qa, sm.q + wg * 64 * 64, warp * 16 + g, g, t4);
+      load_a(doa, sm.dout + wg * 64 * 64, warp * 16 + g, g, t4);
+    }
 
-    float acc[32];                          // dQ rows (g, g+8) x 64 dims
+    float acc[kHalves][32];                 // dQ rows (g, g+8) x kD dims
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int j = 0; j < kHalves; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
 
     // S = Q K^T and dP = dO V^T of tile i (issued, committed; not waited for)
     auto issue_scores = [&](float (&s)[32], float (&dp)[32], int i) {
       const int st = i % kDqStages;
       mbar_wait(&sm.full[st], (i / kDqStages) & 1);
       wgmma_fence();
-      issue_rs(s, qa, desc_sw128(sm.k[st]));
-      issue_rs(dp, doa, desc_sw128(sm.v[st]));
+      if constexpr (kRegsA) {
+        issue_rs(s, qa, desc_sw128(sm.k[st]));
+        issue_rs(dp, doa, desc_sw128(sm.v[st]));
+      } else {
+        issue_ss<kD, kDqRows>(s, sm.q, wg * 64, sm.k[st]);
+        issue_ss<kD, kDqRows>(dp, sm.dout, wg * 64, sm.v[st]);
+      }
       wgmma_commit();
     };
     // dQ += dS K of tile i, dS from `da`, K read MN-major (issued, committed)
     auto issue_dq = [&](int i, const uint32_t (&da)[kDqKeys / 16][4]) {
-      const uint64_t k_desc = desc_sw128(sm.k[i % kDqStages]);
-      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) fence_regs(acc[j]);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kDqKeys / 16; ++kc)
-        wgmma_m64n64k16_rs_tn(acc, da[kc], k_desc + kc * kDescRows16);
+      for (int j = 0; j < kHalves; ++j) {
+        const uint64_t k_desc =
+            desc_sw128(half_of<kDqKeys>(sm.k[i % kDqStages], j));
+#pragma unroll
+        for (int kc = 0; kc < kDqKeys / 16; ++kc)
+          wgmma_m64n64k16_rs_tn(acc[j], da[kc], k_desc + kc * kDescRows16);
+      }
       wgmma_commit();
     };
     // Tile i's S and dP are issued with tile i-1's dQ product, and tile
@@ -306,7 +364,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       ds_tile<kTail>(s, dp, scale_log2, nl0, nl1, dl0, dl1,
                      Skv - i * kDqKeys, t4, next);
       wgmma_wait<0>();
-      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) fence_regs(acc[j]);
       mbar_arrive(&sm.empty[(i - 1) % kDqStages]);  // done with tile i-1
     };
     uint32_t da0[kDqKeys / 16][4], da1[kDqKeys / 16][4];
@@ -330,10 +389,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       issue_dq(i - 1, da0);
     }
     wgmma_wait<0>();
-    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < kHalves; ++j) fence_regs(acc[j]);
     mbar_arrive(&sm.empty[(n_tiles - 1) % kDqStages]);
-    store_rows(dq, reinterpret_cast<const float(*)[4]>(acc), b, Sq, H, h,
-               r0, t4, scale, scale);
+    store_rows<kD>(dq, reinterpret_cast<const float(*)[4]>(acc), b, Sq, H, h,
+                   r0, t4, scale, scale);
   }
 }
 
@@ -343,8 +403,8 @@ constexpr int kBKeys = 128;         // keys per dK/dV block: two warpgroups
 constexpr int kBQ = 64;             // queries per streamed Q/dO tile
 constexpr int kStages = 3;          // Q/dO ring depth
 constexpr int kDkvThreads = kConsumerThreads + 128;
-constexpr int kQTileBytes = kBQ * kD * 2;
 
+template <int kD>
 struct alignas(1024) DkvSmem {
   __nv_bfloat16 k[kBKeys * kD];
   __nv_bfloat16 v[kBKeys * kD];
@@ -354,9 +414,10 @@ struct alignas(1024) DkvSmem {
   float delta[kStages][kBQ];
   uint64_t kv_full, full[kStages], empty[kStages];
 };
-constexpr int kDkvSmemBytes = sizeof(DkvSmem) + 1024;  // + alignment slack
+template <int kD>
+constexpr int kDkvSmemBytes = sizeof(DkvSmem<kD>) + 1024;  // + slack
 
-template <bool kTail>
+template <int kD, bool kTail>
 __global__ void __launch_bounds__(kDkvThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -368,8 +429,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv,
                      float scale, float scale_log2) {
   using namespace hopper;
+  constexpr int kHalves = kD / 64;
+  constexpr int kQTileBytes = kBQ * kD * 2;
+  // the tail instance's lse and delta loads issued before the tile's
+  // products (64 dims), or after the first two complete (128 dims)
+  constexpr bool kEarlyTail = kTail && kD == 64;
   extern __shared__ uint8_t smem_raw[];
-  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(
+  DkvSmem<kD>& sm = *reinterpret_cast<DkvSmem<kD>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int bh = blockIdx.y;
@@ -393,8 +459,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     regs_release<24>();
     if (threadIdx.x == kConsumerThreads) {
       mbar_expect_tx(&sm.kv_full, 2 * kBKeys * kD * 2);
-      tma_load(sm.k, &tk, &sm.kv_full, 0, k0, h, b);
-      tma_load(sm.v, &tv, &sm.kv_full, 0, k0, h, b);
+      tma_load_tile<kD, kBKeys>(sm.k, &tk, &sm.kv_full, k0, h, b);
+      tma_load_tile<kD, kBKeys>(sm.v, &tv, &sm.kv_full, k0, h, b);
       const float* lseb = lse + (long long)bh * Sq;
       const float* deltab = delta + (long long)bh * Sq;
       for (int i = 0; i < n_tiles; ++i) {
@@ -403,8 +469,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(&sm.empty[s], ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s],
                        2 * kQTileBytes + (kTail ? 0 : 2 * kBQ * 4));
-        tma_load(sm.q[s], &tq, &sm.full[s], 0, i * kBQ, h, b);
-        tma_load(sm.dout[s], &tdo, &sm.full[s], 0, i * kBQ, h, b);
+        tma_load_tile<kD, kBQ>(sm.q[s], &tq, &sm.full[s], i * kBQ, h, b);
+        tma_load_tile<kD, kBQ>(sm.dout[s], &tdo, &sm.full[s], i * kBQ, h,
+                               b);
         if (!kTail) {
           bulk_load(sm.lse[s], lseb + i * kBQ, kBQ * 4, &sm.full[s]);
           bulk_load(sm.delta[s], deltab + i * kBQ, kBQ * 4, &sm.full[s]);
@@ -416,53 +483,69 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     regs_claim<240>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;
-    const uint64_t k_desc = desc_sw128(sm.k + wg * 64 * kD);
-    const uint64_t v_desc = desc_sw128(sm.v + wg * 64 * kD);
+    uint64_t k_desc[kHalves], v_desc[kHalves];
+#pragma unroll
+    for (int j = 0; j < kHalves; ++j) {
+      k_desc[j] = desc_sw128(half_of<kBKeys>(sm.k, j) + wg * 64 * 64);
+      v_desc[j] = desc_sw128(half_of<kBKeys>(sm.v, j) + wg * 64 * 64);
+    }
     const float* lseb = lse + (long long)bh * Sq;
     const float* deltab = delta + (long long)bh * Sq;
 
-    float dk_acc[32], dv_acc[32];           // key rows (g, g+8) x 64 dims
+    float dk_acc[kHalves][32], dv_acc[kHalves][32];  // keys (g, g+8) x kD
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int j = 0; j < kHalves; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+
+    // the tail instance reads a tile's lse and delta from global memory:
+    // queries past Sq read lse = +inf and delta = 0 (p = exp2(-inf) = 0,
+    // dS = 0)
+    auto tail_loads = [&](float (&tl)[kBQ / 8][2], float (&td)[kBQ / 8][2],
+                          int i) {
+#pragma unroll
+      for (int nt = 0; nt < kBQ / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = i * kBQ + nt * 8 + t4 * 2 + e;
+          tl[nt][e] = INFINITY;
+          td[nt][e] = 0.f;
+          if (qc < Sq) {
+            tl[nt][e] = lseb[qc];
+            td[nt][e] = deltab[qc];
+          }
+        }
+    };
 
     mbar_wait(&sm.kv_full, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       mbar_wait(&sm.full[s], (i / kStages) & 1);
-      const uint64_t q_desc = desc_sw128(sm.q[s]);
-      const uint64_t do_desc = desc_sw128(sm.dout[s]);
-      // the tail instance reads the tile's lse and delta from global
-      // memory, issued here so that the loads overlap the products below
+      // issued here, where they fit, so that the loads overlap the
+      // products below
       float tl[kBQ / 8][2], td[kBQ / 8][2];
-      if (kTail) {    // queries past Sq: p = exp2(-inf) = 0, dS = 0
-#pragma unroll
-        for (int nt = 0; nt < kBQ / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = i * kBQ + nt * 8 + t4 * 2 + e;
-            tl[nt][e] = INFINITY;
-            td[nt][e] = 0.f;
-            if (qc < Sq) {
-              tl[nt][e] = lseb[qc];
-              td[nt][e] = deltab[qc];
-            }
-          }
-      }
+      if (kEarlyTail) tail_loads(tl, td, i);
 
       float st[32], dpt[32];                // key rows (g, g+8) x 64 queries
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kD / 16; ++kc)  // K Q^T = S^T
-        wgmma_m64n64k16_ss(st, k_desc + kc * kDescK16,
-                           q_desc + kc * kDescK16, kc > 0);
+        wgmma_m64n64k16_ss(
+            st, k_desc[kc / 4] + (kc % 4) * kDescK16,
+            desc_sw128(half_of<kBQ>(sm.q[s], kc / 4)) + (kc % 4) * kDescK16,
+            kc > 0);
 #pragma unroll
       for (int kc = 0; kc < kD / 16; ++kc)  // V dO^T = dP^T
-        wgmma_m64n64k16_ss(dpt, v_desc + kc * kDescK16,
-                           do_desc + kc * kDescK16, kc > 0);
+        wgmma_m64n64k16_ss(
+            dpt, v_desc[kc / 4] + (kc % 4) * kDescK16,
+            desc_sw128(half_of<kBQ>(sm.dout[s], kc / 4))
+                + (kc % 4) * kDescK16,
+            kc > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
+      if (kTail && !kEarlyTail) tail_loads(tl, td, i);
 
       // P^T and dS^T, packed into the A fragments of the next two
       // products: an accumulator chunk's columns are queries
@@ -495,93 +578,143 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         da[kc][hi + 1] = pack_bf16(p2 * (dpt[4 * nt + 2] - d0),
                                    p3 * (dpt[4 * nt + 3] - d1));
       }
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) {
+        fence_regs(dv_acc[j]);
+        fence_regs(dk_acc[j]);
+      }
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kBQ / 16; ++kc) // dV += P^T dO
-        wgmma_m64n64k16_rs_tn(dv_acc, pa[kc], do_desc + kc * kDescRows16);
+      for (int j = 0; j < kHalves; ++j) {   // dV += P^T dO
+        const uint64_t do_desc = desc_sw128(half_of<kBQ>(sm.dout[s], j));
 #pragma unroll
-      for (int kc = 0; kc < kBQ / 16; ++kc) // dK += dS^T Q
-        wgmma_m64n64k16_rs_tn(dk_acc, da[kc], q_desc + kc * kDescRows16);
+        for (int kc = 0; kc < kBQ / 16; ++kc)
+          wgmma_m64n64k16_rs_tn(dv_acc[j], pa[kc],
+                                do_desc + kc * kDescRows16);
+      }
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) {   // dK += dS^T Q
+        const uint64_t q_desc = desc_sw128(half_of<kBQ>(sm.q[s], j));
+#pragma unroll
+        for (int kc = 0; kc < kBQ / 16; ++kc)
+          wgmma_m64n64k16_rs_tn(dk_acc[j], da[kc],
+                                q_desc + kc * kDescRows16);
+      }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+#pragma unroll
+      for (int j = 0; j < kHalves; ++j) {
+        fence_regs(dv_acc[j]);
+        fence_regs(dk_acc[j]);
+      }
       mbar_arrive(&sm.empty[s]);            // this thread is done with s
     }
     const int r0 = k0 + wg * 64 + warp * 16 + g;
-    store_rows(dk, reinterpret_cast<const float(*)[4]>(dk_acc), b, Skv, H, h,
-               r0, t4, scale, scale);
-    store_rows(dv, reinterpret_cast<const float(*)[4]>(dv_acc), b, Skv, H, h,
-               r0, t4, 1.f, 1.f);
+    store_rows<kD>(dk, reinterpret_cast<const float(*)[4]>(dk_acc), b, Skv,
+                   H, h, r0, t4, scale, scale);
+    store_rows<kD>(dv, reinterpret_cast<const float(*)[4]>(dv_acc), b, Skv,
+                   H, h, r0, t4, 1.f, 1.f);
   }
+}
+
+template <int kD>
+int launch_dq(const CUtensorMap* maps, const void* lse, void* delta,
+              void* dq, int B, int H, int Sq, int Skv, float scale,
+              void* stream) {
+  const auto kernel = (Sq % 64 || Skv % 64) ? flash_bwd_dq_kernel<kD, true>
+                                             : flash_bwd_dq_kernel<kD, false>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes<kD>);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  dim3 grid((Sq + kDqRows - 1) / kDqRows, B * H);
+  kernel<<<grid, kDqThreads, kDqSmemBytes<kD>,
+           static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), H, Sq, Skv, scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int launch_dkv(const CUtensorMap* maps, const void* lse, const void* delta,
+               void* dk, void* dv, int B, int H, int Sq, int Skv, float scale,
+               void* stream) {
+  const auto kernel = (Sq % 64 || Skv % 64)
+                          ? flash_bwd_dkv_kernel<kD, true>
+                          : flash_bwd_dkv_kernel<kD, false>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDkvSmemBytes<kD>);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  dim3 grid((Skv + kBKeys - 1) / kBKeys, B * H);
+  kernel<<<grid, kDkvThreads, kDkvSmemBytes<kD>,
+           static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Sq, Skv, scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o, dout: (B, S, H, 64) bf16 views with unit last stride; the
-// wrapper (diffusion_torch/ops/flash_attention.py) checks shapes, strides and
-// alignment. lse: contiguous (B, H, Sq) fp32 from the forward. delta:
-// (B, H, Sq) fp32, written here for the dK/dV launch. dq: contiguous
-// (B, Sq, H, 64) bf16. Sq and Skv may be any lengths: the tail instance
+// q, k, v, o, dout: (B, S, H, D) bf16 views with unit last stride, D 64 or
+// 128; the wrapper (diffusion_torch/ops/flash_attention.py) checks shapes,
+// strides and alignment. lse: contiguous (B, H, Sq) fp32 from the forward.
+// delta: (B, H, Sq) fp32, written here for the dK/dV launch. dq: contiguous
+// (B, Sq, H, D) bf16. Sq and Skv may be any lengths: the tail instance
 // runs where one is not a multiple of 64. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue where the CUDA driver refuses a tensor map).
+// (cudaErrorInvalidValue where D is neither or the CUDA driver refuses a
+// tensor map).
 extern "C" int dt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, int B, int H,
-    int Sq, int Skv, long long q_sb, long long q_ss, long long q_sh,
+    int Sq, int Skv, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, long long do_sb, long long do_ss, long long do_sh,
     float scale, void* stream) {
-  CUtensorMap tq, tk, tv, to, tdo;
-  if (!hopper::make_map(&tq, q, B, Sq, H, q_sb, q_ss, q_sh, kDqRows) ||
-      !hopper::make_map(&tk, k, B, Skv, H, k_sb, k_ss, k_sh, kDqKeys) ||
-      !hopper::make_map(&tv, v, B, Skv, H, v_sb, v_ss, v_sh, kDqKeys) ||
-      !hopper::make_map(&to, o, B, Sq, H, o_sb, o_ss, o_sh, kDqRows) ||
-      !hopper::make_map(&tdo, dout, B, Sq, H, do_sb, do_ss, do_sh, kDqRows))
+  CUtensorMap maps[5];
+  if ((D != 64 && D != 128) ||
+      !hopper::make_map(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh,
+                        kDqRows) ||
+      !hopper::make_map(&maps[1], k, B, Skv, H, D, k_sb, k_ss, k_sh,
+                        kDqKeys) ||
+      !hopper::make_map(&maps[2], v, B, Skv, H, D, v_sb, v_ss, v_sh,
+                        kDqKeys) ||
+      !hopper::make_map(&maps[3], o, B, Sq, H, D, o_sb, o_ss, o_sh,
+                        kDqRows) ||
+      !hopper::make_map(&maps[4], dout, B, Sq, H, D, do_sb, do_ss, do_sh,
+                        kDqRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = (Sq % 64 || Skv % 64) ? flash_bwd_dq_kernel<true>
-                                             : flash_bwd_dq_kernel<false>;
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  dim3 grid((Sq + kDqRows - 1) / kDqRows, B * H);
-  kernel<<<grid, kDqThreads, kDqSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, to, tdo, static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), H, Sq,
-      Skv, scale, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  return D == 64 ? launch_dq<64>(maps, lse, delta, dq, B, H, Sq, Skv, scale,
+                                 stream)
+                 : launch_dq<128>(maps, lse, delta, dq, B, H, Sq, Skv, scale,
+                                  stream);
 }
 
 // As above; delta is the dQ launch's output. dk, dv: contiguous
-// (B, Skv, H, 64) bf16. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue where the CUDA driver refuses a tensor map).
+// (B, Skv, H, D) bf16. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue where D is neither or the CUDA driver refuses a
+// tensor map).
 extern "C" int dt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Sq, int Skv, long long q_sb, long long q_ss, long long q_sh,
+    int Sq, int Skv, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, float scale, void* stream) {
-  CUtensorMap tq, tk, tv, tdo;
-  if (!hopper::make_map(&tq, q, B, Sq, H, q_sb, q_ss, q_sh, kBQ) ||
-      !hopper::make_map(&tk, k, B, Skv, H, k_sb, k_ss, k_sh, kBKeys) ||
-      !hopper::make_map(&tv, v, B, Skv, H, v_sb, v_ss, v_sh, kBKeys) ||
-      !hopper::make_map(&tdo, dout, B, Sq, H, do_sb, do_ss, do_sh, kBQ))
+  CUtensorMap maps[4];
+  if ((D != 64 && D != 128) ||
+      !hopper::make_map(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kBQ) ||
+      !hopper::make_map(&maps[1], k, B, Skv, H, D, k_sb, k_ss, k_sh,
+                        kBKeys) ||
+      !hopper::make_map(&maps[2], v, B, Skv, H, D, v_sb, v_ss, v_sh,
+                        kBKeys) ||
+      !hopper::make_map(&maps[3], dout, B, Sq, H, D, do_sb, do_ss, do_sh,
+                        kBQ))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = (Sq % 64 || Skv % 64) ? flash_bwd_dkv_kernel<true>
-                                             : flash_bwd_dkv_kernel<false>;
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  dim3 grid((Skv + kBKeys - 1) / kBKeys, B * H);
-  kernel<<<grid, kDkvThreads, kDkvSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Sq, Skv, scale, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  return D == 64 ? launch_dkv<64>(maps, lse, delta, dk, dv, B, H, Sq, Skv,
+                                  scale, stream)
+                 : launch_dkv<128>(maps, lse, delta, dk, dv, B, H, Sq, Skv,
+                                   scale, stream);
 }

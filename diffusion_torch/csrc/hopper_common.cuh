@@ -65,19 +65,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, S, H, 64) bf16 view with unit last stride and element strides
-// (sb, ss, sh), as a 4-D map over dims (64, S, H, B) read in boxes of
-// (64, rows, 1, 1) with the 128-byte swizzle. Rows past S read as zeros.
-// False where the CUDA driver refuses the map.
+// A (B, S, H, D) bf16 view with unit last stride and element strides
+// (sb, ss, sh), D 64 or 128, as a 4-D map over dims (D, S, H, B) read in
+// boxes of (64, rows, 1, 1) with the 128-byte swizzle (a 128-dim row is two
+// boxes). Rows past S read as zeros. False where the CUDA driver refuses
+// the map.
 inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                     long long sb, long long ss, long long sh, int rows) {
+                     int D, long long sb, long long ss, long long sh,
+                     int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   // a stride of a dimension of extent 1 is never followed; keep it legal
   auto stride = [](long long s, int extent) {
     return static_cast<cuuint64_t>(extent == 1 && s == 0 ? 8 : s) * 2;
   };
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {stride(ss, S), stride(sh, H), stride(sb, B)};

@@ -1,6 +1,7 @@
 """Model builders: full-width SD-2-base, the tiny test geometry, the
-two pixel-space diffusion models, and SD3-medium's MMDiT
-(`stable_diffusion_3`, which has no JAX counterpart).
+two pixel-space diffusion models, SD3-medium's MMDiT
+(`stable_diffusion_3`) and FLUX.1-dev's transformer (`flux`), which have
+no JAX counterpart.
 
 Counterparts of `stable_diffusion_2`, `stable_diffusion_tiny`,
 `discrete_pixel_diffusion` and `continuous_pixel_diffusion` in
@@ -45,6 +46,7 @@ import torch
 from diffusion_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
                                          SD2_TEXT_CONFIG,
                                          VIT_L14_TEXT_CONFIG)
+from diffusion_torch.models.flux import FluxConfig, FluxTransformer
 from diffusion_torch.models.layers import init_like_flax_
 from diffusion_torch.models.lora import freeze_base
 from diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
@@ -64,7 +66,7 @@ from diffusion_torch.utils.device import Device, resolve_device
 
 __all__ = ["stable_diffusion_2", "stable_diffusion_tiny",
            "discrete_pixel_diffusion", "continuous_pixel_diffusion",
-           "stable_diffusion_3", "canonical_scheduler_name"]
+           "stable_diffusion_3", "flux", "canonical_scheduler_name"]
 
 # the samplers a yaml's `model.inference_scheduler` (and a request's
 # `scheduler`) may name; all share the noise schedule they are built like
@@ -407,17 +409,51 @@ def stable_diffusion_3(transformer: Optional[dict] = None,
     ignored; the published SD3-medium's by default). It trains on
     precomputed latents and text states: the towers (CLIP-L, OpenCLIP
     bigG, T5-XXL, the 16-channel VAE) are not ported."""
-    known = {f.name for f in dataclasses.fields(MMDiTConfig)}
-    given = {k: v for k, v in (transformer or {}).items()
-             if not k.startswith("_")}
-    unknown = sorted(set(given) - known)
-    if unknown:
-        raise ValueError(f"MMDiT config keys not supported: {unknown}")
+    config = _net_config(MMDiTConfig, transformer, "MMDiT")
     device = resolve_device(device)
     with torch.device(device):
-        net = MMDiT(MMDiTConfig(**given), dtype=torch.bfloat16
+        net = MMDiT(config, dtype=torch.bfloat16
                     if encode_latents_in_fp16 else torch.float32)
     if device.type != "meta":    # shapes only (a FLOP count): nothing to draw
         init_like_flax_(net, torch.Generator(device=device).manual_seed(0))
     net.train()
     return StableDiffusion3(unet=net)
+
+
+def _net_config(cls, given: Optional[dict], name: str):
+    """`cls` from a diffusers config (its `_`-prefixed keys ignored); an
+    unknown key raises."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: v for k, v in (given or {}).items() if not k.startswith("_")}
+    unknown = sorted(set(kwargs) - known)
+    if unknown:
+        raise ValueError(f"{name} config keys not supported: {unknown}")
+    return cls(**kwargs)
+
+
+def flux(transformer: Optional[dict] = None,
+         encode_latents_in_fp16: bool = True, guidance: float = 3.5,
+         device: Device = None) -> StableDiffusion3:
+    """FLUX.1-dev's transformer (11,901,408,320 parameters; `models/flux.py`)
+    trained by rectified flow (`schedulers/flow_match.py`: logit-normal t
+    shifted by the published scheduler's dynamic shift at the packed image
+    length, e^1.15 at 1,024px), with `guidance` (x 1000) in its guidance
+    embedding for every sample, computing in bf16
+    (`encode_latents_in_fp16`) or fp32 over fp32 parameters, its weights
+    drawn as flax's defaults would from seed 0 (the q/k norms' scales 1).
+    `transformer` is a diffusers `FluxTransformer2DModel` config (the
+    published FLUX.1-dev's by default). It trains on precomputed latents
+    and text states: the towers (T5-XXL, CLIP-L, the 16-channel VAE) are
+    not ported."""
+    config = _net_config(FluxConfig, transformer, "FLUX transformer")
+    device = resolve_device(device)
+    with torch.device(device):
+        net = FluxTransformer(config, dtype=torch.bfloat16
+                              if encode_latents_in_fp16 else torch.float32)
+    if device.type != "meta":    # shapes only (a FLOP count): nothing to draw
+        init_like_flax_(net, torch.Generator(device=device).manual_seed(0))
+    net.train()
+    return StableDiffusion3(unet=net, shift=None,
+                            guidance=guidance if config.guidance_embeds
+                            else None)
+

@@ -43,13 +43,13 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "dt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "dt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                                _F, _P],
     "dt_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, *[_LL] * 15, _F, _P],
+                                  _I, _I, *[_LL] * 15, _F, _P],
     "dt_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, *[_LL] * 12, _F, _P],
+                                   _I, _I, _I, *[_LL] * 12, _F, _P],
     "dt_group_norm_fwd": [*[_P] * 7, *[_I] * 9, _F, _I, _I, _I, _P],
     "dt_group_norm_bwd": [*[_P] * 11, *[_I] * 12, _P],
     "dt_group_norm_fwd_stage": [*[_P] * 7, *[_I] * 10, _F, _I, _I, _I, _P],

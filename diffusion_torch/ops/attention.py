@@ -4,12 +4,13 @@ parallelism the ring; and the tensor-parallel context.
 Counterpart of `diffusion_tpu/ops/attention.py`. Every entry point takes
 (B, S, H, D) q/k/v. The eligibility rule is the JAX one, with "the
 backend is a TPU" read as "the tensor lies on a CUDA device", plus what
-the CUDA kernels take: bf16 q/k/v with head dim 64. The JAX rule's
+the CUDA kernels take: bf16 q/k/v with head dim 64 or 128. The JAX rule's
 128-multiple lengths are dropped: the CUDA kernels mask a ragged last
-tile, so MMDiT's joint attention over 4,096 + 154 tokens runs the kernel.
+tile, so MMDiT's joint attention over 4,096 + 154 tokens runs the kernel,
+as FLUX's over 512 + 4,096 tokens at head dim 128 does.
 At 512px the bf16 UNet's S=4096 and S=1024 self-attention run the kernel;
 cross-attention (77 keys), the S=256 and S=64 stages, CLIP's masked
-attention, and every fp32, fp16 or head-dim-128 call stay on plain torch
+attention, and every fp32 or fp16 call stay on plain torch
 math (a matmul, a softmax and a matmul), which computes the same function
 (the JAX kernel runs in any dtype). `flash_calls` and `plain_calls` count
 the calls that took each path (a CUDA graph's replay adds those it
@@ -43,7 +44,7 @@ from typing import Optional, Sequence
 import torch
 
 from diffusion_torch.ops._build import LaunchCounter
-from diffusion_torch.ops.flash_attention import flash_attention
+from diffusion_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from diffusion_torch.utils.device import kernel_device_type
 
 __all__ = ["multi_head_attention", "flash_eligible", "sequence_parallel",
@@ -128,10 +129,10 @@ def flash_eligible(device_type: str, dtype: torch.dtype,
                    q_shape: Sequence[int], k_shape: Sequence[int],
                    masked: bool) -> bool:
     """Whether (B, S, H, D) attention goes to the flash kernel: unmasked,
-    on a CUDA device, in bf16 with head dim 64 (the kernels' one case), at
-    a shape the JAX rule sends to its kernel."""
+    on a CUDA device, in bf16 with head dim 64 or 128 (the kernels'
+    instances), at a shape the JAX rule sends to its kernel."""
     return (not masked and device_type == "cuda" and dtype == torch.bfloat16
-            and q_shape[-1] == 64 and _shape_eligible(q_shape, k_shape))
+            and q_shape[-1] in HEAD_DIMS and _shape_eligible(q_shape, k_shape))
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

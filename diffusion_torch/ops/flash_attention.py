@@ -15,8 +15,8 @@ does; a selective-checkpoint policy can keep its outputs by naming the op.
 Its backward is a dispatcher op too (`flash_attention_bwd_op`), so that a
 dispatch mode counts both (`utils/flops.py`). On CUDA tensors they
 launch the kernels (`csrc/flash_attention.cu` forward,
-`csrc/flash_attention_bwd.cu` dQ and dK/dV: bf16, head dim 64, any sequence
-lengths) or raise; on CPU tensors they run
+`csrc/flash_attention_bwd.cu` dQ and dK/dV: bf16, head dim 64 or 128, any
+sequence lengths) or raise; on CPU tensors they run
 `flash_attention_reference` and `flash_attention_bwd_reference`, which
 mirror JAX's `_xla_attention_with_lse` and `_xla_attention_bwd_with_lse`.
 
@@ -24,7 +24,9 @@ A length that is not a multiple of 64 (MMDiT's joint attention: 4,096
 image and 154 text tokens) leaves a ragged last tile, which the kernels
 mask: keys past Skv score -inf in the forward and take dS = 0 in dQ, and
 queries past Sq add nothing to dK and dV. Each launch that masks such a
-tail is also counted in its `*_tail` counter.
+tail is also counted in its `*_tail` counter, and each launch at head dim
+128 (FLUX's joint attention) in its `*_d128` counter; neither has host time
+of its own.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ __all__ = ["flash_attention", "flash_attention_op", "flash_attention_bwd_op",
            "flash_attention_bwd_cuda", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dkv_cuda", "launches", "launches_bwd_dq",
            "launches_bwd_dkv", "launches_tail", "launches_bwd_dq_tail",
-           "launches_bwd_dkv_tail"]
+           "launches_bwd_dkv_tail", "launches_d128", "launches_bwd_dq_d128",
+           "launches_bwd_dkv_d128", "HEAD_DIMS"]
 
 launches = LaunchCounter()
 launches_bwd_dq = LaunchCounter()
@@ -53,8 +56,12 @@ launches_bwd_dkv = LaunchCounter()
 launches_tail = LaunchCounter()
 launches_bwd_dq_tail = LaunchCounter()
 launches_bwd_dkv_tail = LaunchCounter()
+# the launches above at head dim 128
+launches_d128 = LaunchCounter()
+launches_bwd_dq_d128 = LaunchCounter()
+launches_bwd_dkv_d128 = LaunchCounter()
 
-_HEAD_DIM = 64
+HEAD_DIMS = (64, 128)       # the kernels' instances
 _TILE = 64
 
 
@@ -106,9 +113,11 @@ def _check_views(ref: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be a CUDA tensor on {ref.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"flash kernel takes bf16, {name} is {t.dtype}")
-        if t.ndim != 4 or t.shape[-1] != _HEAD_DIM:
-            raise ValueError(f"flash kernel takes (B, S, H, {_HEAD_DIM}), "
-                             f"{name} is {tuple(t.shape)}")
+        if t.ndim != 4 or t.shape[-1] != ref.shape[-1] \
+                or t.shape[-1] not in HEAD_DIMS:
+            raise ValueError(f"flash kernel takes (B, S, H, 64) or "
+                             f"(B, S, H, 128) of q's head dim, {name} is "
+                             f"{tuple(t.shape)}")
         if not _view_ok(t):
             raise ValueError(f"{name} needs a unit last stride, strides that "
                              f"are multiples of 8 and 16-byte alignment")
@@ -125,9 +134,14 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"and {k.shape[1]}")
 
 
-def _ragged(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Whether a launch masks a ragged last tile."""
-    return bool(q.shape[1] % _TILE or k.shape[1] % _TILE)
+def _count(q: torch.Tensor, k: torch.Tensor, tail: LaunchCounter,
+           d128: LaunchCounter) -> None:
+    """Count a launch that masks a ragged last tile, and one at head dim
+    128."""
+    if q.shape[1] % _TILE or k.shape[1] % _TILE:
+        tail.add()
+    if q.shape[-1] == 128:
+        d128.add()
 
 
 def _strides(*tensors: torch.Tensor):
@@ -136,8 +150,8 @@ def _strides(*tensors: torch.Tensor):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on (B, S, H, 64) bf16 views with unit last
-    stride."""
+    """Launch the forward kernel on (B, S, H, 64 or 128) bf16 views with
+    unit last stride."""
     t0 = time.perf_counter_ns()
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
@@ -147,14 +161,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         stream = torch.cuda.current_stream().cuda_stream
         rc = library().dt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, sq, k.shape[1], *_strides(q, k, v),
+            lse.data_ptr(), b, h, sq, k.shape[1], d, *_strides(q, k, v),
             d ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches.launched(t0)
-    if _ragged(q, k):
-        launches_tail.add()
+    _count(q, k, launches_tail, launches_d128)
     return out, lse
 
 
@@ -173,14 +186,13 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
         rc = library().dt_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, sq, k.shape[1], *_strides(q, k, v, out, do), d ** -0.5,
+            b, h, sq, k.shape[1], d, *_strides(q, k, v, out, do), d ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash attention dQ kernel launch failed: "
                            f"CUDA error {rc}")
     launches_bwd_dq.launched(t0)
-    if _ragged(q, k):
-        launches_bwd_dq_tail.add()
+    _count(q, k, launches_bwd_dq_tail, launches_bwd_dq_d128)
     return dq, delta
 
 
@@ -196,14 +208,13 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta
         rc = library().dt_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, sq, k.shape[1], *_strides(q, k, v, do), d ** -0.5,
+            b, h, sq, k.shape[1], d, *_strides(q, k, v, do), d ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
     launches_bwd_dkv.launched(t0)
-    if _ragged(q, k):
-        launches_bwd_dkv_tail.add()
+    _count(q, k, launches_bwd_dkv_tail, launches_bwd_dkv_d128)
     return dk, dv
 
 
@@ -213,8 +224,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch the dQ kernel (which also writes delta = rowsum(dO * O)), then
-    the dK/dV kernel. q/k/v/out/do: (B, S, H, 64) bf16 views with unit last
-    stride; lse: the forward's contiguous (B, H, Sq) fp32. Returns
+    the dK/dV kernel. q/k/v/out/do: (B, S, H, 64 or 128) bf16 views with
+    unit last stride; lse: the forward's contiguous (B, H, Sq) fp32. Returns
     contiguous dq, dk, dv."""
     t0 = time.perf_counter_ns()
     _check_qkv(q, k, v)

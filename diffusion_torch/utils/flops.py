@@ -21,9 +21,10 @@ heads:
   op, which is counted as it runs.
 
 They are priced whatever the device, so one step counts the same on the
-CPU and on the card, and at any lengths: the MMDiT's joint attention over
-4,096 + 154 tokens is a flash call like the UNet's (`measure_flops`
-prices each model's `example_batch`). GroupNorm counts 0, as in JAX. A
+CPU and on the card, and at any lengths and either head dim: the MMDiT's
+joint attention over 4,096 + 154 tokens, and FLUX's over 512 + 4,096 at
+head dim 128, are flash calls like the UNet's (`measure_flops` prices
+each model's `example_batch`). GroupNorm counts 0, as in JAX. A
 convolution counts its useful work, its input gradient included: the
 reference's counter prices a strided convolution's input gradient at
 stride² times that work (it counts the zeros of the lhs dilation), the

@@ -1,11 +1,11 @@
 """The flash dispatch rule (`flash_eligible`) case by case: on a CUDA
-device, bf16 q/k/v with head dim 64 at a shape the JAX rule sends to its
-kernel take the flash kernel, at any lengths (the kernels mask a ragged
-tail, where the JAX rule asks for 128-multiples); fp32, fp16, head dim
-128, short lengths, a mask, or a tensor off the card take plain math. The
-JAX kernel runs in any dtype; the CUDA kernels take bf16 with head dim 64
-only, and plain math computes the same function (ROADMAP.md queue 3,
-fault 7)."""
+device, bf16 q/k/v with head dim 64 or 128 at a shape the JAX rule sends
+to its kernel take the flash kernel, at any lengths (the kernels mask a
+ragged tail, where the JAX rule asks for 128-multiples); fp32, fp16, other
+head dims, short lengths, a mask, or a tensor off the card take plain
+math. The JAX kernel runs in any dtype; the CUDA kernels take bf16 with
+head dim 64 or 128 only, and plain math computes the same function
+(ROADMAP.md queue 3, fault 7)."""
 
 import pytest
 import torch
@@ -25,7 +25,7 @@ _CASES = [
     ("cuda", F32, (2, 4096, 5, 64), (2, 4096, 5, 64), False, False),
     ("cuda", F32, (16, 1024, 5, 64), (16, 1024, 5, 64), False, False),
     ("cuda", F16, (2, 4096, 5, 64), (2, 4096, 5, 64), False, False),
-    ("cuda", BF16, (2, 1024, 5, 128), (2, 1024, 5, 128), False, False),
+    ("cuda", BF16, (2, 1024, 5, 128), (2, 1024, 5, 128), False, True),
     ("cuda", F32, (2, 1024, 5, 128), (2, 1024, 5, 128), False, False),
     ("cuda", BF16, (2, 1024, 5, 40), (2, 1024, 5, 40), False, False),
     ("cuda", BF16, (2, 256, 20, 64), (2, 256, 20, 64), False, False),
@@ -37,6 +37,17 @@ _CASES = [
     ("cuda", BF16, (4, 4250, 24, 64), (4, 4250, 24, 64), False, True),
     ("cuda", BF16, (4, 4096, 24, 64), (4, 4250, 24, 64), False, True),
     ("cuda", BF16, (1, 1024, 2, 64), (1, 128, 2, 64), False, False),
+    # FLUX at 1,024px: joint attention over 512 text + 4,096 image tokens
+    # at head dim 128, whole tiles; a ragged length; the same heads too
+    # short, masked, in fp16 or off the card; head dims the kernels lack
+    ("cuda", BF16, (2, 4608, 24, 128), (2, 4608, 24, 128), False, True),
+    ("cuda", BF16, (2, 4173, 24, 128), (2, 4173, 24, 128), False, True),
+    ("cuda", BF16, (2, 512, 24, 128), (2, 512, 24, 128), False, False),
+    ("cuda", BF16, (2, 4608, 24, 128), (2, 4608, 24, 128), True, False),
+    ("cuda", F16, (2, 4608, 24, 128), (2, 4608, 24, 128), False, False),
+    ("cpu", BF16, (2, 4608, 24, 128), (2, 4608, 24, 128), False, False),
+    ("cuda", BF16, (2, 4608, 12, 256), (2, 4608, 12, 256), False, False),
+    ("cuda", BF16, (2, 4608, 32, 96), (2, 4608, 32, 96), False, False),
     ("cuda", BF16, (2, 4096, 5, 64), (2, 4096, 5, 64), True, False),
     ("cpu", BF16, (2, 4096, 5, 64), (2, 4096, 5, 64), False, False),
     ("meta", BF16, (2, 4096, 5, 64), (2, 4096, 5, 64), False, False),

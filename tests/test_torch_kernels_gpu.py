@@ -190,6 +190,9 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     small = torch.zeros((1, 128, 2, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="B, S, H, 64"):
         fa.flash_attention(small, small, small)
+    wide = torch.zeros((1, 128, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, wide, wide)
 
 
 # GroupNorm backward. dx: both sides compute in fp32 from the same inputs and
@@ -452,6 +455,76 @@ def test_flash_tail_bwd_with_strongly_negative_lse(cuda, b, sq, skv, h):
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
+
+
+def _flash_d128_case(b, sq, skv, h, device, shift=(0.0, 0.0)):
+    q = _randn((b, sq, h, 128), 20, torch.bfloat16, device, shift=shift[0])
+    k = _randn((b, skv, h, 128), 21, torch.bfloat16, device, shift=shift[1])
+    v = _randn((b, skv, h, 128), 22, torch.bfloat16, device)
+    do = _randn((b, sq, h, 128), 23, torch.bfloat16, device)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (2, 4608, 4608, 24),              # FLUX's joint attention at 1,024px
+    (2, 4173, 4173, 24),              # a ragged joint length
+    (1, 300, 277, 3),                 # both lengths ragged, a short tail
+    (1, 128, 320, 2),                 # whole tiles, Sq != Skv
+])
+def test_flash_d128_kernels_match_plain(cuda, b, sq, skv, h):
+    """Head dim 128: the forward, dQ and dK/dV kernels' d = 128 instances
+    match the plain versions within the d = 64 kernels' bounds, count each
+    launch in its d128 counter (and, at a ragged length, its tail
+    counter), and give the same bits again (no atomics)."""
+    q, k, v, do = _flash_d128_case(b, sq, skv, h, cuda)
+    counters = (fa.launches_d128, fa.launches_bwd_dq_d128,
+                fa.launches_bwd_dkv_d128, fa.launches_tail,
+                fa.launches_bwd_dq_tail, fa.launches_bwd_dkv_tail)
+    before = [c.value for c in counters]
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    ragged = int(bool(sq % 64 or skv % 64))
+    assert [c.value - n for c, n in zip(counters, before)] == \
+        [1, 1, 1, ragged, ragged, ragged]
+    assert out.shape == q.shape and lse.shape == (b, h, sq)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v)
+    _assert_flash_out_close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, **_FA_LSE_TOL)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
+    again = fa.flash_attention_cuda(q, k, v)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for a, w in zip(got, fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)):
+        assert torch.equal(a, w)
+
+
+def test_flash_d128_with_strongly_negative_lse_and_strided_views(cuda):
+    """Head dim 128 with every lse below -100 at a ragged length (a padded
+    key's or query's p would be inf against its zero rows), and q/k/v
+    sliced out of one fused projection: finite, and the plain answer."""
+    q, k, v, do = _flash_d128_case(1, 300, 277, 2, cuda, shift=(-4.0, 4.0))
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    assert lse.max().item() < -100
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
+    qkv = _randn((2, 320, 4, 384), 24, torch.bfloat16, cuda)
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    out, lse = fa.flash_attention(q, k, v)
+    plain = [t.contiguous() for t in (q, k, v)]
+    want_out, want_lse = fa.flash_attention_reference(*plain)
+    _assert_flash_out_close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, **_FA_LSE_TOL)
+    do = _randn((2, 320, 4, 128), 25, torch.bfloat16, cuda)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(*plain, out, lse, do)
+    for a, w in zip(got, want):
         _assert_close_rel(a, w, _FA_BWD_REL, _FA_BWD_RTOL)
 
 
@@ -803,13 +876,14 @@ def test_tiny_trainer_on_card_matches_cpu(cuda):
     (torch.float32, (2, 1024, 5, 64)),    # fp32 SD2 first stage at 256px
     (torch.float32, (1, 4096, 5, 64)),    # fp32 SD2 first stage at 512px
     (torch.float32, (2, 1024, 5, 128)),
-    (torch.bfloat16, (2, 1024, 5, 128)),  # head dim 128
+    (torch.bfloat16, (2, 1024, 5, 96)),   # a head dim without an instance
     (torch.float16, (2, 1024, 5, 64)),
 ])
 def test_attention_dispatch_takes_plain_math_where_no_kernel(cuda, dtype,
                                                              shape):
-    """What the flash kernels do not take (fp32, fp16, head dim 128) runs
-    on plain math on the card without a launch, and matches it."""
+    """What the flash kernels do not take (fp32, fp16, head dims other than
+    64 and 128) runs on plain math on the card without a launch, and
+    matches it."""
     from diffusion_torch.ops import attention as attn
     q, k, v = (_randn(shape, s, dtype, cuda) for s in range(3))
     before = fa.launches.value
@@ -825,9 +899,10 @@ def test_attention_dispatch_takes_plain_math_where_no_kernel(cuda, dtype,
     torch.testing.assert_close(out.double(), ref, atol=tol, rtol=tol)
 
 
-def test_attention_dispatch_launches_the_kernel_in_bf16(cuda):
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_attention_dispatch_launches_the_kernel_in_bf16(cuda, head_dim):
     from diffusion_torch.ops import attention as attn
-    q, k, v = (_randn((2, 1024, 5, 64), s, torch.bfloat16, cuda)
+    q, k, v = (_randn((2, 1024, 5, head_dim), s, torch.bfloat16, cuda)
                for s in range(3))
     before = fa.launches.value
     out = attn.multi_head_attention(q, k, v)
