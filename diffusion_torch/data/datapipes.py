@@ -15,31 +15,48 @@ rank)` :142-147, transform/tokenize maps :149-157; mix_datapipe.py:85
 SampleMultiplexer weighted mixing; DataLoader2 + fullsync tail :216-238).
 
 Plain Python generators instead of DataPipe objects: the hot path is PIL
-decode + numpy, threads come from data/dataloader.py's pool, and the
-`fullsync` distributed barrier is an explicit all-hosts agreement generator
-(length_sync) rather than a reading-service.
+decode + numpy, and the `fullsync` distributed barrier is an explicit
+all-hosts agreement generator (length_sync) rather than a reading-service.
+Where `WdsPipeline` has loader workers, each sample's JPEG decode, crop and
+resize run in a pool of spawned processes (`ordered_map`), as the
+reference's graph ran under torchdata's MultiProcessingReadingService
+(wds_datapipe.py:234-237); the stages whose order or draws matter stay on
+the iterating thread.
 """
 
 from __future__ import annotations
 
-import functools
+import collections
 import io
 import json
 import logging
+import multiprocessing
 import os
+import pickle
 import random
 import tarfile
+import threading
+import weakref
+from concurrent.futures import Future, ProcessPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
 from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
                      Optional, Sequence, Union)
 
 from diffusion_torch.data.filters import filter_fn, log_and_continue
+from diffusion_torch.ops._build import LaunchCounter
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["list_shards", "shard_shuffle", "apply_sharding", "tar_samples",
            "rename_keys", "decode_sample", "drop_incomplete", "filter_samples",
-           "sample_shuffle", "map_samples", "sample_multiplexer", "batcher",
-           "length_sync", "WdsPipeline"]
+           "sample_shuffle", "map_samples", "ordered_map",
+           "sample_multiplexer", "batcher", "length_sync", "WdsPipeline",
+           "decoded_in_workers", "decoded_inline"]
+
+# `WdsPipeline`'s samples whose image a loader worker decoded, and those
+# the iterating thread decoded (counted on that thread, as they are taken)
+decoded_in_workers = LaunchCounter()
+decoded_inline = LaunchCounter()
 
 _IMAGE_EXTS = ("jpg", "jpeg", "png", "webp")
 
@@ -145,8 +162,6 @@ def decode_sample(sample: Dict[str, Any],
     draft_size: when the downstream transform resizes to ~draft_size, pass
     it here and JPEGs decode at libjpeg's reduced DCT scale (>=2x kept for
     resample headroom) — a large fraction of raw-LAION decode time."""
-    from PIL import Image, ImageFile
-    ImageFile.LOAD_TRUNCATED_IMAGES = True  # tolerance, reference :31
     out: Dict[str, Any] = {}
     for k, v in sample.items():
         if k == "json" and isinstance(v, (bytes, str)):
@@ -157,13 +172,21 @@ def decode_sample(sample: Dict[str, Any],
         elif k in ("txt", "text", "caption") and isinstance(v, bytes):
             out[k] = v.decode("utf-8", errors="replace")
         elif k == "image" and isinstance(v, bytes):
-            img = Image.open(io.BytesIO(v))
-            if draft_size and img.format == "JPEG":
-                img.draft(image_mode, (2 * draft_size, 2 * draft_size))
-            out[k] = img.convert(image_mode)
+            out[k] = open_image(v, image_mode, draft_size)
         else:
             out[k] = v
     return out
+
+
+def open_image(data: bytes, image_mode: str = "RGB",
+               draft_size: Optional[int] = None):
+    """decode_sample's image branch: bytes -> PIL image in `image_mode`."""
+    from PIL import Image, ImageFile
+    ImageFile.LOAD_TRUNCATED_IMAGES = True  # tolerance, reference :31
+    img = Image.open(io.BytesIO(data))
+    if draft_size and img.format == "JPEG":
+        img.draft(image_mode, (2 * draft_size, 2 * draft_size))
+    return img.convert(image_mode)
 
 
 def drop_incomplete(samples: Iterable[Dict[str, Any]],
@@ -210,6 +233,143 @@ def map_samples(samples: Iterable[Any], fn: Callable[[Any], Any],
             continue
         if out is not None:
             yield out
+
+
+class ImageFailure:
+    """What `ImageWork` returns where `image_fn` raised on an image it
+    decoded: the error, raised again by the stage that ran `image_fn`
+    inline, so the sample drops out where it dropped inline."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+class ImageWork:
+    """A loader worker's part of a sample: `open_image`, then `image_fn`.
+    A failed decode raises (the sample drops where decode_sample's map
+    drops it); a failed `image_fn` returns an `ImageFailure`."""
+
+    def __init__(self, image_fn: Callable[[Any], Any], image_mode: str = "RGB",
+                 draft_size: Optional[int] = None):
+        self.image_fn = image_fn
+        self.image_mode = image_mode
+        self.draft_size = draft_size
+
+    def __call__(self, data: bytes) -> Any:
+        img = open_image(data, self.image_mode, self.draft_size)
+        try:
+            return self.image_fn(img)
+        except Exception as e:
+            return ImageFailure(e)
+
+
+# ---- loader workers --------------------------------------------------------
+# spawned, as DataLoader's process path is (data/dataloader.py): the parent
+# is multithreaded, and Python-side work in a thread would hold the GIL
+# against the training step's dispatch. A worker imports PIL, numpy and
+# this package's data modules; its `ImageWork` is unpickled once, and a task
+# is one sample's image bytes.
+_WORK: Optional[ImageWork] = None
+
+
+def _init_worker(pickled_work: bytes) -> None:
+    global _WORK
+    _WORK = pickle.loads(pickled_work)
+
+
+def _work(data: bytes) -> Any:
+    return _WORK(data)
+
+
+_POOLS: "weakref.WeakSet[ProcessPoolExecutor]" = weakref.WeakSet()
+
+
+def _cancel_pools() -> None:
+    """At exit, before concurrent.futures joins its pools: drop the work
+    still queued, so the workers stop after what they are running."""
+    for pool in list(_POOLS):
+        pool.shutdown(wait=False, cancel_futures=True)
+
+
+# threading's exit hooks run last-registered first, so this one runs before
+# the join concurrent.futures registered when it was imported, above
+threading._register_atexit(_cancel_pools)
+
+
+def _spawn_pool(num_workers: int, work: ImageWork) -> ProcessPoolExecutor:
+    pool = ProcessPoolExecutor(
+        max_workers=num_workers,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_init_worker, initargs=(pickle.dumps(work),))
+    _POOLS.add(pool)
+    return pool
+
+
+def ordered_map(samples: Iterable[Dict[str, Any]], pool: ProcessPoolExecutor,
+                work: ImageWork, window: int,
+                handler: Callable[[BaseException], bool] = log_and_continue
+                ) -> Iterator[Dict[str, Any]]:
+    """Each sample with its `image` bytes replaced by `work`'s result, run
+    in the pool's workers, in the order the samples came, with up to
+    `window` samples in flight; a sample without image bytes passes
+    through, one whose decode raised is dropped (`handler`). While the
+    oldest sample's image is not back, the calling thread runs `work` on
+    the newest sample no worker has started, rather than wait (as when the
+    shuffle buffer first fills). Closing the generator, as an abandoned
+    iterator's is, cancels the work it still had queued."""
+    # [sample, its image's future, whether a worker runs it]
+    pending: "collections.deque" = collections.deque()
+
+    def run_here(entry):
+        done: Future = Future()
+        try:
+            done.set_result(work(entry[0]["image"]))
+        except Exception as e:
+            done.set_exception(e)
+        entry[1:] = [done, False]
+
+    def take():
+        head = pending[0][1]
+        while head is not None and not head.done():
+            for entry in reversed(pending):
+                if entry[2] and entry[1].cancel():
+                    run_here(entry)
+                    break
+            else:
+                break      # every sample left is the workers': wait
+        sample, future, in_worker = pending.popleft()
+        if future is None:
+            return sample
+        try:
+            image = future.result()
+        except BrokenProcessPool:
+            raise
+        except Exception as e:
+            if not handler(e):
+                raise
+            return None
+        (decoded_in_workers if in_worker else decoded_inline).add()
+        return {**sample, "image": image}
+
+    try:
+        for s in samples:
+            data = s.get("image")
+            if isinstance(data, bytes):
+                pending.append([s, pool.submit(_work, data), True])
+            else:
+                pending.append([s, None, False])
+            if len(pending) >= window:
+                out = take()
+                if out is not None:
+                    yield out
+        while pending:
+            out = take()
+            if out is not None:
+                yield out
+    finally:
+        for _, future, in_worker in pending:
+            if in_worker:
+                future.cancel()
 
 
 def sample_multiplexer(pipes_to_weights: Mapping[Iterable[Any], float],
@@ -279,6 +439,18 @@ class WdsPipeline:
     shard shuffle -> per-host shard split -> tar read -> rename -> decode ->
     drop-incomplete -> metadata filter -> sample shuffle -> map(transform)
     -> batch -> fullsync. Re-iterating advances the epoch (new shard order).
+
+    With `num_workers` >= 1 and a transform split into `image_fn` (PIL image
+    -> array) and `finish` (the rest of the sample) whose `image_fn`
+    pickles, the decode and `image_fn` run in `num_workers` spawned loader
+    processes, in place of the decode stage (`ordered_map`, up to
+    `batch_size x prefetch_factor` samples in flight, and at least one a
+    worker; the iterating thread takes a share where it would wait), and
+    `finish` in place of the transform; the pool lives until `close()` or
+    exit. Otherwise every stage runs on the iterating thread.
+    The batches are the same either way, and so are the global `random`
+    draws a transform makes, since `finish` runs where the transform ran; an
+    `image_fn` that draws from a state of its own draws in the worker.
     """
 
     def __init__(self, shards: Sequence[str], transform: Callable,
@@ -286,7 +458,8 @@ class WdsPipeline:
                  required: Sequence[str] = ("image",),
                  shuffle_buffer: int = 1000, seed: int = 42,
                  drop_last: bool = True, shuffle: bool = True,
-                 draft_size: Optional[int] = None):
+                 draft_size: Optional[int] = None, num_workers: int = 0,
+                 prefetch_factor: int = 2):
         self.draft_size = draft_size
         self.shards = list(shards)
         self.transform = transform
@@ -297,7 +470,37 @@ class WdsPipeline:
         self.seed = seed
         self.drop_last = drop_last
         self.shuffle = shuffle
+        self.num_workers = max(int(num_workers), 0)
+        self.window = max(batch_size * max(int(prefetch_factor), 1),
+                          self.num_workers)
+        self._work = self._image_work()
+        self._pool: Optional[ProcessPoolExecutor] = None
         self._epoch = 0
+
+    def _image_work(self) -> Optional[ImageWork]:
+        """The workers' part, where it pickles; None where the pipeline
+        decodes inline."""
+        image_fn = getattr(self.transform, "image_fn", None)
+        if self.num_workers < 1 or image_fn is None:
+            return None
+        work = ImageWork(image_fn, draft_size=self.draft_size)
+        try:
+            pickle.dumps(work)
+        except Exception:  # a lambda or a local function: inline
+            return None
+        return work
+
+    def _decode_inline(self, sample: Dict[str, Any]) -> Dict[str, Any]:
+        out = decode_sample(sample, draft_size=self.draft_size)
+        if isinstance(sample.get("image"), bytes):
+            decoded_inline.add()
+        return out
+
+    def _finish(self, sample: Dict[str, Any]) -> Any:
+        image = sample.get("image")
+        if isinstance(image, ImageFailure):
+            raise image.error
+        return self.transform.finish(sample)
 
     def __iter__(self) -> Iterator[Any]:
         from diffusion_torch.utils.device import rank_and_world
@@ -309,17 +512,31 @@ class WdsPipeline:
         shards = apply_sharding(shards, world, rank)
         samples = tar_samples(shards)
         samples = rename_keys(samples)
-        samples = map_samples(
-            samples,
-            functools.partial(decode_sample, draft_size=self.draft_size))
+        if self._work is None:
+            samples = map_samples(samples, self._decode_inline)
+        else:
+            if self._pool is None:
+                self._pool = _spawn_pool(self.num_workers, self._work)
+            samples = ordered_map(samples, self._pool, self._work,
+                                  self.window)
+            # json and text; the image is already the worker's array
+            samples = map_samples(samples, decode_sample)
         samples = drop_incomplete(samples, self.required)
         samples = filter_samples(samples, self.filter_strategy)
         if self.shuffle:
             samples = sample_shuffle(samples, self.shuffle_buffer,
                                      seed=(self.seed + epoch))
-        samples = map_samples(samples, self.transform)
+        samples = map_samples(samples, self.transform if self._work is None
+                              else self._finish)
         batches = batcher(samples, self.batch_size, self.drop_last)
         return length_sync(batches)
+
+    def close(self) -> None:
+        """Shut the loader workers down (idempotent); the next epoch
+        spawns them again."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
 
     def state_dict(self) -> Dict[str, int]:
         return {"epoch": self._epoch}

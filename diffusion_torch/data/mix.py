@@ -66,6 +66,13 @@ class MixPipeline:
     def load_state_dict(self, d: Dict[str, int]) -> None:
         self._epoch = int(d.get("epoch", 0))
 
+    def close(self) -> None:
+        """Shut down the children's loader workers."""
+        for pipe in self.pipes_to_weights:
+            close_fn = getattr(getattr(pipe, "pipe", None), "close", None)
+            if callable(close_fn):
+                close_fn()
+
     def describe(self) -> str:
         """Text rendering of the composed pipeline graph — the debugging
         analog of the reference's to_graph PDF dump (reference

@@ -82,16 +82,25 @@ class CenterCropSDTransform:
         self.size = int(size)
 
     def __call__(self, img: Image.Image) -> np.ndarray:
+        return self.scale(self.crop(img))
+
+    def crop(self, img: Image.Image) -> np.ndarray:
+        """The image half: RGB, centre crop, bicubic resize; uint8 HWC.
+        PIL's own crop: the same pixels as slicing the array, without
+        `fromarray` of a strided view (over half the time at 512 px)."""
         img = img.convert("RGB")
-        arr = np.asarray(img)
         if self.center_crop:
-            h, w = arr.shape[:2]
+            w, h = img.size
             side = min(h, w)
             top = (h - side) // 2
             left = (w - side) // 2
-            arr = arr[top:top + side, left:left + side]
-        out = Image.fromarray(arr).resize((self.size, self.size), Image.BICUBIC)
-        return np.asarray(out, dtype=np.float32) / 127.5 - 1.0
+            img = img.crop((left, top, left + side, top + side))
+        return np.asarray(img.resize((self.size, self.size), Image.BICUBIC))
+
+    @staticmethod
+    def scale(arr: np.ndarray) -> np.ndarray:
+        """uint8 -> float32 in [-1, 1]."""
+        return np.asarray(arr, dtype=np.float32) / 127.5 - 1.0
 
 
 class SDSquareNormalize:

@@ -201,11 +201,15 @@ def _mix_conf(data):
             for name, w in MIX_WEIGHTS.items()}
 
 
-def test_mix_batches_match_jax(data):
+@pytest.mark.parametrize("num_workers", [0, 1])
+def test_mix_batches_match_jax(data, num_workers):
     conf = _mix_conf(data)
-    # equal weights here, so every source shows up in a short run
+    # equal weights here, so every source shows up in a short run; the wds
+    # children decode inline or in a loader worker each
     for c in conf.values():
         c["weight"] = 1.0
+        if "wds" in c["_target_"]:
+            c["num_workers"] = num_workers
     kw = dict(batch_size=4, resize_size=32, caption_drop_prob=0.2, seed=5)
     random.seed(0)           # the wds transform's caption drop
     jloader = jmix.build_mix_dataloader(conf, **kw)
@@ -220,6 +224,12 @@ def test_mix_batches_match_jax(data):
     assert list(tloader.pipes_to_weights.values()) == [0.25] * 4
     assert tloader.describe() == jloader.describe()
     assert tloader.state_dict() == jloader.state_dict() == {"epoch": 2}
+    assert [getattr(p.pipe, "_pool", None) is not None
+            for p in tloader.pipes_to_weights] == [False] + [
+                bool(num_workers)] * 3
+    tloader.close()
+    assert not any(getattr(p.pipe, "_pool", None)
+                   for p in tloader.pipes_to_weights)
 
 
 class _Labeled:
